@@ -1,0 +1,332 @@
+"""The device plan executor.
+
+Port of ``csvplus_tpu/columnar/exec.py`` for the nodes of
+:mod:`csvplus_tpu_torch.plan`.  It walks a plan chain rooted at a ``Scan``
+of a :class:`~csvplus_tpu_torch.columnar.table.DeviceTable`:
+
+* ``Filter`` -> boolean mask (:mod:`..ops.filter`, through the fused mask
+  kernel) and a compaction of the selection vector;
+* ``Validate`` (last stage only) -> a deferred row-numbered error;
+* ``Top`` -> selection slicing;
+* ``SelectCols``/``DropCols``/``MapExpr`` -> column-metadata updates;
+* ``Join`` -> the packed-key probe and gathers of :mod:`..ops.join`.
+
+Execution keeps a selection vector (int64 row ids on the device) over
+full-length columns and gathers as late as possible.
+
+The port runs the plan **without the static verifier and optimizer** of
+``csvplus_tpu/analysis/``: it lowers exactly as the reference does under
+``CSVPLUS_VERIFY=0`` (whose hook sits in the reference's
+``execute_plan_view``).  The reference's rewriter is certified to keep the
+output bitwise equal, so the results still match the reference run with
+its defaults.  A stage that cannot lower raises :class:`UnsupportedPlan`,
+and the caller falls back to the host streaming path.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .. import plan as P
+from ..errors import CsvPlusError, DataSourceError
+from ..row import MissingColumnError, Row
+from .table import DeviceTable, StringColumn, merge_with_fallback
+
+
+class UnsupportedPlan(Exception):
+    """Plan contains a stage the device executor cannot lower."""
+
+
+class _View:
+    """Full-length columns + an ordered selection vector of row ids.
+
+    ``full_len`` is the column length, kept explicitly so a view with no
+    columns still knows its row count.  ``scan_base`` is the source row
+    number of row 0, so ``scan_base + sel[i]`` numbers the i-th streamed
+    row as the host path does; a Join resets it to 0.  ``identity`` is
+    true while ``sel`` is ``arange(full_len)``: materializing then passes
+    the columns through ungathered."""
+
+    __slots__ = ("cols", "_sel", "device", "full_len", "scan_base",
+                 "deferred_error", "identity")
+
+    def __init__(
+        self,
+        cols: Dict[str, StringColumn],
+        sel: torch.Tensor,
+        device: torch.device,
+        full_len: int,
+        scan_base: int = 0,
+        identity: bool = False,
+    ):
+        self.cols = cols
+        self.sel = sel
+        self.device = device
+        self.full_len = full_len
+        self.scan_base = scan_base
+        self.identity = identity
+        self.deferred_error = None
+
+    @property
+    def sel(self) -> torch.Tensor:
+        return self._sel
+
+    @sel.setter
+    def sel(self, value: torch.Tensor) -> None:
+        self._sel = value
+        self.identity = False  # any rewrite of the selection ends identity
+
+    def materialize(self) -> DeviceTable:
+        if self.identity:
+            table = DeviceTable(dict(self.cols), self.full_len, self.device)
+        else:
+            gathered = {n: c.gather(self.sel) for n, c in self.cols.items()}
+            table = DeviceTable(gathered, int(self.sel.shape[0]), self.device)
+        table.deferred_error = self.deferred_error
+        return table
+
+
+def _scan_view(table: DeviceTable, scan_base: int = 0) -> _View:
+    return _View(
+        dict(table.columns),
+        torch.arange(table.nrows, dtype=torch.int64, device=table.device),
+        table.device,
+        table.nrows,
+        scan_base=scan_base,
+        identity=True,
+    )
+
+
+def execute_plan(root: P.PlanNode) -> DeviceTable:
+    """Run the plan and return the materialized result table."""
+    return execute_plan_view(root).materialize()
+
+
+def execute_plan_view(root: P.PlanNode) -> _View:
+    """Run the plan, returning the final view (columns + selection vector
+    + source row numbering) without materializing.  No verifier runs
+    first (see the module docstring)."""
+    stages = P.linearize(root)
+    # Validate lowers only as the final stage: upstream of anything else
+    # the host's push semantics cannot be reproduced by an eager check
+    for node in stages[:-1]:
+        if isinstance(node, P.Validate):
+            raise UnsupportedPlan("Validate is device-lowered only as last stage")
+    table: DeviceTable = stages[0].table
+    view = _scan_view(table, scan_base=table.row_base)
+    for node in stages[1:]:
+        view = _exec_stage(view, node)
+    return view
+
+
+def _exec_stage(view: _View, node: P.PlanNode) -> _View:
+    """Execute one plan node against the view (mutating or replacing it)."""
+    from ..ops.join import join_tables
+
+    if isinstance(node, P.Filter):
+        view.sel = view.sel[_sel_mask(view, node.pred)]
+    elif isinstance(node, P.Validate):
+        bad = ~_sel_mask(view, node.pred)
+        # one scalar transfer on the happy path: the first failing
+        # position, or -1
+        first = int(torch.where(bad.any(), torch.argmax(bad.to(torch.uint8)), -1).item())
+        if first >= 0:
+            rowno = view.scan_base + int(view.sel[first].item())
+            # deferred: it fires only if streaming reaches row `first`
+            view.deferred_error = (
+                first, DataSourceError(rowno, CsvPlusError(node.message))
+            )
+    elif isinstance(node, P.Top):
+        view.sel = view.sel[: node.n]
+    elif isinstance(node, P.SelectCols):
+        _apply_select(view, node.columns)
+    elif isinstance(node, P.DropCols):
+        view.cols = {n: c for n, c in view.cols.items() if n not in set(node.columns)}
+    elif isinstance(node, P.MapExpr):
+        _apply_map(view, node.expr)
+    elif isinstance(node, P.Join):
+        dev_index = node.index.device_table
+        if dev_index is None or not dev_index.supported:
+            raise UnsupportedPlan("join build side has no packed device index")
+        _check_key_cells(view, node.columns)
+        joined = join_tables(view.materialize(), dev_index, list(node.columns))
+        view = _scan_view(joined)
+    else:
+        raise UnsupportedPlan(f"no device lowering for {type(node).__name__}")
+    return view
+
+
+class _SelView:
+    """Column mapping that hands out columns gathered down to the current
+    selection, only for the columns a predicate references."""
+
+    def __init__(self, cols, sel):
+        self._cols = cols
+        self._sel = sel
+        self._cache: dict = {}
+
+    def __contains__(self, name) -> bool:
+        return name in self._cols
+
+    def __getitem__(self, name):
+        got = self._cache.get(name)
+        if got is None:
+            got = self._cache[name] = self._cols[name].gather(self._sel)
+        return got
+
+
+def _sel_mask(view: _View, pred) -> torch.Tensor:
+    """Boolean mask aligned to ``view.sel`` — the one definition of
+    predicate lowering against the current selection.  A selection much
+    narrower than the columns builds the mask over gathered sub-columns
+    instead of all rows."""
+    from ..ops.filter import UnsupportedPredicate, build_mask
+
+    nrows = view.full_len
+    sel_n = int(view.sel.shape[0])
+    if sel_n == 0:
+        return torch.zeros(0, dtype=torch.bool, device=view.device)
+    try:
+        if 4 * sel_n < nrows:
+            return build_mask(_SelView(view.cols, view.sel), sel_n, pred, view.device)
+        mask = build_mask(view.cols, nrows, pred, view.device)
+    except UnsupportedPredicate as e:
+        raise UnsupportedPlan(str(e)) from e
+    return mask if view.identity else mask[view.sel]
+
+
+def _check_key_cells(view: _View, columns) -> None:
+    """Host-parity key validation for Join: the error names the first
+    streamed row lacking a key cell; an empty stream never errors."""
+    if view.sel.shape[0] == 0:
+        return
+    bad = first_missing_cell(view, columns)
+    if bad is not None:
+        raise DataSourceError(bad[0], MissingColumnError(bad[1]))
+
+
+def first_missing_cell(view: _View, columns):
+    """``(source row number, column)`` of the first missing cell in
+    streamed row-major order — the first streamed row lacking any of
+    *columns*, and within it the first such column — or None."""
+    best = None  # (streamed position, column)
+    for c in columns:
+        col = view.cols.get(c)
+        if col is None:
+            pos = 0  # missing from the schema: every streamed row lacks it
+        elif col.has_absent:
+            bad = torch.index_select(col.codes, 0, view.sel) < 0
+            if not bool(bad.any()):
+                continue
+            pos = int(torch.argmax(bad.to(torch.uint8)))
+        else:
+            continue
+        if best is None or pos < best[0]:
+            best = (pos, c)
+            if pos == 0:
+                break  # nothing can precede streamed row 0
+    if best is None:
+        return None
+    pos, c = best
+    return view.scan_base + int(view.sel[pos].item()), c
+
+
+def _apply_select(view: _View, columns) -> None:
+    """SelectCols with host-parity errors: the first streamed row lacking
+    a cell raises, so an empty selection never errors."""
+    if view.sel.shape[0] == 0:
+        empty = torch.zeros(0, dtype=torch.int32, device=view.device)
+        view.cols = {
+            c: view.cols.get(c, StringColumn(np.empty(0, dtype="S1"), empty))
+            for c in columns
+        }
+        return
+    bad = first_missing_cell(view, columns)
+    if bad is not None:
+        raise DataSourceError(bad[0], MissingColumnError(bad[1]))
+    view.cols = {c: view.cols[c] for c in columns}
+
+
+def _apply_map(view: _View, expr) -> None:
+    from ..exprs import Rename, SetValue, Update
+
+    if isinstance(expr, Update):
+        for e in expr.exprs:
+            _apply_map(view, e)
+        return
+    if isinstance(expr, SetValue):
+        view.cols[expr.column] = StringColumn.constant(
+            expr.value, view.full_len, view.device
+        )
+        return
+    if isinstance(expr, Rename):
+        # sequential pop/overwrite, as the host expr does it: a rename onto
+        # an existing name overwrites it, chained renames cascade, and a
+        # row without the old cell keeps its existing new-column value
+        for old, new in expr.mapping.items():
+            if old in view.cols:
+                moved = view.cols.pop(old)
+                existing = view.cols.pop(new, None)
+                if existing is not None and moved.has_absent:
+                    moved = merge_with_fallback(moved, existing)
+                view.cols[new] = moved
+        return
+    raise UnsupportedPlan(f"cannot lower map expression {expr!r} to device")
+
+
+def try_execute_plan(root: Optional[P.PlanNode]) -> Optional[List[Row]]:
+    """Execute the plan to host Rows, or None when it cannot lower.  A
+    failing terminal Validate raises: a full materialization always
+    reaches the first invalid row."""
+    if root is None:
+        return None
+    try:
+        table = execute_plan(root)
+    except UnsupportedPlan:
+        return None
+    if table.deferred_error is not None:
+        raise table.deferred_error[1]
+    return table.to_rows()
+
+
+def plan_runner(root: P.PlanNode, fallback=None, owner=None):
+    """A DataSource run function that executes *root* on device and streams the
+    decoded rows; it falls back to *fallback* when the plan cannot lower
+    (remembered on *owner*)."""
+
+    def run(fn) -> None:
+        if owner is not None and getattr(owner, "_plan_unsupported", False):
+            fallback(fn)
+            return
+        try:
+            table = execute_plan(root)
+        except UnsupportedPlan:
+            if owner is not None:
+                owner._plan_unsupported = True
+            if fallback is None:
+                raise
+            fallback(fn)
+            return
+        from ..source import iterate
+
+        if table.deferred_error is not None:
+            # stream up to the first invalid row; the error fires only if
+            # the consumer is still listening when it is reached
+            k, err = table.deferred_error
+            delivered = 0
+
+            def counting(row):
+                nonlocal delivered
+                fn(row)
+                delivered += 1
+
+            iterate(table.to_rows(np.arange(k)), counting, clone=False)
+            if delivered == k:
+                raise err
+            return
+        iterate(table.to_rows(), fn, clone=False)
+
+    return run

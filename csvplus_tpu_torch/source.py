@@ -1,0 +1,350 @@
+"""DataSource: the lazy, composable iteration protocol.
+
+Port of ``csvplus_tpu/source.py`` (the reference's data source,
+csvplus.go:207-256): a data source *is a function* — invoking it pushes
+rows one at a time into a callback — and combinators return new lazy
+sources.  Nothing runs until a sink (or a direct call) drives the chain.
+
+Semantics kept from the reference:
+
+* rows from materialized sources are **cloned** before delivery
+  (csvplus.go:225-249);
+* a callback may raise :class:`StopPipeline` to stop early without error;
+* errors carry row numbers where the reference wraps them (``iterate``
+  uses the 0-based position, the CSV reader 1-based records);
+* ``Transform`` drops empty result rows (csvplus.go:265);
+* ``Top`` stops via the EOF mechanism (csvplus.go:319).
+
+Each DataSource may carry a symbolic ``plan`` (:mod:`.plan`).  When every
+stage of a chain is symbolic and the origin is a device table, the chain
+runs on the device executor; an opaque callback drops the chain to the
+host streaming path.
+
+This slice ports ``transform``, ``filter``, ``map``, ``validate``,
+``top``, ``drop_columns``, ``select_columns``, ``index_on``,
+``unique_index_on``, ``join``, ``on_device`` and the sinks ``to_csv``,
+``to_csv_file``, ``to_rows`` and ``to_device_table``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Iterable, List, Optional, Sequence
+
+from .errors import CsvPlusError, DataSourceError, StopPipeline
+from .row import Row, merge_rows
+
+#: A row callback: called once per row; raise :class:`StopPipeline` to
+#: stop cleanly, any other exception to fail.
+RowFunc = Callable[[Row], None]
+
+
+def iterate(rows: Sequence[Row], fn: RowFunc, clone: bool = True) -> None:
+    """Drive *fn* over a row slice, cloning each row (csvplus.go:225-249).
+    Errors raised by *fn* are wrapped with the row's 0-based position."""
+    i = 0
+    try:
+        for i, row in enumerate(rows):
+            fn(Row(row) if clone else row)
+    except StopPipeline:
+        return
+    except DataSourceError:
+        raise
+    except Exception as e:
+        raise DataSourceError(i, e) from e
+
+
+class DataSource:
+    """A lazy stream of Rows; call it with a row callback to execute."""
+
+    __slots__ = ("_run", "plan", "_plan_unsupported")
+
+    def __init__(self, run: Callable[[RowFunc], None], plan: Any = None):
+        self._run = run
+        self.plan = plan  # symbolic plan node, or None (host-only chain)
+        self._plan_unsupported = False  # memo: device plan cannot lower
+
+    def __call__(self, fn: RowFunc) -> None:
+        """Push every row into *fn* (which may raise StopPipeline)."""
+        try:
+            self._run(fn)
+        except StopPipeline:
+            return
+
+    # -- per-row lazy combinators (csvplus.go:258-310) ---------------------
+
+    def transform(self, trans: Callable[[Row], Optional[Row]]) -> "DataSource":
+        """Most generic per-row stage (csvplus.go:262-272): *trans*
+        returns the replacement row; an empty dict or None drops it."""
+
+        def run(fn: RowFunc) -> None:
+            def step(row: Row) -> None:
+                out = trans(row)
+                if out:
+                    fn(out if isinstance(out, Row) else Row(out))
+
+            self._run(step)
+
+        from .plan import map_plan
+
+        return _make(run, map_plan(self.plan, trans))
+
+    def filter(self, pred: Callable[[Row], bool]) -> "DataSource":
+        """Keep rows for which *pred* is true (csvplus.go:276-286)."""
+
+        def run(fn: RowFunc) -> None:
+            def step(row: Row) -> None:
+                if pred(row):
+                    fn(row)
+
+            self._run(step)
+
+        from .plan import filter_plan
+
+        return _make(run, filter_plan(self.plan, pred))
+
+    def map(self, mf: Callable[[Row], Row]) -> "DataSource":
+        """Apply *mf* to every row (csvplus.go:290-296)."""
+
+        def run(fn: RowFunc) -> None:
+            def step(row: Row) -> None:
+                out = mf(row)
+                fn(out if isinstance(out, Row) else Row(out))
+
+            self._run(step)
+
+        from .plan import map_plan
+
+        return _make(run, map_plan(self.plan, mf))
+
+    def validate(
+        self, vf: Callable[[Row], "None | bool"], message: str = "validation failed"
+    ) -> "DataSource":
+        """Check every row (csvplus.go:300-310): *vf* raises to fail the
+        pipeline at that row.  A symbolic predicate instead keeps the
+        check on the device, failing with *message* at the first failing
+        row's source number."""
+        from .predicates import Predicate
+
+        if isinstance(vf, Predicate):
+            pred = vf
+
+            def run(fn: RowFunc) -> None:
+                def step(row: Row) -> None:
+                    if not pred(row):
+                        raise CsvPlusError(message)
+                    fn(row)
+
+                self._run(step)
+
+            from .plan import validate_plan
+
+            return _make(run, validate_plan(self.plan, pred, message))
+
+        def run(fn: RowFunc) -> None:
+            def step(row: Row) -> None:
+                vf(row)
+                fn(row)
+
+            self._run(step)
+
+        return _make(run, None)
+
+    def top(self, n: int) -> "DataSource":
+        """Pass down at most *n* rows, then stop cleanly (csvplus.go:313-326)."""
+
+        def run(fn: RowFunc) -> None:
+            counter = n
+
+            def step(row: Row) -> None:
+                nonlocal counter
+                if counter == 0:
+                    raise StopPipeline
+                counter -= 1
+                fn(row)
+
+            self._run(step)
+
+        from .plan import top_plan
+
+        return _make(run, top_plan(self.plan, n))
+
+    # -- column projection (csvplus.go:492-525) ----------------------------
+
+    def drop_columns(self, *columns: str) -> "DataSource":
+        """Remove the listed columns from each row (csvplus.go:493-507)."""
+        if not columns:
+            raise ValueError("no columns specified in DropColumns()")
+
+        def run(fn: RowFunc) -> None:
+            def step(row: Row) -> None:
+                for c in columns:
+                    row.pop(c, None)
+                fn(row)
+
+            self._run(step)
+
+        from .plan import drop_columns_plan
+
+        return _make(run, drop_columns_plan(self.plan, columns))
+
+    def select_columns(self, *columns: str) -> "DataSource":
+        """Keep exactly the listed columns; error if any is missing
+        (csvplus.go:511-525)."""
+        if not columns:
+            raise ValueError("no columns specified in SelectColumns()")
+
+        def run(fn: RowFunc) -> None:
+            def step(row: Row) -> None:
+                fn(row.select(*columns))
+
+            self._run(step)
+
+        from .plan import select_columns_plan
+
+        return _make(run, select_columns_plan(self.plan, columns))
+
+    # -- index / join (index.py) -------------------------------------------
+
+    def index_on(self, *columns: str):
+        """Materialize a sorted :class:`~csvplus_tpu_torch.index.Index`
+        on the listed key columns (csvplus.go:529-531)."""
+        from .index import create_index
+
+        return create_index(self, columns)
+
+    def unique_index_on(self, *columns: str):
+        """Like :meth:`index_on` but errors on duplicate keys
+        (csvplus.go:535-537)."""
+        from .index import create_unique_index
+
+        return create_unique_index(self, columns)
+
+    def join(self, index, *columns: str) -> "DataSource":
+        """Lazy lookup join against *index* (csvplus.go:539-569): the
+        listed stream columns match the index's key columns left to right
+        (none given: the index's own key names).  On a name collision the
+        stream row's value wins (csvplus.go:560, 571-583)."""
+        if not columns:
+            cols = list(index._impl.columns)
+        elif len(columns) > len(index._impl.columns):
+            raise ValueError("too many source columns in Join()")
+        else:
+            cols = list(columns)
+
+        def run(fn: RowFunc) -> None:
+            index.materialize()  # host probe loop: decode a lazy index once
+
+            def step(row: Row) -> None:
+                values = row.select_values(*cols)
+                for index_row in index._impl.find_rows(values):
+                    fn(merge_rows(index_row, row))
+
+            self._run(step)
+
+        from .plan import join_plan
+
+        return _make(run, join_plan(self.plan, index, cols))
+
+    # -- device migration --------------------------------------------------
+
+    def on_device(self, device: str = "cuda") -> "DataSource":
+        """Columnarize this source onto *device* (``"cuda"`` unless the
+        caller asks for ``"cpu"``) and return a plan-capable source over
+        it.  Error row numbers downstream count streamed rows from 0;
+        ``from_file(...).on_device()`` keeps the reader's numbering."""
+        from .columnar.ingest import source_from_table
+        from .columnar.table import DeviceTable
+
+        return source_from_table(DeviceTable.from_rows(self.to_rows(), device))
+
+    OnDevice = on_device
+
+    # -- sinks (sinks.py) --------------------------------------------------
+
+    def to_csv(self, out, *columns: str) -> None:
+        """Write selected columns as canonical CSV (csvplus.go:379-406)."""
+        from .sinks import to_csv
+
+        to_csv(self, out, *columns)
+
+    def to_csv_file(self, name: str, *columns: str) -> None:
+        """CSV sink to a named file, removed on any error (csvplus.go:411-443)."""
+        from .sinks import to_csv_file
+
+        to_csv_file(self, name, *columns)
+
+    def to_rows(self) -> List[Row]:
+        """Drive the chain and collect every row (csvplus.go:483-490)."""
+        from .sinks import to_rows
+
+        return to_rows(self)
+
+    def to_device_table(self, device: str = "cuda"):
+        """Execute the chain into a device-resident table without decoding
+        rows.  A chain that cannot lower columnarizes its streamed rows
+        onto the device it was pinned to; a host-only chain onto
+        *device*."""
+        from .columnar.exec import UnsupportedPlan, execute_plan
+        from .columnar.table import DeviceTable
+
+        if self.plan is not None:
+            try:
+                table = execute_plan(self.plan)
+            except UnsupportedPlan:
+                from .plan import linearize
+
+                device = linearize(self.plan)[0].table.device
+            else:
+                if table.deferred_error is not None:
+                    raise table.deferred_error[1]
+                return table
+        return DeviceTable.from_rows(self.to_rows(), device)
+
+    # -- Go-style aliases --------------------------------------------------
+    Transform = transform
+    Filter = filter
+    Map = map
+    Validate = validate
+    Top = top
+    DropColumns = drop_columns
+    SelectColumns = select_columns
+    IndexOn = index_on
+    UniqueIndexOn = unique_index_on
+    Join = join
+    ToCsv = to_csv
+    ToCsvFile = to_csv_file
+    ToRows = to_rows
+
+
+def _make(run, plan) -> DataSource:
+    """A combinator result: device plan execution when the chain is
+    symbolic, with *run* (the host streaming closure) as fallback."""
+    if plan is None:
+        return DataSource(run)
+    from .columnar.exec import plan_runner
+
+    ds = DataSource(run, plan=plan)
+    ds._run = plan_runner(plan, fallback=run, owner=ds)
+    return ds
+
+
+def take_rows(rows: Iterable[Row]) -> DataSource:
+    """A DataSource over a list of Rows, cloned on every iteration
+    (csvplus.go:218-222)."""
+    rows = list(rows)
+
+    def run(fn: RowFunc) -> None:
+        iterate(rows, fn)
+
+    return DataSource(run)
+
+
+def take(src: Any) -> DataSource:
+    """Lift anything with an ``iterate(fn)``/``Iterate(fn)`` method — a
+    Reader, an Index, a DeviceTable — into a DataSource (csvplus.go:252-256)."""
+    if isinstance(src, DataSource):
+        return src
+    it = getattr(src, "iterate", None) or getattr(src, "Iterate", None)
+    if it is None:
+        raise TypeError(f"take(): {type(src).__name__} has no iterate() method")
+    return DataSource(it, plan=getattr(src, "plan", None))

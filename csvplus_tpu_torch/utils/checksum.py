@@ -1,0 +1,110 @@
+"""Order-sensitive column checksums for whole-result verification.
+
+Port of ``checksum_host_rows`` and ``checksum_device_table`` from
+``csvplus_tpu/utils/checksum.py``, giving the same numbers:
+
+* per value: 32-bit FNV-1a over its UTF-8 bytes, computed on the host
+  over a column's dictionary (each distinct value hashed once);
+* per column: the sum mod 2^32 of every row's value hash, an absent cell
+  contributing 0; with ``positional=True`` row i's hash is first
+  multiplied by the odd weight ``2*i + 1``, so a permutation of rows
+  changes the sum with high probability.
+
+On the device the hashing runs in int64 with ``& 0xFFFFFFFF``, because
+torch has no usable uint32 arithmetic: a column costs one gather, one
+weighted product and one sum, and the whole table one transfer.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+_FNV_OFFSET = np.uint32(2166136261)
+_FNV_PRIME = np.uint32(16777619)
+_M32 = 0xFFFFFFFF
+
+
+def fnv1a_values(values: np.ndarray) -> np.ndarray:
+    """Vectorized 32-bit FNV-1a over each entry of an 'S' bytes array
+    (trailing NUL padding excluded)."""
+    values = np.asarray(values)
+    if values.dtype.kind == "U":
+        values = np.char.encode(values, "utf-8")
+    n = values.size
+    if n == 0:
+        return np.empty(0, dtype=np.uint32)
+    width = values.dtype.itemsize
+    mat = np.frombuffer(values.tobytes(), dtype=np.uint8).reshape(n, width)
+    lens = np.char.str_len(values)
+    h = np.full(n, _FNV_OFFSET, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        for i in range(width):
+            live = i < lens
+            nh = (h ^ mat[:, i]) * _FNV_PRIME
+            h = np.where(live, nh, h)
+    return h
+
+
+def checksum_host_rows(
+    rows: Sequence, columns: Sequence[str], positional: bool = False
+) -> Dict[str, int]:
+    """Per-column row-hash sums (mod 2^32) over host Row dicts; an absent
+    cell contributes 0."""
+    out = {}
+    for c in columns:
+        vals = [r.get(c) for r in rows]
+        present = np.array([v is not None for v in vals], dtype=bool)
+        hashes = np.zeros(len(vals), dtype=np.uint32)
+        if present.any():
+            arr = np.array([v for v in vals if v is not None], dtype=np.str_)
+            hashes[present] = fnv1a_values(arr)
+        if positional and hashes.size:
+            with np.errstate(over="ignore"):
+                hashes = hashes * (
+                    2 * np.arange(hashes.size, dtype=np.uint32) + np.uint32(1)
+                )
+        out[c] = int(np.add.reduce(hashes, dtype=np.uint32))
+    return out
+
+
+def _mul32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(h * w) mod 2^32 for int64 tensors holding values < 2^32, without
+    overflowing int64: h is split into 16-bit halves."""
+    lo = (h & 0xFFFF) * w
+    hi = (((h >> 16) * w) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def checksum_device_table(
+    table,
+    columns: Optional[Sequence[str]] = None,
+    limit: Optional[int] = None,
+    positional: bool = False,
+) -> Dict[str, int]:
+    """Per-column row-hash sums (mod 2^32) of a DeviceTable, computed on
+    its device over the first *limit* rows (all by default)."""
+    names = list(columns) if columns is not None else list(table.columns)
+    n = table.nrows if limit is None else min(limit, table.nrows)
+    if not names:
+        return {}
+    device = table.device
+    weights = None
+    if positional:
+        weights = 2 * torch.arange(n, dtype=torch.int64, device=device) + 1
+    sums = []
+    for c in names:
+        col = table.columns[c]
+        htab = torch.from_numpy(fnv1a_values(col.dictionary).astype(np.int64)).to(device)
+        codes = col.codes[:n]
+        if htab.numel():
+            g = torch.index_select(htab, 0, codes.clamp(min=0))
+            h = torch.where(codes >= 0, g, 0)
+        else:
+            h = torch.zeros(n, dtype=torch.int64, device=device)
+        if weights is not None:
+            h = _mul32(h, weights & _M32)
+        sums.append(h.sum() & _M32)
+    return {c: int(v) for c, v in zip(names, torch.stack(sums).tolist())}

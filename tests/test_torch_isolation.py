@@ -1,0 +1,101 @@
+"""The port stands alone: ``csvplus_tpu_torch`` and ``chip_smoke.py``
+import neither ``jax`` nor any module of ``csvplus_tpu``, its device entry
+points refuse ``"cuda"`` where no card is present instead of running on
+the CPU, and ``chip_smoke.py`` fails without a card."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "csvplus_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+MAIN_PATH = r"""
+import json, sys, tempfile
+from pathlib import Path
+import csvplus_tpu_torch as T
+from csvplus_tpu_torch.utils.checksum import checksum_device_table
+
+d = Path(tempfile.mkdtemp())
+(d / "o.csv").write_text("order_id,cust_id,prod_id,qty\n"
+    + "".join(f"o{i},c{i % 7},p{i % 5},{i % 3}\n" for i in range(200)))
+(d / "c.csv").write_text("id,name\n" + "".join(f"c{i},n{i}\n" for i in range(7)))
+(d / "p.csv").write_text("prod_id,product\n" + "".join(f"p{i},x{i}\n" for i in range(5)))
+orders = T.from_file(str(d / "o.csv")).on_device("cpu")
+cust = T.from_file(str(d / "c.csv")).on_device("cpu").unique_index_on("id")
+prod = T.from_file(str(d / "p.csv")).on_device("cpu").unique_index_on("prod_id")
+src = orders.filter(T.Not(T.Like({"prod_id": "p0", "qty": "1"}))).join(cust, "cust_id").join(prod)
+rows = src.to_rows()
+sums = checksum_device_table(src.to_device_table(), positional=True)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+             or m == "csvplus_tpu" or m.startswith("csvplus_tpu."))
+print(json.dumps({"rows": len(rows), "sums": len(sums), "foreign": bad}))
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    return env
+
+
+def test_main_path_loads_no_jax_and_no_reference_module(tmp_path):
+    res = subprocess.run(
+        [sys.executable, "-c", MAIN_PATH], cwd=tmp_path, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["rows"] > 0 and out["sums"] == 7
+    assert out["foreign"] == []
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_jax_or_reference(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "csvplus_tpu"), f"{path.name} imports {name}"
+
+
+def test_on_device_cuda_raises_without_a_card(people_csv):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import csvplus_tpu_torch as T
+
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        T.from_file(people_csv).on_device()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        T.take(T.from_file(people_csv)).on_device("cuda")
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["in-repo", "alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    script = ROOT / "chip_smoke.py"
+    if alone:
+        (tmp_path / "chip_smoke.py").write_text(script.read_text())
+        script = tmp_path / "chip_smoke.py"
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    res = subprocess.run(
+        [sys.executable, str(script)], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
