@@ -5,29 +5,36 @@ Usage: python3 chip_smoke.py [--seed S] [--profile]
 
 Phases; any failure raises, exits non-zero and prints no result line:
 
-1. Device: the card's name, and its name and power limit from nvidia-smi.
-2. Build: ``csrc/mask.cu`` with nvcc for sm_90a; prints the seconds.
+1. Device: the card's name, and its name and power limit from nvidia-smi;
+   the host's CPU count.
+2. Build: ``csrc/mask.cu`` with nvcc for sm_90a and the native CSV
+   scanner ``native/scanner.cpp`` with g++, both started together;
+   prints the seconds.
 3. Mask kernel against its plain PyTorch version on the card, bitwise:
    seeded codes with ~5 % absent cells at n = 10,000,003 (ragged on
    purpose) for k in {1, 2, 8} columns, both modes, IN-lists of 1 and 50
    targets, and at n = 1000; at both sizes also pipeline (b)'s shape
    (k = 2 "any", 50 + 1 targets), a column 4 bytes off 16-byte alignment
-   (the kernel's row-at-a-time path) and an IN-list too long to stage in
-   shared memory (its global-memory path).  Times the kernel (device
-   time per call, see ``_timed``), its bound, the plain version and, for
-   the single-column IN-list, ``torch.isin``.
+   (the kernel's row-at-a-time path), an IN-list too long to stage in
+   shared memory (its global-memory path), and typed value lanes
+   (arbitrary int32: negative values and targets, +-(2^31 - 1), a target
+   absent from the column).  Times the kernel (device time per call, see
+   ``_timed``), its bound, the plain version and, for the single-column
+   IN-list, ``torch.isin``.
 4. Main path, through the public API on "cuda": northstar-shaped CSVs
    written from the seed (orders ``order_id,cust_id,prod_id,qty``
    x 10,000,000, customers ``id,name`` x 100,000, products
    ``prod_id,product,price`` x 1,000); ``from_file(...).on_device("cuda")``
-   for orders,
-   ``unique_index_on`` for both build sides, then
+   for all three, which must take the ``native-encoded`` ingest tier with
+   the four orders columns as typed int32 lanes; ``unique_index_on`` for
+   both build sides, then
    (a) ``filter(Not(Like{prod_id, qty})).join(cust, "cust_id").join(prod)``
    (b) ``filter(Any(Like prod_id p1..p50, Like qty 7))`` with the same joins.
    Each result is held against a numpy oracle built from the generated
    arrays: row count, positional checksums of every column, first rows.
-   The mask kernel's launch count must rise and the result must lie on
-   the card.
+   The mask kernel's launch count must rise, the result must lie on the
+   card, and no orders-side column may be demoted to a dictionary in the
+   cold and warm runs of either pipeline.
 5. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -39,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -59,6 +67,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # More targets than the kernel stages in shared memory (MAX_STAGED in
 # csrc/mask.cu): such an IN-list is read from global memory.
 LONG_IN_LIST = 12_300
+I32_MAX = 2**31 - 1
+ORDERS_COLS = ("order_id", "cust_id", "prod_id", "qty")
 _FNV_OFFSET = np.uint32(2166136261)
 _FNV_PRIME = np.uint32(16777619)
 
@@ -119,6 +129,18 @@ def check_mask_kernel(seed: int) -> dict:
             out.append(c)
         return out
 
+    def typed(n: int, k: int):
+        """k typed value-lane columns: int32 in [-1000, 1000) with ~1 %
+        of cells at +(2^31 - 1) and ~1 % at -(2^31 - 1)."""
+        out = []
+        for _ in range(k):
+            c = torch.randint(-1000, 1000, (n,), generator=g, device=dev, dtype=torch.int32)
+            r = torch.rand(n, generator=g, device=dev)
+            c[r < 0.01] = I32_MAX
+            c[r > 0.99] = -I32_MAX
+            out.append(c)
+        return out
+
     def unaligned(n: int):
         """One contiguous column 4 bytes past a 16-byte boundary."""
         buf = codes(n + 1, 1)[0]
@@ -159,6 +181,12 @@ def check_mask_kernel(seed: int) -> dict:
         # more targets than fit in shared memory: the global-memory path
         wide = codes(n, 1, hi=2 * LONG_IN_LIST + 1000)
         check("k=1 long IN-list", wide, [list(range(0, 2 * LONG_IN_LIST, 2))], "any")
+        # typed value lanes: any int32 is a value, none means "absent"
+        lanes = typed(n, 2)
+        for mode in ("all", "any"):
+            check("typed negative", lanes, [[-7], [-1, -999]], mode)
+            check("typed +-(2^31-1)", lanes, [[I32_MAX], [-I32_MAX, I32_MAX]], mode)
+            check("typed absent target", lanes, [[123_456_789], [5000, -5000]], mode)
     log(f"mask kernel == plain version, bitwise, in {len(cases)} cases")
 
     timings = []
@@ -321,6 +349,7 @@ def run_main_path(
     import torch
 
     import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.columnar import typed
     from csvplus_tpu_torch.ops import mask as M
     from csvplus_tpu_torch.utils.checksum import checksum_device_table
 
@@ -332,15 +361,25 @@ def run_main_path(
         if device == "cuda":
             torch.cuda.synchronize()
 
+    typed.demotions.clear()
     t0 = time.perf_counter()
     orders = T.from_file(str(data["paths"]["orders"])).on_device(device)
     sync()
     t_ingest = time.perf_counter() - t0
     t0 = time.perf_counter()
-    cust = T.from_file(str(data["paths"]["cust"])).on_device(device).unique_index_on("id")
-    prod = T.from_file(str(data["paths"]["prod"])).on_device(device).unique_index_on("prod_id")
+    dims = {k: T.from_file(str(data["paths"][k])).on_device(device) for k in ("cust", "prod")}
+    cust = dims["cust"].unique_index_on("id")
+    prod = dims["prod"].unique_index_on("prod_id")
     sync()
     t_index = time.perf_counter() - t0
+    tiers = {"orders": orders.plan.table.ingest_tier,
+             **{k: src.plan.table.ingest_tier for k, src in dims.items()}}
+    if set(tiers.values()) != {"native-encoded"}:
+        raise AssertionError(f"ingest tiers {tiers}, expected native-encoded for all three")
+    kinds = {c: orders.plan.table.columns[c].kind for c in ORDERS_COLS}
+    if set(kinds.values()) != {"int"}:
+        raise AssertionError(f"orders column kinds {kinds}, expected four typed int32 columns")
+    index_demotions = list(typed.demotions)
 
     pipelines: dict = {
         "a": (
@@ -352,11 +391,14 @@ def run_main_path(
             ((data["prod"] >= 1) & (data["prod"] <= 50)) | (data["qty"] == 7),
         ),
     }
-    out = {"ingest_s": t_ingest, "index_s": t_index, "rows": n_orders, "pipelines": {}}
-    log(f"ingest {t_ingest:.2f}s ({n_orders / t_ingest:,.0f} rows/s), "
-        f"index build {t_index:.2f}s")
+    out = {"ingest_s": t_ingest, "index_s": t_index, "rows": n_orders,
+           "ingest_tiers": tiers, "cpu_count": os.cpu_count(), "pipelines": {}}
+    log(f"ingest {t_ingest:.2f}s ({n_orders / t_ingest:,.0f} rows/s) on the "
+        f"{tiers['orders']} tier, orders columns {kinds}; index build (ingest, "
+        f"sort, unique check of both dimensions) {t_index:.2f}s; host CPUs {os.cpu_count()}")
 
     M.launches = 0  # the main path's run starts here
+    typed.demotions.clear()
     results = {}
     srcs = {}
     for name, (pred, _) in pipelines.items():
@@ -369,6 +411,7 @@ def run_main_path(
             times.append(time.perf_counter() - t0)
         results[name] = (table, src.top(3).to_rows(), times)
     launches = M.launches  # ... and ends here
+    main_demotions = list(typed.demotions)
 
     for name, (table, first_rows, times) in results.items():
         cols = sorted(table.columns)
@@ -376,8 +419,8 @@ def run_main_path(
         if table.nrows != n_want:
             raise AssertionError(f"pipeline {name}: {table.nrows} rows, oracle {n_want}")
         for c in table.columns.values():
-            if c.codes.device.type != device:
-                raise AssertionError(f"pipeline {name}: result column on {c.codes.device}")
+            if c.storage.device.type != device:
+                raise AssertionError(f"pipeline {name}: result column on {c.storage.device}")
         got_sums = checksum_device_table(table, cols, positional=True)
         if got_sums != want_sums:
             raise AssertionError(f"pipeline {name}: checksums {got_sums} != oracle {want_sums}")
@@ -389,10 +432,26 @@ def run_main_path(
         log(f"pipeline {name}: {table.nrows:,} rows == oracle (count, positional "
             f"checksums of {len(cols)} columns, first rows); filter+join cold "
             f"{times[0]:.3f}s, warm {times[1]:.3f}s ({n_orders / times[1]:,.0f} rows/s)")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the mask kernel")
+    # the orders side stays typed value lanes end to end: in the ingested
+    # table and in both pipelines' results, after the checksums and top(3)
+    for where, cols in [("ingested orders", orders.plan.table.columns)] + [
+        (f"pipeline {name} result", res[0].columns) for name, res in results.items()
+    ]:
+        for c in ORDERS_COLS:
+            if cols[c].kind != "int" or cols[c]._demoted is not None:
+                raise AssertionError(f"{where}: column {c} was demoted")
+    out["demotions"] = {
+        "index_build": [(p.decode(), n) for p, n in index_demotions],
+        "main_path": [(p.decode(), n) for p, n in main_demotions],
+    }
+    log(f"demotions (prefix, rows): index builds {out['demotions']['index_build']}, "
+        f"main path {out['demotions']['main_path']}")
+    if main_demotions:
+        raise AssertionError(f"the main path demoted typed columns: {main_demotions}")
     out["launches"] = launches
     log(f"main path: mask kernel launches {launches}")
+    if launches <= 0:
+        raise AssertionError("the main path never launched the mask kernel")
     if profile:
         profile_pipelines(srcs)
     return out
@@ -422,9 +481,18 @@ def main(argv=None) -> int:
     log(f"device: {kind} | nvidia-smi: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from csvplus_tpu_torch.native import scanner as S
+
+    log(f"host CPUs: {os.cpu_count()}")
     t0 = time.perf_counter()
-    M.build()
-    log(f"built {M.SOURCE.relative_to(here)} for sm_90a in {time.perf_counter() - t0:.2f}s")
+    with ThreadPoolExecutor(max_workers=2) as pool:  # nvcc and g++ together
+        builds = [pool.submit(M.build), pool.submit(S.build)]
+        for f in builds:
+            f.result()
+    log(f"built {M.SOURCE.relative_to(here)} for sm_90a (nvcc) and "
+        f"{S.SOURCE.relative_to(here)} (g++) in {time.perf_counter() - t0:.2f}s")
 
     mask = check_mask_kernel(args.seed)
 

@@ -2,9 +2,11 @@
 
 The same fluent pipeline API as ``csvplus_tpu`` (which stays in the repo
 as the reference), with the device path written in PyTorch for an NVIDIA
-H100 and the reference's Pallas kernel rewritten by hand in CUDA C++
-(``csrc/mask.cu``).  The port imports neither ``jax`` nor any module of
-``csvplus_tpu``: it keeps its own copies of the host modules it needs.
+H100, the reference's Pallas kernel rewritten by hand in CUDA C++
+(``csrc/mask.cu``), and the reference's native CSV scanner copied and
+built with ``g++`` (``native/scanner.cpp``).  The port imports neither
+``jax`` nor any module of ``csvplus_tpu``: it keeps its own copies of the
+host modules it needs.
 
 Device entry points run on ``"cuda"`` unless the caller asks for
 ``"cpu"``; ``"cuda"`` with no card present raises::

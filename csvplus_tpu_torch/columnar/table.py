@@ -1,6 +1,10 @@
-"""Device-resident columnar tables, dictionary-encoded.
+"""Device-resident columnar tables.
 
-Port of ``csvplus_tpu/columnar/table.py``.  Each string column becomes
+Port of ``csvplus_tpu/columnar/table.py``.  A column is either a typed
+affix-int32 column (:class:`~csvplus_tpu_torch.columnar.typed.IntColumn`,
+one int32 value per row, what the native ingest makes of every column of
+the form ``prefix + canonical int32``) or a dictionary-encoded
+:class:`StringColumn`:
 
 * ``dictionary``: the column's unique values as a host numpy ``'S'``
   (UTF-8 bytes) array, sorted byte-lexicographically — Go's
@@ -8,8 +12,11 @@ Port of ``csvplus_tpu/columnar/table.py``.  Each string column becomes
 * ``codes``: an ``int32[n]`` tensor on the table's device mapping row ->
   dictionary slot; ``-1`` marks an absent cell.
 
-Predicates, joins and sorts run on the codes; strings come back to the
-host only at the sink boundary.  Every constructor takes an explicit
+Both kinds share one storage protocol (``kind``, ``storage``,
+``with_storage``, ``gather``), so row-materializing ops (gathers, join
+emits) carry either kind without converting it.  Predicates, joins and
+sorts run on codes or value lanes; strings come back to the host only at
+the sink boundary.  Every constructor takes an explicit
 ``device``: ``"cuda"`` (the default of the public entry points) or
 ``"cpu"``, and ``"cuda"`` raises when no card is present — nothing falls
 back to the CPU quietly.
@@ -17,7 +24,7 @@ back to the CPU quietly.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -100,6 +107,8 @@ def apply_code_translation(codes: torch.Tensor, trans: torch.Tensor) -> torch.Te
 class StringColumn:
     """One dictionary-encoded string column (host dictionary, device codes)."""
 
+    kind = "str"
+
     def __init__(
         self,
         dictionary: np.ndarray,
@@ -110,6 +119,15 @@ class StringColumn:
         self.codes = codes
         self._has_absent = _has_absent  # lazy cache: any absent cell?
         self._str_dict: "np.ndarray | None" = None  # lazy cache: decoded dict
+
+    @property
+    def storage(self) -> torch.Tensor:
+        """The row-indexed device array (the protocol shared with
+        ``IntColumn``, whose storage is its value lanes)."""
+        return self.codes
+
+    def with_storage(self, codes: torch.Tensor) -> "StringColumn":
+        return self.with_codes(codes)
 
     @property
     def dict_size(self) -> int:
@@ -177,6 +195,11 @@ class StringColumn:
         """Materialize values on host; absent cells become None."""
         return self.decode_codes(self.codes.cpu().numpy())
 
+    def renumbered_to_col(self, other) -> torch.Tensor:
+        """This column's codes in *other*'s code space (the probe side of
+        a join); an ``IntColumn`` *other* is demoted to its dictionary."""
+        return self.renumbered_to(other.dictionary)
+
     def renumbered_to(self, other_dictionary: np.ndarray) -> torch.Tensor:
         """This column's codes in another dictionary's code space (host
         translation table + device gather); unmatched -> -1, negative
@@ -219,7 +242,7 @@ class DeviceTable:
 
     def __init__(
         self,
-        columns: Dict[str, StringColumn],
+        columns: Dict[str, "StringColumn | IntColumn"],
         nrows: int,
         device: torch.device,
         row_base: int = 0,
@@ -231,6 +254,9 @@ class DeviceTable:
         # (stream index of the first failing row, the error) of a terminal
         # Validate; fired by consumers only if streaming reaches that row
         self.deferred_error = None
+        # the ingest tier that made this table from a CSV file
+        # ("native-encoded", "native-strings" or "python"; None otherwise)
+        self.ingest_tier = None
 
     @classmethod
     def from_pylists(
@@ -242,6 +268,26 @@ class DeviceTable:
         for name, values in data.items():
             cols[name] = StringColumn.from_values(values, dev)
             nrows = len(values)
+        return cls(cols, nrows, dev)
+
+    @classmethod
+    def from_encoded(
+        cls, data: Dict[str, tuple], nrows: int, device: "str | torch.device"
+    ) -> "DeviceTable":
+        """Build from encoded host columns, as the native ingest tier
+        gives them: ``(dictionary, codes)`` pairs and ``("int", prefix,
+        values)`` typed triples."""
+        from .typed import IntColumn
+
+        dev = resolve_device(device)
+        cols = {}
+        for name, value in data.items():
+            if len(value) == 3 and value[0] == "int":
+                _, prefix, vals = value
+                cols[name] = IntColumn(prefix, torch.from_numpy(vals).to(dev))
+            else:
+                dictionary, codes = value
+                cols[name] = StringColumn(dictionary, torch.from_numpy(codes).to(dev))
         return cls(cols, nrows, dev)
 
     @classmethod
@@ -268,7 +314,8 @@ class DeviceTable:
 
     def to_rows(self, sel: "torch.Tensor | None" = None) -> List[Row]:
         """Decode (a selection of) the table back into host Rows; absent
-        cells are omitted from their row."""
+        cells are omitted from their row.  Typed columns decode through
+        the C++ itoa, never through demotion."""
         cols = self.columns
         if sel is not None:
             sel = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
@@ -304,29 +351,48 @@ class DeviceTable:
 
 
 def from_reference_arrays(
-    columns: "Dict[str, Tuple[np.ndarray, np.ndarray]]",
+    columns: "Dict[str, tuple]",
     device: "str | torch.device",
 ) -> DeviceTable:
-    """A :class:`DeviceTable` from numpy ``(dictionary, codes)`` pairs —
-    what the JAX package's ``StringColumn.dictionary`` / ``codes_host()``
-    give — so one encoded table can feed both packages."""
+    """A :class:`DeviceTable` from numpy columns as the JAX package holds
+    them — ``(dictionary, codes)`` pairs (``StringColumn.dictionary`` /
+    ``codes_host()``) and ``("int", prefix, values)`` triples
+    (``IntColumn.prefix`` / its value lanes) — so one encoded table can
+    feed both packages."""
+    from .typed import PAD_VALUE, IntColumn
+
     dev = resolve_device(device)
     cols = {}
     nrows = None
-    for name, (dictionary, codes) in columns.items():
-        dictionary = np.asarray(dictionary)
-        if dictionary.dtype.kind == "U":
-            dictionary = np.char.encode(dictionary, "utf-8")
-        if dictionary.size > 1 and not bool(np.all(dictionary[:-1] < dictionary[1:])):
-            raise ValueError(f"column {name!r}: dictionary is not sorted and unique")
-        codes = np.array(codes, dtype=np.int32)  # a writable copy
-        if codes.ndim != 1:
-            raise ValueError(f"column {name!r}: codes must be one-dimensional")
-        if codes.size and (codes.min() < ABSENT or codes.max() >= dictionary.size):
-            raise ValueError(f"column {name!r}: codes out of dictionary range")
+    for name, value in columns.items():
+        if len(value) == 3 and value[0] == "int":
+            _, prefix, vals = value
+            if not isinstance(prefix, bytes):
+                raise ValueError(f"column {name!r}: the typed prefix must be bytes")
+            vals = np.array(vals, dtype=np.int32)  # a writable copy
+            if vals.ndim != 1:
+                raise ValueError(f"column {name!r}: values must be one-dimensional")
+            if vals.size and vals.min() == PAD_VALUE:
+                raise ValueError(f"column {name!r}: INT32_MIN is not a typed value")
+            n = int(vals.shape[0])
+            col = IntColumn(prefix, torch.from_numpy(vals).to(dev))
+        else:
+            dictionary, codes = value
+            dictionary = np.asarray(dictionary)
+            if dictionary.dtype.kind == "U":
+                dictionary = np.char.encode(dictionary, "utf-8")
+            if dictionary.size > 1 and not bool(np.all(dictionary[:-1] < dictionary[1:])):
+                raise ValueError(f"column {name!r}: dictionary is not sorted and unique")
+            codes = np.array(codes, dtype=np.int32)  # a writable copy
+            if codes.ndim != 1:
+                raise ValueError(f"column {name!r}: codes must be one-dimensional")
+            if codes.size and (codes.min() < ABSENT or codes.max() >= dictionary.size):
+                raise ValueError(f"column {name!r}: codes out of dictionary range")
+            n = int(codes.shape[0])
+            col = StringColumn(dictionary, torch.from_numpy(codes).to(dev))
         if nrows is None:
-            nrows = int(codes.shape[0])
-        elif codes.shape[0] != nrows:
-            raise ValueError(f"column {name!r}: {codes.shape[0]} rows, expected {nrows}")
-        cols[name] = StringColumn(dictionary, torch.from_numpy(codes).to(dev))
+            nrows = n
+        elif n != nrows:
+            raise ValueError(f"column {name!r}: {n} rows, expected {nrows}")
+        cols[name] = col
     return DeviceTable(cols, nrows or 0, dev)

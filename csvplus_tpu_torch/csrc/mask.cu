@@ -5,9 +5,11 @@
 //
 //     mask[i] = OP_j ( OR_{t in T_j} codes_j[i] == t )
 //
-// over k <= 8 int32 code columns, with OP = AND ("all") or OR ("any").
-// Code -1 marks an absent cell; targets are dictionary slots (>= 0), so an
-// absent cell never matches.
+// over k <= 8 int32 columns, with OP = AND ("all") or OR ("any").  A
+// column holds dictionary codes (-1 marks an absent cell, and targets are
+// slots >= 0, so an absent cell never matches) or the value lanes of a
+// typed column (any int32, negative values and targets included).  The
+// kernel compares values only and gives no value a meaning of its own.
 //
 // What bounds it: memory.  Each row reads k int32 codes once and writes one
 // byte, (4k + 1) * n bytes in all: at 3.35 TB/s (H100 SXM) that is about

@@ -18,7 +18,9 @@ error strictness, so this module implements the Go behavior directly:
 
 A copy of ``csvplus_tpu/csvio.py``: the port keeps its own copy of every
 host module it needs, so it never imports the JAX package.  This
-pure-Python parser is the port's only ingest tier for now.
+pure-Python parser is the specification of the native scanner
+(:mod:`csvplus_tpu_torch.native.scanner`) and the device ingest's last
+tier, taken only where the native tiers decline.
 """
 
 from __future__ import annotations

@@ -1,10 +1,12 @@
 """Vectorized row predicates over columnar data.
 
 Port of ``csvplus_tpu/ops/filter.py``.  The predicate DSL objects
-(:mod:`..predicates`) are lowered: a ``Like`` becomes integer equality
-against dictionary codes, ``All``/``Any``/``Not`` become boolean algebra
-over the code columns.  Equality terms go through the fused mask kernel
-(:mod:`.mask`) in one pass over every referenced column.
+(:mod:`..predicates`) are lowered: a ``Like`` becomes int32 equality
+against dictionary codes, or against the value lanes of a typed column
+(any int32, negative values included), and ``All``/``Any``/``Not``
+become boolean algebra over those masks.  Equality terms go through the
+fused mask kernel (:mod:`.mask`) in one pass over every referenced
+column.
 
 Missing-column semantics match the host path: ``Like`` on a row without
 the column is false (csvplus.go:1284-1292), so ``Not(Like(...))`` over a
@@ -45,8 +47,8 @@ def predicate_columns(pred):
 
 
 def _group_by_column(terms):
-    """Merge (codes, target) terms on the same column into
-    (codes, [targets...]) so an IN-list streams its column once."""
+    """Merge (array, target) terms on the same column into
+    (array, [targets...]) so an IN-list streams its column once."""
     grouped = {}
     order = []
     for codes, code in terms:
@@ -59,8 +61,8 @@ def _group_by_column(terms):
 
 
 def _mask_from_terms(terms, nrows: int, mode: str) -> torch.Tensor:
-    """Mask over a non-empty list of equality terms, each (codes, target)
-    or (codes, [targets...]), through the fused mask kernel,
+    """Mask over a non-empty list of equality terms, each (array, target)
+    or (array, [targets...]), through the fused mask kernel,
     :data:`MAX_COLS` columns per launch.  The reference sends a single
     term to XLA, which fuses its compares; eager torch would run one op
     per target, so one term takes the kernel too (k = 1)."""
@@ -75,14 +77,19 @@ def _mask_from_terms(terms, nrows: int, mode: str) -> torch.Tensor:
 
 
 def _column_term(c, val):
-    """(codes, target slot) for one column, or None when no cell can
-    equal *val*."""
+    """(storage array, target) equality term for one column, or None
+    when no cell can equal *val*.  Typed columns compare their value
+    lanes against the parsed constant, with no demotion; dictionary
+    columns compare codes against the dictionary slot."""
+    if c.kind == "int":
+        v = c.equality_term(val)
+        return None if v is None else (c.values, v)
     code = c.find_code(val)
     return None if code < 0 else (c.codes, code)
 
 
 def _equality_terms(cols, preds):
-    """Flatten predicates into (codes, target) terms when every one is a
+    """Flatten predicates into (array, target) terms when every one is a
     single-column Like; terms on missing columns/values drop out (they are
     constant-false in a disjunction).  None = not flattenable."""
     terms = []

@@ -8,7 +8,9 @@ Port of the single-join subset of ``csvplus_tpu/ops/join.py``.
   dictionary.  Sorted dictionaries make packed order == the reference's
   lexicographic string order, so the packed array is sorted too.
 * The probe side translates its key columns into the build dictionaries
-  (host translation table + device gather), packs them the same way, and
+  (host translation table + device gather; a typed probe column looks its
+  value lanes up in the numerically parsed build dictionary instead, so
+  it is never demoted), packs them the same way, and
   answers every row's ``[lower, lower + count)`` match range at once.
 * Fan-out is data-dependent, so only ``(total, max count)`` crosses to the
   host — one transfer — and the gather index vectors are built on device.
@@ -253,8 +255,10 @@ class DeviceIndex:
         """(lower, counts) per probe row, both int32 on the probe's device.
         Fewer probe columns than key columns = a prefix probe."""
         k = len(probe_cols)
+        # a typed probe column translates its value lanes against the
+        # parsed build dictionary: the probe side is never demoted
         codes = [
-            pc.renumbered_to(self.table.columns[name].dictionary)
+            pc.renumbered_to_col(self.table.columns[name])
             for pc, name in zip(probe_cols, self.key_columns[:k])
         ]
         range_size = 1 << (self.shifts[k - 1] if k else 0)
@@ -378,22 +382,24 @@ def join_tables(
 
     build_names = list(dev_index.table.columns)
     stream_names = list(stream.columns)
+    # kind-agnostic storage arrays (dictionary codes or typed value
+    # lanes): a typed payload column is never demoted by the join
     g_build = _gather_cols(
-        [dev_index.table.columns[n].codes for n in build_names], build_ids
+        [dev_index.table.columns[n].storage for n in build_names], build_ids
     )
     if probe_ids is None:
         g_stream = None
         n_out = stream.nrows
     else:
-        g_stream = _gather_cols([stream.columns[n].codes for n in stream_names], probe_ids)
+        g_stream = _gather_cols([stream.columns[n].storage for n in stream_names], probe_ids)
         n_out = total
 
     out_cols = {}
-    for name, codes in zip(build_names, g_build):
-        out_cols[name] = dev_index.table.columns[name].with_codes(codes)
+    for name, arr in zip(build_names, g_build):
+        out_cols[name] = dev_index.table.columns[name].with_storage(arr)
     for i, name in enumerate(stream_names):  # the stream wins on collision...
         src = stream.columns[name]
-        g = src if g_stream is None else src.with_codes(g_stream[i])
+        g = src if g_stream is None else src.with_storage(g_stream[i])
         if name in out_cols:
             # ...but an absent stream cell keeps the index value
             g = merge_with_fallback(g, out_cols[name])

@@ -6,8 +6,11 @@ the repo's only TPU (Pallas) kernel.  It computes
 
     mask[i] = OP_j ( OR_{t in T_j} codes_j[i] == t )
 
-over up to :data:`MAX_COLS` int32 code columns, OP being AND (``"all"``)
-or OR (``"any"``, where each column carries an IN-list of targets).
+over up to :data:`MAX_COLS` int32 columns, OP being AND (``"all"``) or
+OR (``"any"``, where each column carries an IN-list of targets).  A
+column is dictionary codes (-1 = absent) or a typed column's value lanes,
+where any int32 is a value: nothing here treats a negative value as
+absent or out of range.
 
 * On a CUDA tensor, :func:`fused_equality_mask` launches the hand-written
   kernel of ``csrc/mask.cu`` (built with ``nvcc`` for ``sm_90a`` at first

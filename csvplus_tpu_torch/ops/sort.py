@@ -33,9 +33,20 @@ def sort_permutation(keys: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def sort_table(table: DeviceTable, key_columns: Sequence[str]) -> DeviceTable:
-    """A new table with rows stably sorted by the key columns."""
-    perm = sort_permutation([table.columns[c].codes for c in key_columns])
-    out = {name: col.gather(perm) for name, col in table.columns.items()}
+    """A new table with rows stably sorted by the key columns.
+
+    Sorting by a column needs code order == string order, so a typed key
+    column is demoted to its dictionary here and comes out as a
+    ``StringColumn``, as in the reference; every other column, typed or
+    not, rides along as its storage array."""
+    keys = {c: table.columns[c].codes for c in key_columns}
+    perm = sort_permutation(list(keys.values()))
+    out = {}
+    for name, col in table.columns.items():
+        if name in keys:
+            out[name] = col.with_codes(torch.index_select(keys[name], 0, perm))
+        else:
+            out[name] = col.gather(perm)
     return DeviceTable(out, table.nrows, table.device)
 
 

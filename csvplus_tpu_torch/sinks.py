@@ -6,7 +6,10 @@ Port of ``to_csv``/``to_csv_file``/``to_rows`` from
 is closed and removed).  A device-planned source runs its plan inside
 ``src(fn)`` (its run function is
 :func:`csvplus_tpu_torch.columnar.exec.plan_runner`), so the sinks are the
-same for both paths and write the same bytes.
+same for both paths and write the same bytes.  Typed affix-int32 columns
+reach them as strings formatted by the native C++ itoa
+(``IntColumn.decode``), byte for byte the reference's; the reference's
+vectorized CSV encoder (``columnar/csvenc.py``) is not ported yet.
 """
 
 from __future__ import annotations

@@ -11,8 +11,12 @@ Port of ``checksum_host_rows`` and ``checksum_device_table`` from
   changes the sum with high probability.
 
 On the device the hashing runs in int64 with ``& 0xFFFFFFFF``, because
-torch has no usable uint32 arithmetic: a column costs one gather, one
-weighted product and one sum, and the whole table one transfer.
+torch has no usable uint32 arithmetic: a dictionary column costs one
+gather, one weighted product and one sum, and the whole table one
+transfer.  A typed affix-int32 column has no dictionary: its rows are
+hashed on the device from the value lanes
+(:func:`fnv1a_affix_int_device`), byte-identical to hashing
+``prefix + decimal(value)``.
 """
 
 from __future__ import annotations
@@ -70,12 +74,55 @@ def checksum_host_rows(
     return out
 
 
-def _mul32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(h * w) mod 2^32 for int64 tensors holding values < 2^32, without
-    overflowing int64: h is split into 16-bit halves."""
+def _mul32(h: torch.Tensor, w: "torch.Tensor | int") -> torch.Tensor:
+    """(h * w) mod 2^32 for int64 values < 2^32 (*w* a tensor or an int),
+    without overflowing int64: h is split into 16-bit halves."""
     lo = (h & 0xFFFF) * w
     hi = (((h >> 16) * w) & 0xFFFF) << 16
     return (lo + hi) & _M32
+
+
+def _fnv_step(h: torch.Tensor, byte) -> torch.Tensor:
+    """One FNV-1a round, ``(h ^ byte) * prime mod 2^32``, on int64 tensors
+    holding values < 2^32."""
+    return _mul32(h ^ byte, int(_FNV_PRIME))
+
+
+def _affix_rows_ops(h0: int, v: torch.Tensor) -> torch.Tensor:
+    """Per-row FNV-1a of ``prefix + decimal(value)`` from the seed *h0*
+    (the prefix folded on the host): an optional '-', then the up-to-10
+    decimal digits most significant first, through pow10.  int64
+    throughout; no typed cell is INT32_MIN, so |v| fits."""
+    v = v.to(torch.int64)
+    neg = v < 0
+    av = torch.where(neg, -v, v)
+    h = torch.full_like(v, h0)
+    h = torch.where(neg, _fnv_step(h, ord("-")), h)
+    pow10 = torch.tensor([10**k for k in range(10)], dtype=torch.int64, device=v.device)
+    nd = torch.ones_like(v)
+    for k in range(1, 10):
+        nd = nd + (av >= 10**k).to(torch.int64)
+    for i in range(10):
+        div = torch.index_select(pow10, 0, (nd - 1 - i).clamp(0, 9))
+        byte = ord("0") + torch.div(av, div, rounding_mode="floor") % 10
+        h = torch.where(i < nd, _fnv_step(h, byte), h)
+    return h
+
+
+def _affix_seed(prefix: bytes) -> int:
+    """FNV-1a state after hashing the constant *prefix*."""
+    h0 = int(_FNV_OFFSET)
+    for b in prefix:
+        h0 = ((h0 ^ b) * int(_FNV_PRIME)) & _M32
+    return h0
+
+
+def fnv1a_affix_int_device(prefix: bytes, values: torch.Tensor) -> torch.Tensor:
+    """32-bit FNV-1a per row of a typed affix-int32 column, computed on its
+    device from the value lanes (int64 tensor of values < 2^32):
+    byte-identical to :func:`fnv1a_values` over ``prefix +
+    decimal(value)``, with no formatting and no dictionary."""
+    return _affix_rows_ops(_affix_seed(prefix), values)
 
 
 def checksum_device_table(
@@ -97,13 +144,18 @@ def checksum_device_table(
     sums = []
     for c in names:
         col = table.columns[c]
-        htab = torch.from_numpy(fnv1a_values(col.dictionary).astype(np.int64)).to(device)
-        codes = col.codes[:n]
-        if htab.numel():
-            g = torch.index_select(htab, 0, codes.clamp(min=0))
-            h = torch.where(codes >= 0, g, 0)
+        if col.kind == "int":
+            # typed value lanes hash per row (no dictionary, no demotion);
+            # every cell is present by the typed invariant
+            h = fnv1a_affix_int_device(col.prefix, col.values[:n])
         else:
-            h = torch.zeros(n, dtype=torch.int64, device=device)
+            htab = torch.from_numpy(fnv1a_values(col.dictionary).astype(np.int64)).to(device)
+            codes = col.codes[:n]
+            if htab.numel():
+                g = torch.index_select(htab, 0, codes.clamp(min=0))
+                h = torch.where(codes >= 0, g, 0)
+            else:
+                h = torch.zeros(n, dtype=torch.int64, device=device)
         if weights is not None:
             h = _mul32(h, weights & _M32)
         sums.append(h.sum() & _M32)

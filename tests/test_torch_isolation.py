@@ -1,7 +1,8 @@
 """The port stands alone: ``csvplus_tpu_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor any module of ``csvplus_tpu``, its device entry
-points refuse ``"cuda"`` where no card is present instead of running on
-the CPU, and ``chip_smoke.py`` fails without a card."""
+import neither ``jax`` nor any module of ``csvplus_tpu``, its ingest loads
+its own build of the native scanner and never the JAX package's, its
+device entry points refuse ``"cuda"`` where no card is present instead of
+running on the CPU, and ``chip_smoke.py`` fails without a card."""
 
 import ast
 import json
@@ -36,7 +37,10 @@ sums = checksum_device_table(src.to_device_table(), positional=True)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
              or m == "csvplus_tpu" or m.startswith("csvplus_tpu."))
-print(json.dumps({"rows": len(rows), "sums": len(sums), "foreign": bad}))
+libs = sorted({line.split()[-1] for line in open("/proc/self/maps")
+               if line.rstrip().endswith(".so") or ".so." in line})
+print(json.dumps({"rows": len(rows), "sums": len(sums), "foreign": bad, "libs": libs,
+                  "tier": orders.plan.table.ingest_tier}))
 """
 
 
@@ -55,6 +59,22 @@ def test_main_path_loads_no_jax_and_no_reference_module(tmp_path):
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["rows"] > 0 and out["sums"] == 7
     assert out["foreign"] == []
+
+
+def test_main_path_loads_the_ports_own_scanner_only(tmp_path):
+    """The port's ingest runs its own build of the native scanner and
+    never loads the JAX package's ``csvplus_tpu/native/_scanner.so``."""
+    res = subprocess.run(
+        [sys.executable, "-c", MAIN_PATH], cwd=tmp_path, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["tier"] == "native-encoded"
+    ours = ROOT / "csvplus_tpu_torch" / "_build"
+    assert any(Path(p).parent == ours and Path(p).name.startswith("libcsvplus_scanner_")
+               for p in out["libs"]), out["libs"]
+    assert not [p for p in out["libs"] if "csvplus_tpu/native" in p or "_scanner.so" in p]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

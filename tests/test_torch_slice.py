@@ -98,7 +98,7 @@ def test_three_table_join_rows_and_checksums(corpus, name):
     cols = sorted(got[0])
     want_sums = j_checksum(want_src.to_device_table(), cols, positional=True)
     table = got_src.to_device_table()
-    assert all(c.codes.device == CPU for c in table.columns.values())
+    assert all(c.storage.device == CPU for c in table.columns.values())
     assert t_checksum(table, cols, positional=True) == want_sums
     assert t_checksum_rows(got, cols, positional=True) == want_sums
 
