@@ -21,13 +21,14 @@ Phases; any failure raises, exits non-zero and prints no result line:
    absent from the column).  Times the kernel (device time per call, see
    ``_timed``), its bound, the plain version and, for the single-column
    IN-list, ``torch.isin``.
-4. Main path, through the public API on "cuda": northstar-shaped CSVs
-   written from the seed (orders ``order_id,cust_id,prod_id,qty``
-   x 10,000,000, customers ``id,name`` x 100,000, products
-   ``prod_id,product,price`` x 1,000); ``from_file(...).on_device("cuda")``
-   for all three, which must take the ``native-encoded`` ingest tier with
-   the four orders columns as typed int32 lanes; ``unique_index_on`` for
-   both build sides, then
+4. Main path at 10M orders, through the public API on "cuda":
+   northstar-shaped CSVs written from the seed (orders
+   ``order_id,cust_id,prod_id,qty`` x 10,000,000, customers ``id,name``
+   x 100,000, products ``prod_id,product,price`` x 1,000);
+   ``from_file(...).on_device("cuda")`` for all three, which must take the
+   ``native-encoded`` ingest tier (the file is under the streamed tier's
+   256 MiB) with the four orders columns as typed int32 lanes;
+   ``unique_index_on`` for both build sides, then
    (a) ``filter(Not(Like{prod_id, qty})).join(cust, "cust_id").join(prod)``
    (b) ``filter(Any(Like prod_id p1..p50, Like qty 7))`` with the same joins.
    Each result is held against a numpy oracle built from the generated
@@ -35,16 +36,55 @@ Phases; any failure raises, exits non-zero and prints no result line:
    The mask kernel's launch count must rise, the result must lie on the
    card, and no orders-side column may be demoted to a dictionary in the
    cold and warm runs of either pipeline.
-5. A ``{"kernels": [...]}`` line, then the last line
+5. The streamed main path at 50M orders (BASELINE config 4's row count in
+   phase 4's layout, ~1.2 GB of CSV): the file must be at least 256 MiB
+   and take the ``streamed`` tier with four typed orders columns, at the
+   automatic worker count and again at ``CSVPLUS_INGEST_WORKERS=1``, with
+   equal positional checksums of every column in both runs and against
+   the oracle; pipelines (a) and (b), cold then warm, against the oracle,
+   with mask launches and no demotion; ``(b).to_csv_file`` of all eight
+   columns and ``(b).top(100000).to_json_file`` equal, byte for byte
+   (size and sha256), to files numpy builds from the oracle.  Prints the
+   ingest seconds and rows/s per K with the scan-wait / place split, the
+   chunk count, the peak device memory after ingest, the join times and
+   the sinks' seconds and MB/s.
+6. Device-lane dictionaries at their default threshold: ``order_id,cust,
+   qty`` x 14,000,000 with ``order_id = ord-%08d`` (a seeded
+   permutation), ~315 MB, so 14M distinct ids pass
+   ``CSVPLUS_DICT_DEVICE_MIN_DISTINCT`` (4M) mid-file.  ``order_id`` must
+   ingest as an unsorted lane column and stay unsorted through a
+   positional checksum and a ``top(3)``; ``unique_index_on("order_id")``
+   sorts the union on the card (once); a ``Like`` filter finds its row;
+   a seeded probe file of 1,000,000 refs (~9 % absent) joined onto the
+   index, and the ``to_csv`` of that join (the lazy host unpack of the
+   lane dictionary), equal their oracles.
+7. The streamed tier's host dictionaries: ``region,sku,tag`` x
+   13,000,000 (~291 MB), ``region`` 12 words (uint8 code uploads),
+   ``sku`` 5,000 values (uint16), ``tag`` typed ``t<n>`` up to the middle
+   of the file and zero-padded ``t%04d`` after it, so it demotes mid-file
+   (its typed chunks come back from the card and are re-encoded) and ships
+   uint16 codes.  Each column must be a host dictionary equal to the
+   oracle's sorted union, with positional checksums and a two-column
+   ``Like`` filter equal to the oracle's.
+8. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
+
+Phases 4-7 also hold the mask kernel's wrapper against its plain version,
+bitwise, on the inputs of every call their filters made (recorded during
+the path's run and replayed after its launch count was read).
 
 Writes its CSVs under ``.chip_smoke_data/`` beside this file and removes
 them at the end.  Needs one card; imports nothing of JAX or csvplus_tpu.
+Phases 4-7 run on the CPU too, at a small size, as a rehearsal:
+``run_main_path``, ``run_streamed_path``, ``run_lane_path`` and
+``run_host_dict_path`` with ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import shutil
@@ -56,6 +96,11 @@ from pathlib import Path
 import numpy as np
 
 N_ORDERS = 10_000_000  # BASELINE.json config 3
+N_ORDERS_STREAMED = 50_000_000  # BASELINE.json config 4's row count
+N_LANE_ROWS = 14_000_000  # over CSVPLUS_DICT_DEVICE_MIN_DISTINCT's 4M
+N_PROBE_REFS = 1_000_000
+N_HOST_DICT_ROWS = 13_000_000  # ~291 MB: over the streamed tier's threshold
+STREAM_MIN_BYTES = 256 << 20  # the streamed tier's default threshold
 N_CUST = 100_000
 N_PROD = 1_000
 MASK_ROWS = 10_000_003
@@ -113,6 +158,60 @@ def _bound_ms(n: int, targets) -> "tuple[float, str]":
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _mask_vs_plain(cols, targets, nrows: int, mode: str, what: str) -> int:
+    """The mask kernel's wrapper against its plain version on the same
+    inputs; raises unless they are bitwise equal, else returns the max
+    abs error (0)."""
+    import torch
+
+    from csvplus_tpu_torch.ops import mask as M
+
+    got = M.fused_equality_mask(cols, targets, nrows, mode)
+    want = M.fused_equality_mask_plain(cols, targets, mode)
+    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max()) if nrows else 0
+    if not torch.equal(got, want):
+        raise AssertionError(f"mask kernel != plain at {what}")
+    return err
+
+
+@contextlib.contextmanager
+def recorded_mask_calls():
+    """Record the inputs of every call the filter makes to the mask
+    kernel's wrapper inside the block; the wrapper still runs (and counts
+    its launches) as usual."""
+    from csvplus_tpu_torch.ops import filter as F
+
+    calls = []
+    wrapper = F.fused_equality_mask
+
+    def record(cols, targets, nrows, mode="all"):
+        calls.append((list(cols), targets, nrows, mode))
+        return wrapper(cols, targets, nrows, mode=mode)
+
+    F.fused_equality_mask = record
+    try:
+        yield calls
+    finally:
+        F.fused_equality_mask = wrapper
+
+
+def check_path_masks(calls, label: str) -> dict:
+    """Hold the wrapper against its plain version, bitwise, on the inputs
+    of each recorded call: the path's own columns, targets and mode.  Run
+    after the path's launch count was read, so these launches are not
+    the path's."""
+    worst = 0
+    shapes = set()
+    for cols, targets, nrows, mode in calls:
+        per_col = tuple(len(t) if isinstance(t, (list, tuple)) else 1 for t in targets)
+        shape = f"n={nrows} k={len(cols)} {mode} targets={list(per_col)}"
+        worst = max(worst, _mask_vs_plain(cols, targets, nrows, mode, f"{label} {shape}"))
+        shapes.add(shape)
+    log(f"{label}: mask kernel == plain version, bitwise, in the path's {len(calls)} "
+        f"calls ({'; '.join(sorted(shapes))})")
+    return {"cases": len(calls), "max_abs_err": worst}
+
+
 def check_mask_kernel(seed: int) -> dict:
     import torch
 
@@ -152,13 +251,7 @@ def check_mask_kernel(seed: int) -> dict:
     def check(name, cols, targets, mode):
         nonlocal worst
         n = cols[0].shape[0]
-        got = M.fused_equality_mask(cols, targets, n, mode)
-        want = M.fused_equality_mask_plain(cols, targets, mode)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
-        worst = max(worst, err)
-        if not torch.equal(got, want):
-            raise AssertionError(f"mask kernel != plain at n={n} {name} {mode}")
+        worst = max(worst, _mask_vs_plain(cols, targets, n, mode, f"n={n} {name} {mode}"))
         cases.append((n, name, mode))
 
     for n in (MASK_ROWS, 1000):
@@ -206,7 +299,7 @@ def check_mask_kernel(seed: int) -> dict:
                "library_ms": lib_ms}
         timings.append(row)
         log("mask timing " + json.dumps(row))
-    return {"max_abs_err": worst, "timings": timings}
+    return {"max_abs_err": worst, "cases": len(cases), "timings": timings}
 
 
 # -- phase 4: the main path --------------------------------------------------
@@ -225,6 +318,16 @@ def _fnv32(values: np.ndarray) -> np.ndarray:
     return h
 
 
+def _fnv32_mat(mat: np.ndarray) -> np.ndarray:
+    """:func:`_fnv32` of the rows of a NUL-padded (n, width) byte matrix."""
+    h = np.full(mat.shape[0], _FNV_OFFSET, dtype=np.uint32)
+    with np.errstate(over="ignore"):
+        for i in range(mat.shape[1]):
+            col = mat[:, i]
+            h = np.where(col != 0, (h ^ col) * _FNV_PRIME, h)
+    return h
+
+
 def _positional_sum(hashes: np.ndarray) -> int:
     w = 2 * np.arange(hashes.size, dtype=np.uint32) + np.uint32(1)
     with np.errstate(over="ignore"):
@@ -235,7 +338,53 @@ def _sbytes(prefix: bytes, ints: np.ndarray) -> np.ndarray:
     return np.char.add(prefix, ints.astype("S"))
 
 
-def generate(root: Path, n_orders: int, seed: int) -> dict:
+# -- CSV and JSON bytes from numpy: NUL-padded byte matrices, one row per
+# line, whose NULs are dropped (no CSV byte written here is NUL) ----------
+
+
+def _digits(v: np.ndarray, width: int = 0) -> np.ndarray:
+    """(n, w) uint8 decimal digits of the nonnegative ints *v*, left
+    aligned and NUL padded; ``width`` > 0 gives exactly that many digits,
+    zero filled (``%0*d``)."""
+    v = np.asarray(v, dtype=np.int64)
+    w = width or max(len(str(int(v.max()))) if v.size else 1, 1)
+    if v.size and int(v.max()) >= 10**w:
+        raise ValueError("value too wide")
+    nd = np.full(v.shape, w, np.int64)
+    if not width:
+        nd = np.ones(v.shape, np.int64)
+        for k in range(1, w):
+            nd += v >= 10**k
+    pow10 = 10 ** np.arange(w, dtype=np.int64)
+    out = np.zeros((v.size, w), np.uint8)
+    for k in range(w):
+        p = nd - 1 - k
+        out[:, k] = np.where(p >= 0, (v // pow10[np.maximum(p, 0)]) % 10 + 48, 0)
+    return out
+
+
+def _smat(values: np.ndarray) -> np.ndarray:
+    """An 'S' array as its NUL-padded (n, itemsize) byte matrix."""
+    return np.frombuffer(values.tobytes(), np.uint8).reshape(values.size, values.dtype.itemsize)
+
+
+def _lit(n: int, b: bytes) -> np.ndarray:
+    return np.broadcast_to(np.frombuffer(b, np.uint8), (n, len(b)))
+
+
+def _lines(pieces) -> bytes:
+    mat = np.hstack(pieces)
+    flat = mat.ravel()
+    return flat[flat != 0].tobytes()
+
+
+def _fnv_affix(prefix: bytes, v: np.ndarray) -> np.ndarray:
+    """FNV-1a of ``prefix + decimal(v)`` per row, for nonnegative ints."""
+    n = v.size
+    return _fnv32_mat(np.hstack([_lit(n, prefix), _digits(v)]) if prefix else _digits(v))
+
+
+def generate(root: Path, n_orders: int, seed: int, name: str = "orders.csv") -> dict:
     """Write the three CSVs and return the arrays they were made from."""
     rng = np.random.default_rng(seed)
     cust = rng.integers(0, N_CUST, n_orders)
@@ -249,7 +398,7 @@ def generate(root: Path, n_orders: int, seed: int) -> dict:
         "prod": {"prod_id": _sbytes(b"p", pi), "product": _sbytes(b"prod", pi),
                  "price": price},
     }
-    paths = {"orders": root / "orders.csv", "cust": root / "customers.csv",
+    paths = {"orders": root / name, "cust": root / "customers.csv",
              "prod": root / "products.csv"}
     with open(paths["cust"], "wb") as f:
         f.write(b"id,name\n")
@@ -263,15 +412,17 @@ def generate(root: Path, n_orders: int, seed: int) -> dict:
                                        p["price"]).tolist()) + b"\n")
     with open(paths["orders"], "wb") as f:
         f.write(b"order_id,cust_id,prod_id,qty\n")
-        chunk = 1_000_000
+        chunk = 2_000_000
         for lo in range(0, n_orders, chunk):
             hi = min(lo + chunk, n_orders)
-            line = np.char.add(
-                np.char.add(_sbytes(b"o", np.arange(lo, hi)), _sbytes(b",c", cust[lo:hi])),
-                np.char.add(_sbytes(b",p", prod[lo:hi]), _sbytes(b",", qty[lo:hi])),
-            )
-            f.write(b"\n".join(line.tolist()) + b"\n")
-    return {"paths": paths, "cust": cust, "prod": prod, "qty": qty, "cols": cols}
+            m = hi - lo
+            f.write(_lines([
+                _lit(m, b"o"), _digits(np.arange(lo, hi)), _lit(m, b",c"), _digits(cust[lo:hi]),
+                _lit(m, b",p"), _digits(prod[lo:hi]), _lit(m, b","), _digits(qty[lo:hi]),
+                _lit(m, b"\n"),
+            ]))
+    return {"paths": paths, "cust": cust, "prod": prod, "qty": qty, "cols": cols,
+            "n": n_orders}
 
 
 def oracle(data: dict, keep: np.ndarray, columns) -> "tuple[int, dict, list]":
@@ -293,7 +444,6 @@ def oracle(data: dict, keep: np.ndarray, columns) -> "tuple[int, dict, list]":
         "qty": lambda sel: qty_s[qty[sel]],
     }
     tables = {
-        "order_id": None,
         "cust_id": (_fnv32(c["id"]), cust), "id": (_fnv32(c["id"]), cust),
         "name": (_fnv32(c["name"]), cust),
         "prod_id": (_fnv32(p["prod_id"]), prod), "product": (_fnv32(p["product"]), prod),
@@ -301,8 +451,8 @@ def oracle(data: dict, keep: np.ndarray, columns) -> "tuple[int, dict, list]":
     }
     sums = {}
     for col in columns:
-        if tables[col] is None:
-            hashes = _fnv32(values[col](slice(None)))
+        if col == "order_id":
+            hashes = _order_id_hashes(data)[rows]
         else:
             htab, idx = tables[col]
             hashes = htab[idx]
@@ -313,6 +463,24 @@ def oracle(data: dict, keep: np.ndarray, columns) -> "tuple[int, dict, list]":
         for i in range(min(3, rows.size))
     ]
     return int(rows.size), sums, first
+
+
+def _order_id_hashes(data: dict) -> np.ndarray:
+    """FNV-1a of every order's ``o<row>`` id (made once per data set)."""
+    if "order_id_hashes" not in data:
+        data["order_id_hashes"] = _fnv_affix(b"o", np.arange(data["n"]))
+    return data["order_id_hashes"]
+
+
+def ingest_oracle(data: dict) -> dict:
+    """Positional checksums of the four orders columns as written."""
+    qty_s = np.arange(101).astype("S")
+    return {
+        "order_id": _positional_sum(_order_id_hashes(data)),
+        "cust_id": _positional_sum(_fnv32(data["cols"]["cust"]["id"])[data["cust"]]),
+        "prod_id": _positional_sum(_fnv32(data["cols"]["prod"]["prod_id"])[data["prod"]]),
+        "qty": _positional_sum(_fnv32(qty_s)[data["qty"]]),
+    }
 
 
 def profile_pipelines(srcs) -> None:
@@ -340,48 +508,17 @@ def profile_pipelines(srcs) -> None:
             log(f"  {e.device_time_total:10.1f} us  x{e.count:<4d} {e.key[:90]}")
 
 
-def run_main_path(
-    n_orders: int, seed: int, device: str, workdir: Path, profile: bool = False
-) -> dict:
-    """Drive both pipelines through the public API on *device* and hold
-    them against the oracle.  Returns the launches and the phase times;
-    *profile* adds a ``torch.profiler`` breakdown of one more warm run."""
-    import torch
+def _sync(device: str) -> None:
+    if device == "cuda":
+        import torch
 
+        torch.cuda.synchronize()
+
+
+def _pipelines(data: dict) -> dict:
     import csvplus_tpu_torch as T
-    from csvplus_tpu_torch.columnar import typed
-    from csvplus_tpu_torch.ops import mask as M
-    from csvplus_tpu_torch.utils.checksum import checksum_device_table
 
-    t0 = time.perf_counter()
-    data = generate(workdir, n_orders, seed)
-    log(f"generated {n_orders:,} orders in {time.perf_counter() - t0:.1f}s")
-
-    def sync():
-        if device == "cuda":
-            torch.cuda.synchronize()
-
-    typed.demotions.clear()
-    t0 = time.perf_counter()
-    orders = T.from_file(str(data["paths"]["orders"])).on_device(device)
-    sync()
-    t_ingest = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    dims = {k: T.from_file(str(data["paths"][k])).on_device(device) for k in ("cust", "prod")}
-    cust = dims["cust"].unique_index_on("id")
-    prod = dims["prod"].unique_index_on("prod_id")
-    sync()
-    t_index = time.perf_counter() - t0
-    tiers = {"orders": orders.plan.table.ingest_tier,
-             **{k: src.plan.table.ingest_tier for k, src in dims.items()}}
-    if set(tiers.values()) != {"native-encoded"}:
-        raise AssertionError(f"ingest tiers {tiers}, expected native-encoded for all three")
-    kinds = {c: orders.plan.table.columns[c].kind for c in ORDERS_COLS}
-    if set(kinds.values()) != {"int"}:
-        raise AssertionError(f"orders column kinds {kinds}, expected four typed int32 columns")
-    index_demotions = list(typed.demotions)
-
-    pipelines: dict = {
+    return {
         "a": (
             T.Not(T.Like({"prod_id": "p0", "qty": "1"})),
             ~((data["prod"] == 0) & (data["qty"] == 1)),
@@ -391,45 +528,63 @@ def run_main_path(
             ((data["prod"] >= 1) & (data["prod"] <= 50)) | (data["qty"] == 7),
         ),
     }
-    out = {"ingest_s": t_ingest, "index_s": t_index, "rows": n_orders,
-           "ingest_tiers": tiers, "cpu_count": os.cpu_count(), "pipelines": {}}
-    log(f"ingest {t_ingest:.2f}s ({n_orders / t_ingest:,.0f} rows/s) on the "
-        f"{tiers['orders']} tier, orders columns {kinds}; index build (ingest, "
-        f"sort, unique check of both dimensions) {t_index:.2f}s; host CPUs {os.cpu_count()}")
 
-    M.launches = 0  # the main path's run starts here
-    typed.demotions.clear()
-    results = {}
-    srcs = {}
-    for name, (pred, _) in pipelines.items():
-        src = srcs[name] = orders.filter(pred).join(cust, "cust_id").join(prod)
-        times = []
-        for _ in range(2):  # cold, then warm
-            t0 = time.perf_counter()
-            table = src.to_device_table()
-            sync()
-            times.append(time.perf_counter() - t0)
-        results[name] = (table, src.top(3).to_rows(), times)
-    launches = M.launches  # ... and ends here
+
+def _index_dims(data: dict, device: str):
+    import csvplus_tpu_torch as T
+
+    dims = {k: T.from_file(str(data["paths"][k])).on_device(device) for k in ("cust", "prod")}
+    return dims, dims["cust"].unique_index_on("id"), dims["prod"].unique_index_on("prod_id")
+
+
+def run_pipelines(orders, cust, prod, data: dict, device: str, label: str) -> dict:
+    """Drive pipelines (a) and (b) over *orders*, cold then warm, and hold
+    each against the oracle.  The mask kernel's count is set to 0 just
+    before and read just after; the launches and the orders-side
+    demotions of that run are checked."""
+    from csvplus_tpu_torch.columnar import typed
+    from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.utils.checksum import checksum_device_table
+
+    pipelines = _pipelines(data)
+    n_orders = data["n"]
+    with recorded_mask_calls() as calls:
+        M.launches = 0  # the path's run starts here
+        typed.demotions.clear()
+        results = {}
+        srcs = {}
+        for name, (pred, _) in pipelines.items():
+            src = srcs[name] = orders.filter(pred).join(cust, "cust_id").join(prod)
+            times = []
+            for _ in range(2):  # cold, then warm
+                t0 = time.perf_counter()
+                table = src.to_device_table()
+                _sync(device)
+                times.append(time.perf_counter() - t0)
+            results[name] = (table, src.top(3).to_rows(), times)
+        launches = M.launches  # ... and ends here
     main_demotions = list(typed.demotions)
 
+    out = {"pipelines": {}, "srcs": srcs}
     for name, (table, first_rows, times) in results.items():
         cols = sorted(table.columns)
         n_want, want_sums, want_first = oracle(data, pipelines[name][1], cols)
         if table.nrows != n_want:
-            raise AssertionError(f"pipeline {name}: {table.nrows} rows, oracle {n_want}")
+            raise AssertionError(f"{label} pipeline {name}: {table.nrows} rows, oracle {n_want}")
         for c in table.columns.values():
             if c.storage.device.type != device:
-                raise AssertionError(f"pipeline {name}: result column on {c.storage.device}")
+                raise AssertionError(f"{label} pipeline {name}: result column on {c.storage.device}")
         got_sums = checksum_device_table(table, cols, positional=True)
         if got_sums != want_sums:
-            raise AssertionError(f"pipeline {name}: checksums {got_sums} != oracle {want_sums}")
+            raise AssertionError(
+                f"{label} pipeline {name}: checksums {got_sums} != oracle {want_sums}")
         if [dict(r) for r in first_rows] != want_first:
-            raise AssertionError(f"pipeline {name}: first rows {first_rows} != {want_first}")
+            raise AssertionError(
+                f"{label} pipeline {name}: first rows {first_rows} != {want_first}")
         out["pipelines"][name] = {"rows_out": table.nrows, "join_cold_s": times[0],
                                   "join_warm_s": times[1],
                                   "rows_per_s_warm": n_orders / times[1]}
-        log(f"pipeline {name}: {table.nrows:,} rows == oracle (count, positional "
+        log(f"{label} pipeline {name}: {table.nrows:,} rows == oracle (count, positional "
             f"checksums of {len(cols)} columns, first rows); filter+join cold "
             f"{times[0]:.3f}s, warm {times[1]:.3f}s ({n_orders / times[1]:,.0f} rows/s)")
     # the orders side stays typed value lanes end to end: in the ingested
@@ -439,22 +594,507 @@ def run_main_path(
     ]:
         for c in ORDERS_COLS:
             if cols[c].kind != "int" or cols[c]._demoted is not None:
-                raise AssertionError(f"{where}: column {c} was demoted")
-    out["demotions"] = {
-        "index_build": [(p.decode(), n) for p, n in index_demotions],
-        "main_path": [(p.decode(), n) for p, n in main_demotions],
-    }
+                raise AssertionError(f"{label} {where}: column {c} was demoted")
+    out["main_demotions"] = [(p.decode(), n) for p, n in main_demotions]
+    if main_demotions:
+        raise AssertionError(f"{label}: the main path demoted typed columns: {main_demotions}")
+    out["launches"] = launches
+    log(f"{label} main path: mask kernel launches {launches}")
+    if launches <= 0 and device == "cuda":
+        raise AssertionError(f"{label}: the main path never launched the mask kernel")
+    out["mask_check"] = check_path_masks(calls, label)
+    out["tables"] = {name: res[0] for name, res in results.items()}
+    return out
+
+
+def run_main_path(
+    n_orders: int, seed: int, device: str, workdir: Path, profile: bool = False
+) -> dict:
+    """Phase 4: drive both pipelines through the public API on *device*
+    and hold them against the oracle.  Returns the launches and the phase
+    times; *profile* adds a ``torch.profiler`` breakdown of one more warm
+    run."""
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.columnar import typed
+
+    t0 = time.perf_counter()
+    data = generate(workdir, n_orders, seed)
+    log(f"generated {n_orders:,} orders in {time.perf_counter() - t0:.1f}s")
+
+    typed.demotions.clear()
+    t0 = time.perf_counter()
+    orders = T.from_file(str(data["paths"]["orders"])).on_device(device)
+    _sync(device)
+    t_ingest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dims, cust, prod = _index_dims(data, device)
+    _sync(device)
+    t_index = time.perf_counter() - t0
+    tiers = {"orders": orders.plan.table.ingest_tier,
+             **{k: src.plan.table.ingest_tier for k, src in dims.items()}}
+    if set(tiers.values()) != {"native-encoded"}:
+        raise AssertionError(f"ingest tiers {tiers}, expected native-encoded for all three")
+    kinds = {c: orders.plan.table.columns[c].kind for c in ORDERS_COLS}
+    if set(kinds.values()) != {"int"}:
+        raise AssertionError(f"orders column kinds {kinds}, expected four typed int32 columns")
+    index_demotions = list(typed.demotions)
+    log(f"ingest {t_ingest:.2f}s ({n_orders / t_ingest:,.0f} rows/s) on the "
+        f"{tiers['orders']} tier, orders columns {kinds}; index build (ingest, "
+        f"sort, unique check of both dimensions) {t_index:.2f}s; host CPUs {os.cpu_count()}")
+
+    run = run_pipelines(orders, cust, prod, data, device, "10M")
+    out = {"ingest_s": t_ingest, "index_s": t_index, "rows": n_orders,
+           "ingest_tiers": tiers, "cpu_count": os.cpu_count(),
+           "pipelines": run["pipelines"], "launches": run["launches"],
+           "mask_check": run["mask_check"],
+           "demotions": {"index_build": [(p.decode(), n) for p, n in index_demotions],
+                         "main_path": run["main_demotions"]}}
     log(f"demotions (prefix, rows): index builds {out['demotions']['index_build']}, "
         f"main path {out['demotions']['main_path']}")
-    if main_demotions:
-        raise AssertionError(f"the main path demoted typed columns: {main_demotions}")
-    out["launches"] = launches
-    log(f"main path: mask kernel launches {launches}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the mask kernel")
     if profile:
-        profile_pipelines(srcs)
+        profile_pipelines(run["srcs"])
     return out
+
+
+# -- phase 5: the streamed main path -----------------------------------------
+
+
+def _ingest_streamed(path: str, device: str, workers: "str | None") -> tuple:
+    """``from_file(path).on_device(device)`` with ``CSVPLUS_INGEST_WORKERS``
+    set to *workers* (None: automatic); (source, seconds)."""
+    import csvplus_tpu_torch as T
+
+    old = os.environ.pop("CSVPLUS_INGEST_WORKERS", None)
+    if workers is not None:
+        os.environ["CSVPLUS_INGEST_WORKERS"] = workers
+    try:
+        t0 = time.perf_counter()
+        src = T.from_file(path).on_device(device)
+        _sync(device)
+        return src, time.perf_counter() - t0
+    finally:
+        os.environ.pop("CSVPLUS_INGEST_WORKERS", None)
+        if old is not None:
+            os.environ["CSVPLUS_INGEST_WORKERS"] = old
+
+
+def _sha256(path: Path) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for block in iter(lambda: f.read(1 << 24), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _same_file(got: Path, want: bytes, what: str) -> None:
+    import hashlib
+
+    size, digest = got.stat().st_size, _sha256(got)
+    if size != len(want) or digest != hashlib.sha256(want).hexdigest():
+        raise AssertionError(f"{what}: {size} bytes sha256 {digest[:16]}, oracle "
+                             f"{len(want)} bytes sha256 {hashlib.sha256(want).hexdigest()[:16]}")
+
+
+SINK_COLS = ("order_id", "cust_id", "prod_id", "qty", "id", "name", "product", "price")
+
+
+def _result_fields(data: dict, rows: np.ndarray) -> dict:
+    """The byte matrices of pipeline (b)'s result columns for *rows*."""
+    cust, prod, qty = data["cust"][rows], data["prod"][rows], data["qty"][rows]
+    n = rows.size
+    cid = np.hstack([_lit(n, b"c"), _digits(cust)])
+    return {
+        "order_id": np.hstack([_lit(n, b"o"), _digits(rows)]),
+        "cust_id": cid, "id": cid,
+        "name": np.hstack([_lit(n, b"name"), _digits(cust % 9973)]),
+        "prod_id": np.hstack([_lit(n, b"p"), _digits(prod)]),
+        "product": np.hstack([_lit(n, b"prod"), _digits(prod)]),
+        "price": _smat(data["cols"]["prod"]["price"])[prod],
+        "qty": _digits(qty),
+    }
+
+
+def csv_oracle(data: dict, keep: np.ndarray, columns) -> bytes:
+    rows = np.flatnonzero(keep)
+    fields = _result_fields(data, rows)
+    pieces = []
+    for i, c in enumerate(columns):
+        pieces.append(fields[c])
+        pieces.append(_lit(rows.size, b"," if i < len(columns) - 1 else b"\n"))
+    return ",".join(columns).encode() + b"\n" + _lines(pieces)
+
+
+def json_oracle(data: dict, keep: np.ndarray, limit: int) -> bytes:
+    """Go json.Encoder's bytes: ``[`` objects with sorted keys, each
+    followed by a newline, separated by commas ``]``."""
+    rows = np.flatnonzero(keep)[:limit]
+    fields = _result_fields(data, rows)
+    n = rows.size
+    pieces = []
+    for i, c in enumerate(sorted(fields)):
+        pieces.append(_lit(n, (b',{"' if i == 0 else b',"') + c.encode() + b'":"'))
+        pieces.append(fields[c])
+        pieces.append(_lit(n, b'"'))
+    pieces.append(_lit(n, b"}\n"))
+    return b"[" + _lines(pieces)[1:] + b"]"
+
+
+def run_streamed_path(n_orders: int, seed: int, device: str, workdir: Path) -> dict:
+    """Phase 5: the streamed ingest tier at *n_orders*, both pipelines and
+    both file sinks, held against numpy oracles."""
+    import torch
+
+    from csvplus_tpu_torch.columnar import typed
+    from csvplus_tpu_torch.native.scanner import _ingest_workers
+    from csvplus_tpu_torch.utils.checksum import checksum_device_table
+
+    t0 = time.perf_counter()
+    data = generate(workdir, n_orders, seed + 1, name="orders_streamed.csv")
+    path = data["paths"]["orders"]
+    size = path.stat().st_size
+    log(f"generated {n_orders:,} orders ({size:,} bytes) in {time.perf_counter() - t0:.1f}s")
+    if size < STREAM_MIN_BYTES and device == "cuda":
+        raise AssertionError(f"{size} bytes is under the streamed tier's {STREAM_MIN_BYTES}")
+    want_ingest = ingest_oracle(data)
+
+    out = {"rows": n_orders, "bytes": size, "ingest": {}}
+    sums_by_k = {}
+    orders = None
+    # K = 1 first and dropped, so each run's peak device memory is its own
+    for workers in ("1", None):
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        src, secs = _ingest_streamed(str(path), device, workers)
+        table = src.plan.table
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        kinds = {c: table.columns[c].kind for c in ORDERS_COLS}
+        if table.ingest_tier != "streamed" or set(kinds.values()) != {"int"}:
+            raise AssertionError(f"tier {table.ingest_tier}, kinds {kinds}: expected the "
+                                 "streamed tier with four typed orders columns")
+        acct = table.ingest_seconds
+        k = acct["workers"]
+        if workers is None and k != _ingest_workers():
+            raise AssertionError(f"automatic K ran {k} workers, expected {_ingest_workers()}")
+        sums = checksum_device_table(table, list(ORDERS_COLS), positional=True)
+        if sums != want_ingest:
+            raise AssertionError(f"K={k}: ingested checksums {sums} != oracle {want_ingest}")
+        sums_by_k[k] = sums
+        row = {"workers": k, "seconds": secs, "rows_per_s": n_orders / secs,
+               "scan_wait_s": acct["scan_wait"], "place_s": acct["place"],
+               "chunks": acct["chunks"], "peak_device_bytes": peak}
+        out["ingest"]["auto" if workers is None else "K=1"] = row
+        log(f"streamed ingest K={k}: {secs:.2f}s ({n_orders / secs:,.0f} rows/s), "
+            f"scan-wait {acct['scan_wait']:.2f}s, place {acct['place']:.2f}s, "
+            f"{acct['chunks']} chunks, peak device memory {peak}; tier "
+            f"{table.ingest_tier}, kinds {kinds}, checksums == oracle")
+        if workers is None:
+            orders = src
+        del src, table
+        gc.collect()  # a source and its run function form a cycle
+    if len(set(map(str, sums_by_k.values()))) != 1:
+        raise AssertionError(f"checksums differ across worker counts: {sums_by_k}")
+
+    typed.demotions.clear()
+    dims, cust, prod = _index_dims(data, device)
+    run = run_pipelines(orders, cust, prod, data, device, "50M")
+    out["pipelines"] = run["pipelines"]
+    out["launches"] = run["launches"]
+    out["mask_check"] = run["mask_check"]
+
+    pipelines = _pipelines(data)
+    b_src = run["srcs"]["b"]
+    csv_path = workdir / "b.csv"
+    t0 = time.perf_counter()
+    b_src.to_csv_file(str(csv_path), *SINK_COLS)
+    t_csv = time.perf_counter() - t0
+    _same_file(csv_path, csv_oracle(data, pipelines["b"][1], SINK_COLS), "(b).to_csv_file")
+    csv_bytes = csv_path.stat().st_size
+    json_path = workdir / "b.json"
+    t0 = time.perf_counter()
+    b_src.top(100_000).to_json_file(str(json_path))
+    t_json = time.perf_counter() - t0
+    _same_file(json_path, json_oracle(data, pipelines["b"][1], 100_000),
+               "(b).top(100000).to_json_file")
+    json_bytes = json_path.stat().st_size
+    out["sinks"] = {"csv_s": t_csv, "csv_bytes": csv_bytes, "csv_mb_per_s": csv_bytes / t_csv / 1e6,
+                    "json_s": t_json, "json_bytes": json_bytes,
+                    "json_mb_per_s": json_bytes / t_json / 1e6}
+    log(f"sinks: (b).to_csv_file {csv_bytes:,} bytes in {t_csv:.2f}s "
+        f"({csv_bytes / t_csv / 1e6:.1f} MB/s), (b).top(100000).to_json_file "
+        f"{json_bytes:,} bytes in {t_json:.2f}s ({json_bytes / t_json / 1e6:.1f} MB/s); "
+        "both == oracle bytes (size, sha256)")
+    csv_path.unlink()
+    json_path.unlink()
+    return out
+
+
+# -- phase 6: device-lane dictionaries ---------------------------------------
+
+
+def run_lane_path(n_rows: int, n_refs: int, seed: int, device: str, workdir: Path,
+                  lane_threshold: "int | None" = None) -> dict:
+    """Phase 6: a high-cardinality ``order_id`` that switches to
+    device-lane dictionaries mid-file; *lane_threshold* (None: the
+    default) sets ``CSVPLUS_DICT_DEVICE_MIN_DISTINCT`` for a small
+    rehearsal."""
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.columnar import table as TB
+    from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.utils.checksum import checksum_device_table
+
+    rng = np.random.default_rng(seed + 2)
+    ids = rng.permutation(n_rows)
+    cust = rng.integers(0, N_CUST, n_rows)
+    qty = rng.integers(1, 101, n_rows)
+    path = workdir / "highcard.csv"
+    t0 = time.perf_counter()
+    id_mat = lambda v: np.hstack([_lit(v.size, b"ord-"), _digits(v, 8)])  # noqa: E731
+    with open(path, "wb") as f:
+        f.write(b"order_id,cust,qty\n")
+        for lo in range(0, n_rows, 2_000_000):
+            hi = min(lo + 2_000_000, n_rows)
+            m = hi - lo
+            f.write(_lines([id_mat(ids[lo:hi]), _lit(m, b",c"), _digits(cust[lo:hi]),
+                            _lit(m, b","), _digits(qty[lo:hi]), _lit(m, b"\n")]))
+    size = path.stat().st_size
+    refs = rng.integers(0, n_rows + n_rows // 10, n_refs)
+    probe = workdir / "refs.csv"
+    with open(probe, "wb") as f:
+        f.write(b"ref,note\n")
+        f.write(_lines([id_mat(refs), _lit(n_refs, b",n"), _digits(np.arange(n_refs)),
+                        _lit(n_refs, b"\n")]))
+    log(f"generated {n_rows:,} high-cardinality rows ({size:,} bytes) and "
+        f"{n_refs:,} probe refs in {time.perf_counter() - t0:.1f}s")
+    if size < STREAM_MIN_BYTES and device == "cuda":
+        raise AssertionError(f"{size} bytes is under the streamed tier's {STREAM_MIN_BYTES}")
+
+    qty_s = np.arange(101).astype("S")
+    want = {"order_id": _positional_sum(_fnv32_mat(id_mat(ids))),
+            "cust": _positional_sum(_fnv_affix(b"c", cust)),
+            "qty": _positional_sum(_fnv32(qty_s)[qty])}
+    old = os.environ.get("CSVPLUS_DICT_DEVICE_MIN_DISTINCT")
+    if lane_threshold is not None:
+        os.environ["CSVPLUS_DICT_DEVICE_MIN_DISTINCT"] = str(lane_threshold)
+    try:
+        TB.lane_sorts.clear()
+        t0 = time.perf_counter()
+        src = T.from_file(str(path)).on_device(device)
+        _sync(device)
+        t_ingest = time.perf_counter() - t0
+    finally:
+        if lane_threshold is not None:
+            if old is None:
+                os.environ.pop("CSVPLUS_DICT_DEVICE_MIN_DISTINCT")
+            else:
+                os.environ["CSVPLUS_DICT_DEVICE_MIN_DISTINCT"] = old
+    table = src.plan.table
+    col = table.columns["order_id"]
+
+    def unsorted(where: str) -> None:
+        if col.dev_dictionary is None or col._dictionary is not None or col._dev_dict_sorted \
+                or TB.lane_sorts:
+            raise AssertionError(f"{where}: order_id is not an unsorted lane column "
+                                 f"(lane sorts {TB.lane_sorts})")
+
+    if table.ingest_tier != "streamed":
+        raise AssertionError(f"tier {table.ingest_tier}, expected streamed")
+    unsorted("after ingest")
+    slots = col.dict_size
+    t0 = time.perf_counter()
+    sums = checksum_device_table(table, ["order_id", "cust", "qty"], positional=True)
+    t_sum = time.perf_counter() - t0
+    if sums != want:
+        raise AssertionError(f"checksums {sums} != oracle {want}")
+    unsorted("after the checksum")
+    top = src.top(3).to_device_table()
+    top_want = {"order_id": _positional_sum(_fnv32_mat(id_mat(ids[:3]))),
+                "cust": _positional_sum(_fnv_affix(b"c", cust[:3])),
+                "qty": _positional_sum(_fnv32(qty_s)[qty[:3]])}
+    if checksum_device_table(top, ["order_id", "cust", "qty"], positional=True) != top_want:
+        raise AssertionError("top(3) checksums != oracle")
+    unsorted("after top(3)")
+    log(f"lane column: ingest {t_ingest:.2f}s ({n_rows / t_ingest:,.0f} rows/s) on the "
+        f"{table.ingest_tier} tier, {table.ingest_seconds['chunks']} chunks, order_id "
+        f"{len(col.dev_dictionary)} lanes x {slots:,} unsorted slots; positional checksum "
+        f"{t_sum:.3f}s == oracle; top(3) == oracle; still unsorted")
+
+    t0 = time.perf_counter()
+    idx = src.unique_index_on("order_id")
+    _sync(device)
+    t_index = time.perf_counter() - t0
+    if len(TB.lane_sorts) != 1 or not col._lane_state.sorted:
+        raise AssertionError(f"unique_index_on made lane sorts {TB.lane_sorts}, expected one")
+
+    target = int(ids[n_rows // 2])
+    with recorded_mask_calls() as calls:
+        M.launches = 0  # the lane path's filter starts here
+        t0 = time.perf_counter()
+        hit = src.filter(T.Like({"order_id": f"ord-{target:08d}"})).to_rows()
+        t_filter = time.perf_counter() - t0
+        launches = M.launches
+    want_hit = [{"order_id": f"ord-{target:08d}", "cust": f"c{cust[n_rows // 2]}",
+                 "qty": str(qty[n_rows // 2])}]
+    if [dict(r) for r in hit] != want_hit:
+        raise AssertionError(f"Like filter found {hit}, oracle {want_hit}")
+    if launches <= 0 and device == "cuda":
+        raise AssertionError("the lane path's filter never launched the mask kernel")
+    mask_check = check_path_masks(calls, "lane path")
+
+    # the join: each probe ref that exists matches one row
+    pos = np.empty(n_rows, np.int64)
+    pos[ids] = np.arange(n_rows)
+    found = refs < n_rows
+    rows = np.flatnonzero(found)
+    brow = pos[refs[rows]]
+    t0 = time.perf_counter()
+    joined = T.from_file(str(probe)).on_device(device).join(idx, "ref")
+    jt = joined.to_device_table()
+    _sync(device)
+    t_join = time.perf_counter() - t0
+    jwant = {"ref": _positional_sum(_fnv32_mat(id_mat(refs[rows]))),
+             "order_id": _positional_sum(_fnv32_mat(id_mat(refs[rows]))),
+             "note": _positional_sum(_fnv_affix(b"n", rows)),
+             "cust": _positional_sum(_fnv_affix(b"c", cust[brow])),
+             "qty": _positional_sum(_fnv32(qty_s)[qty[brow]])}
+    got = checksum_device_table(jt, list(jwant), positional=True)
+    if jt.nrows != rows.size or got != jwant:
+        raise AssertionError(f"join: {jt.nrows} rows, checksums {got}; oracle "
+                             f"{rows.size} rows, {jwant}")
+    csv_path = workdir / "joined.csv"
+    cols = ("ref", "order_id", "cust", "qty", "note")
+    t0 = time.perf_counter()
+    joined.to_csv_file(str(csv_path), *cols)
+    t_csv = time.perf_counter() - t0
+    m = rows.size
+    fields = {"ref": id_mat(refs[rows]), "order_id": id_mat(refs[rows]),
+              "cust": np.hstack([_lit(m, b"c"), _digits(cust[brow])]),
+              "qty": _digits(qty[brow]), "note": np.hstack([_lit(m, b"n"), _digits(rows)])}
+    pieces = []
+    for i, c in enumerate(cols):
+        pieces += [fields[c], _lit(m, b"," if i < len(cols) - 1 else b"\n")]
+    _same_file(csv_path, ",".join(cols).encode() + b"\n" + _lines(pieces), "joined.to_csv_file")
+    csv_bytes = csv_path.stat().st_size
+    csv_path.unlink()
+    log(f"lane column: unique_index_on sorted the union on {device} once ({t_index:.2f}s, "
+        f"{TB.lane_sorts[0]:,} slots); Like filter 1 row == oracle ({t_filter:.3f}s, mask "
+        f"launches {launches}); join of {n_refs:,} refs {t_join:.2f}s -> {m:,} rows == oracle; "
+        f"to_csv_file {csv_bytes:,} bytes in {t_csv:.2f}s == oracle bytes")
+    return {"rows": n_rows, "bytes": size, "ingest_s": t_ingest, "checksum_s": t_sum,
+            "slots_unsorted": slots, "index_s": t_index, "filter_s": t_filter,
+            "join_s": t_join, "join_rows": m, "csv_s": t_csv, "csv_bytes": csv_bytes,
+            "launches": launches, "mask_check": mask_check}
+
+
+# -- phase 7: the streamed tier's host dictionaries ---------------------------
+
+REGIONS = np.array([b"north", b"south", b"east", b"west", b"north-east", b"north-west",
+                    b"south-east", b"south-west", b"central", b"islands", b"overseas",
+                    b"online"])
+N_SKUS = 5_000
+N_TAGS = 1_000
+
+
+def run_host_dict_path(n_rows: int, seed: int, device: str, workdir: Path) -> dict:
+    """Phase 7: the streamed tier's host-dictionary branch.  ``region``
+    (12 words) ships uint8 codes, ``sku`` (``sku<n>x``, 5,000 values)
+    uint16 codes; ``tag`` is ``t<n>`` (typed) in the first half and
+    ``t%04d`` (not canonical, so a dictionary) from the middle on, so it
+    demotes mid-file: its typed chunks come back from the card and are
+    re-encoded, and every chunk then ships uint16 codes.  All three merge
+    to sorted host unions with the codes remapped on the card."""
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.utils.checksum import checksum_device_table
+
+    rng = np.random.default_rng(seed + 3)
+    region = rng.integers(0, REGIONS.size, n_rows)
+    sku = rng.integers(0, N_SKUS, n_rows)
+    tag = rng.integers(0, N_TAGS, n_rows)
+    half = n_rows // 2
+    path = workdir / "hostdict.csv"
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        f.write(b"region,sku,tag\n")
+        for lo in range(0, n_rows, 2_000_000):
+            hi = min(lo + 2_000_000, n_rows)
+            m = hi - lo
+            canon = np.zeros((m, 4), np.uint8)  # "t<v>", NUL padded to 4 digits
+            digits = _digits(tag[lo:hi])
+            canon[:, : digits.shape[1]] = digits
+            tags = np.where((np.arange(lo, hi) < half)[:, None], canon, _digits(tag[lo:hi], 4))
+            f.write(_lines([_smat(REGIONS)[region[lo:hi]], _lit(m, b",sku"), _digits(sku[lo:hi]),
+                            _lit(m, b"x,t"), tags, _lit(m, b"\n")]))
+    size = path.stat().st_size
+    log(f"generated {n_rows:,} host-dictionary rows ({size:,} bytes) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    if size < STREAM_MIN_BYTES and device == "cuda":
+        raise AssertionError(f"{size} bytes is under the streamed tier's {STREAM_MIN_BYTES}")
+
+    skus = np.char.add(_sbytes(b"sku", np.arange(N_SKUS)), b"x")
+    tags_canon = _sbytes(b"t", np.arange(N_TAGS))
+    tags_pad = np.char.add(b"t", np.char.zfill(np.arange(N_TAGS).astype("S"), 4))
+    first = np.arange(n_rows) < half
+    hashes = {"region": _fnv32(REGIONS)[region], "sku": _fnv32(skus)[sku],
+              "tag": np.where(first, _fnv32(tags_canon)[tag], _fnv32(tags_pad)[tag])}
+    want_dicts = {
+        "region": np.unique(REGIONS[np.unique(region)]),
+        "sku": np.unique(skus[np.unique(sku)]),
+        "tag": np.unique(np.concatenate([tags_canon[np.unique(tag[:half])],
+                                         tags_pad[np.unique(tag[half:])]])),
+    }
+    cols = list(hashes)
+
+    t0 = time.perf_counter()
+    src = T.from_file(str(path)).on_device(device)
+    _sync(device)
+    t_ingest = time.perf_counter() - t0
+    table = src.plan.table
+    if table.ingest_tier != "streamed":
+        raise AssertionError(f"tier {table.ingest_tier}, expected streamed")
+    for c in cols:
+        col = table.columns[c]
+        if col.kind != "str" or col.dev_dictionary is not None:
+            raise AssertionError(f"column {c}: kind {col.kind}, expected a host dictionary")
+        if not np.array_equal(col.dictionary, want_dicts[c]):
+            raise AssertionError(f"column {c}: dictionary != the oracle's sorted union")
+    sums = checksum_device_table(table, cols, positional=True)
+    want = {c: _positional_sum(h) for c, h in hashes.items()}
+    if sums != want:
+        raise AssertionError(f"checksums {sums} != oracle {want}")
+    acct = table.ingest_seconds
+    log(f"host dictionaries: ingest {t_ingest:.2f}s ({n_rows / t_ingest:,.0f} rows/s) on the "
+        f"{table.ingest_tier} tier, K={acct['workers']}, scan-wait {acct['scan_wait']:.2f}s, "
+        f"place {acct['place']:.2f}s, {acct['chunks']} chunks; dictionaries of "
+        f"{[len(want_dicts[c]) for c in cols]} entries == oracle; checksums == oracle")
+
+    # a filter over the widened uint8 and uint16 codes: the region and the
+    # zero-padded tag of a row in the second half
+    i = 3 * n_rows // 4
+    with recorded_mask_calls() as calls:
+        M.launches = 0  # the filter starts here
+        t0 = time.perf_counter()
+        hit = src.filter(T.Like({"region": REGIONS[region[i]].decode(),
+                                 "tag": f"t{tag[i]:04d}"})).to_device_table()
+        _sync(device)
+        t_filter = time.perf_counter() - t0
+        launches = M.launches
+    rows = np.flatnonzero((region == region[i]) & (tag == tag[i]) & ~first)
+    hwant = {c: _positional_sum(h[rows]) for c, h in hashes.items()}
+    got = checksum_device_table(hit, cols, positional=True)
+    if hit.nrows != rows.size or got != hwant:
+        raise AssertionError(f"filter: {hit.nrows} rows, checksums {got}; oracle "
+                             f"{rows.size} rows, {hwant}")
+    if launches <= 0 and device == "cuda":
+        raise AssertionError("the host-dictionary filter never launched the mask kernel")
+    mask_check = check_path_masks(calls, "host-dictionary path")
+    log(f"host dictionaries: filter {rows.size:,} rows == oracle ({t_filter:.3f}s, mask "
+        f"launches {launches})")
+    return {"rows": n_rows, "bytes": size, "ingest_s": t_ingest,
+            "scan_wait_s": acct["scan_wait"], "place_s": acct["place"],
+            "chunks": acct["chunks"], "workers": acct["workers"], "filter_s": t_filter,
+            "filter_rows": int(rows.size), "launches": launches, "mask_check": mask_check}
 
 
 def main(argv=None) -> int:
@@ -463,6 +1103,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of the warm pipelines")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -500,8 +1141,16 @@ def main(argv=None) -> int:
     workdir.mkdir(exist_ok=True)
     try:
         main_path = run_main_path(N_ORDERS, args.seed, "cuda", workdir, args.profile)
+        streamed = run_streamed_path(N_ORDERS_STREAMED, args.seed, "cuda", workdir)
+        lane = run_lane_path(N_LANE_ROWS, N_PROBE_REFS, args.seed, "cuda", workdir)
+        host_dict = run_host_dict_path(N_HOST_DICT_ROWS, args.seed, "cuda", workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    paths = {"10M native-encoded": main_path, "50M streamed": streamed,
+             "14M lane dictionary": lane, "13M host dictionary": host_dict}
+    path_cases = sum(p["mask_check"]["cases"] for p in paths.values())
+    log(f"mask kernel == plain version, bitwise, in {mask['cases']} matrix cases and "
+        f"{path_cases} calls at the paths' own shapes")
 
     shape = mask["timings"][0]  # pipeline (a)'s shape: k = 2, "all", one target each
     kernels = [{
@@ -509,8 +1158,11 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "csvplus_tpu_torch/csrc/mask.cu",
         "replaces": "csvplus_tpu/ops/pallas_mask.py:41",
-        "launches": main_path["launches"],
-        "max_abs_err": mask["max_abs_err"],
+        # the slice's main path: the 50M-order streamed pipelines
+        "launches": streamed["launches"],
+        "launches_by_path": {name: p["launches"] for name, p in paths.items()},
+        "max_abs_err": max([mask["max_abs_err"]]
+                           + [p["mask_check"]["max_abs_err"] for p in paths.values()]),
         "ms": shape["ms"],
         "plain_ms": shape["plain_ms"],
         "bound_ms": shape["bound_ms"],
@@ -519,6 +1171,10 @@ def main(argv=None) -> int:
         "shape": f"n={shape['n']} k={shape['k']} mode={shape['mode']}",
     }]
     log("main path phases " + json.dumps(main_path))
+    log("streamed path phases " + json.dumps(streamed))
+    log("lane path phases " + json.dumps(lane))
+    log("host dictionary path phases " + json.dumps(host_dict))
+    log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

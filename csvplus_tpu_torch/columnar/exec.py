@@ -292,6 +292,27 @@ def try_execute_plan(root: Optional[P.PlanNode]) -> Optional[List[Row]]:
     return table.to_rows()
 
 
+def device_table_for(src) -> Optional[DeviceTable]:
+    """Run *src*'s device plan to a table, or None when it has no plan or
+    the plan cannot lower.  A plan that cannot lower is remembered on the
+    source, so sinks and the run function never execute the same device
+    prefix twice."""
+    plan = getattr(src, "plan", None)
+    if plan is None or getattr(src, "_plan_unsupported", False):
+        return None
+    try:
+        table = execute_plan(plan)
+    except UnsupportedPlan:
+        src._plan_unsupported = True
+        return None
+    if table.deferred_error is not None:
+        # a failing terminal Validate: the sink replays the streaming path
+        # for the exact write-then-remove behaviour.  It depends on the
+        # data, so it is not remembered.
+        return None
+    return table
+
+
 def plan_runner(root: P.PlanNode, fallback=None, owner=None):
     """A DataSource run function that executes *root* on device and streams the
     decoded rows; it falls back to *fallback* when the plan cannot lower

@@ -12,6 +12,11 @@ the form ``prefix + canonical int32``) or a dictionary-encoded
 * ``codes``: an ``int32[n]`` tensor on the table's device mapping row ->
   dictionary slot; ``-1`` marks an absent cell.
 
+A high-cardinality column from the streamed ingest keeps its dictionary
+on the device instead, as packed int32 byte lanes (:mod:`..ops.lanes`),
+possibly unsorted until an operation needs code order (see
+:class:`StringColumn`).
+
 Both kinds share one storage protocol (``kind``, ``storage``,
 ``with_storage``, ``gather``), so row-materializing ops (gathers, join
 emits) carry either kind without converting it.  Predicates, joins and
@@ -24,6 +29,7 @@ back to the CPU quietly.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -104,21 +110,77 @@ def apply_code_translation(codes: torch.Tensor, trans: torch.Tensor) -> torch.Te
     return torch.where(codes >= 0, got, codes)
 
 
+#: Deferred lane-dictionary union sorts made in this process, one entry
+#: (the concatenated dictionary's slot count) per sort — added where
+#: :meth:`StringColumn._settle_locked` sorts, nowhere else.  Tests and
+#: ``chip_smoke.py`` read it to show that a payload-only lane column never
+#: sorts and that keying on one sorts it once.
+lane_sorts: list = []
+
+
+class _LaneState:
+    """Shared mutable state of one device-lane dictionary.
+
+    ``with_codes``/``gather`` copies of a column point at the same state,
+    so the deferred union sort (:meth:`StringColumn._ensure_sorted_lanes`)
+    runs once: after it, ``trans`` (old slot -> sorted slot) lets every
+    other copy remap its codes with one gather.  The lock serializes the
+    sort and the publication of ``trans``."""
+
+    __slots__ = ("lanes", "sorted", "trans", "lock")
+
+    def __init__(self, lanes: tuple, sorted_: bool):
+        self.lanes = lanes
+        self.sorted = sorted_
+        self.trans = None
+        self.lock = threading.Lock()
+
+
 class StringColumn:
-    """One dictionary-encoded string column (host dictionary, device codes)."""
+    """One dictionary-encoded string column.
+
+    The dictionary normally lives on the host (sorted 'S' bytes).  A
+    high-cardinality column from the streamed ingest may carry it on the
+    device instead, as sign-flipped int32 byte lanes (:mod:`..ops.lanes`)
+    with ``dictionary=None``; reading ``.dictionary`` then downloads and
+    unpacks the lanes once, the sink-boundary cost.  Such a lane
+    dictionary may be **unsorted** (``dev_dict_sorted=False``: the
+    streamed tier's concatenated chunk dictionaries, duplicates included,
+    codes offset per chunk).  Decodes, gathers and checksums work on it
+    as it is; whatever needs code order == byte order (``find_code``,
+    joins, sorts, the host dictionary) calls :meth:`_ensure_sorted_lanes`
+    first, which sorts the union on the device once per shared state.
+    """
 
     kind = "str"
 
     def __init__(
         self,
-        dictionary: np.ndarray,
+        dictionary: "np.ndarray | None",
         codes: torch.Tensor,
         _has_absent: "bool | None" = None,
+        dev_dictionary: "tuple | None" = None,
+        dev_dict_sorted: bool = True,
+        _lane_state: "_LaneState | None" = None,
     ):
-        self.dictionary = dictionary
-        self.codes = codes
+        assert dictionary is not None or dev_dictionary is not None or _lane_state is not None
+        self._dictionary = dictionary
         self._has_absent = _has_absent  # lazy cache: any absent cell?
         self._str_dict: "np.ndarray | None" = None  # lazy cache: decoded dict
+        if _lane_state is not None:
+            self._lane_state = _lane_state
+        elif dev_dictionary is not None:
+            self._lane_state = _LaneState(tuple(dev_dictionary), dev_dict_sorted)
+        else:
+            self._lane_state = None
+        # (codes, codes index the settled lane order) publish as one tuple:
+        # a copy made while a sibling settles on another thread must never
+        # pair remapped codes with a stale flag
+        self._codes_state = (codes, dev_dict_sorted if self._lane_state is not None else True)
+
+    @property
+    def codes(self) -> torch.Tensor:
+        return self._codes_state[0]
 
     @property
     def storage(self) -> torch.Tensor:
@@ -130,12 +192,111 @@ class StringColumn:
         return self.with_codes(codes)
 
     @property
+    def _dev_dict_sorted(self) -> bool:
+        return self._codes_state[1]
+
+    @property
+    def dev_dictionary(self) -> "tuple | None":
+        """The device lane dictionary, coherent with ``self.codes``: if a
+        sibling copy already settled the shared state, this copy's codes
+        are remapped (one gather, no sort) before the lanes are exposed."""
+        st = self._lane_state
+        if st is None:
+            return None
+        if self._dev_dict_sorted:
+            return st.lanes
+        with st.lock:
+            if st.sorted:
+                self._settle_locked(st)  # remap only: the sort already ran
+            return st.lanes
+
+    @property
+    def dictionary(self) -> np.ndarray:
+        """The host dictionary; for a lane column it is downloaded and
+        unpacked on first use (after the union is sorted), then cached."""
+        if self._dictionary is None:
+            from ..ops.lanes import unpack_host
+
+            self._ensure_sorted_lanes()
+            self._dictionary = unpack_host([lane.cpu().numpy() for lane in self._lane_state.lanes])
+        return self._dictionary
+
+    def _ensure_sorted_lanes(self) -> None:
+        """Sort and dedupe a deferred (unsorted) lane dictionary on the
+        device and remap this column's codes to the sorted slots.  The sort
+        runs once per shared lane state; a column that is only gathered or
+        checksummed never pays it."""
+        st = self._lane_state
+        if st is None or self._dev_dict_sorted:
+            return
+        with st.lock:
+            self._settle_locked(st)
+
+    def _settle_locked(self, st: "_LaneState") -> None:
+        """Settle the shared state (once) and remap this copy's codes.
+        The caller holds ``st.lock``."""
+        if self._dev_dict_sorted:  # a sibling settled this copy meanwhile
+            return
+        if not st.sorted:
+            from ..ops.lanes import union_device
+
+            lane_sorts.append(int(st.lanes[0].shape[0]))
+            union, (trans,) = union_device([st.lanes])
+            # st.sorted publishes: set it last, after trans and the lanes
+            st.trans = trans
+            st.lanes = union
+            st.sorted = True
+        self._codes_state = (apply_code_translation(self._codes_state[0], st.trans), True)
+
+    @property
     def dict_size(self) -> int:
-        return int(self.dictionary.size)
+        """Dictionary slot count without building a host dictionary; an
+        unsorted lane dictionary may overcount (duplicates across
+        chunks) until it is settled."""
+        if self._dictionary is not None:
+            return int(self._dictionary.size)
+        return int(self._lane_state.lanes[0].shape[0])
 
     def find_code(self, value: str) -> int:
-        """Dictionary slot of *value* or -1 (host binary search)."""
-        return lookup_code(self.dictionary, value)
+        """Dictionary slot of *value* or -1: a host binary search, or for
+        a lane column a device lane search with one scalar sync (no
+        dictionary download)."""
+        if self._dictionary is not None:
+            return lookup_code(self._dictionary, value)
+        return int(self.find_codes([value])[0])
+
+    def find_codes(self, values: Sequence[str]) -> np.ndarray:
+        """:meth:`find_code` over a batch of values: int64 codes, -1 where
+        absent.  One ``np.searchsorted`` on a host dictionary, or one lane
+        translation on the device for a lane dictionary."""
+        m = len(values)
+        if m == 0:
+            return np.empty(0, dtype=np.int64)
+        if self._dictionary is not None:
+            d = self._dictionary
+            if d.size == 0:
+                return np.full(m, -1, dtype=np.int64)
+            enc = np.array([v.encode("utf-8") for v in values], dtype="S")
+            pos_c = np.clip(np.searchsorted(d, enc), 0, d.size - 1)
+            return np.where(d[pos_c] == enc, pos_c, -1).astype(np.int64)
+        from ..ops.lanes import MAX_LANE_BYTES, lanes_for_width, pack_host, translate_lanes
+
+        self._ensure_sorted_lanes()  # the lane search needs sorted order
+        lanes = self.dev_dictionary
+        n_lanes = len(lanes)
+        out = np.full(m, -1, dtype=np.int64)
+        keys = [v.encode("utf-8") for v in values]
+        # values wider than every stored entry cannot match
+        fit = [
+            i for i, k in enumerate(keys)
+            if len(k) <= MAX_LANE_BYTES and lanes_for_width(len(k)) <= n_lanes
+        ]
+        if fit:
+            sub = np.array([keys[i] for i in fit], dtype="S")
+            dev = lanes[0].device
+            qs = tuple(torch.from_numpy(q).to(dev) for q in pack_host(sub, n_lanes))
+            out[fit] = translate_lanes(lanes, qs).cpu().numpy()
+        return out
 
     @property
     def has_absent(self) -> bool:
@@ -167,11 +328,20 @@ class StringColumn:
             )
         return self._str_dict
 
-    def with_codes(self, codes: torch.Tensor) -> "StringColumn":
-        """A column over *codes* with this column's dictionary and decoded
-        cache; ``has_absent`` carries over only when known False (a subset
-        of a fully-present column is fully present)."""
-        out = StringColumn(self.dictionary, codes)
+    def with_codes(
+        self, codes: torch.Tensor, dev_dict_sorted: "bool | None" = None
+    ) -> "StringColumn":
+        """A column over *codes* with this column's dictionary, lane state
+        and decoded cache; ``has_absent`` carries over only when known
+        False (a subset of a fully-present column is fully present).
+        *dev_dict_sorted* is the flag read together with the codes
+        *codes* came from; left out, the current flag is used."""
+        out = StringColumn(
+            self._dictionary,
+            codes,
+            dev_dict_sorted=self._dev_dict_sorted if dev_dict_sorted is None else dev_dict_sorted,
+            _lane_state=self._lane_state,
+        )
         out._str_dict = self._str_dict
         if self._has_absent is False:
             out._has_absent = False
@@ -179,26 +349,87 @@ class StringColumn:
 
     def gather(self, sel: torch.Tensor) -> "StringColumn":
         """New column of the selected row positions (device gather)."""
-        return self.with_codes(torch.index_select(self.codes, 0, sel))
+        src, flag = self._codes_state  # one coherent pair
+        return self.with_codes(torch.index_select(src, 0, sel), dev_dict_sorted=flag)
 
     def decode_codes(self, codes: np.ndarray) -> List[Optional[str]]:
-        """Decode a host code slice; absent cells (negative codes) become None."""
+        """Decode a host code slice; absent cells (negative codes) become
+        None.  The codes must be read after :meth:`_ensure_sorted_lanes`.
+        A slice much smaller than the dictionary decodes only the entries
+        it selects, not the whole dictionary."""
         if self.dict_size == 0:
             return [None] * codes.shape[0]
-        d = self.dictionary_str()
-        out = d[np.clip(codes, 0, d.size - 1)].tolist()
+        if self._str_dict is None and codes.shape[0] * 16 < self.dict_size:
+            d = self.dictionary
+            out = [v.decode("utf-8") for v in d[np.clip(codes, 0, d.size - 1)].tolist()]
+        else:
+            d = self.dictionary_str()
+            out = d[np.clip(codes, 0, d.size - 1)].tolist()
         if (codes < 0).any():
             out = [None if c < 0 else v for c, v in zip(codes.tolist(), out)]
         return out
 
     def decode(self) -> List[Optional[str]]:
         """Materialize values on host; absent cells become None."""
+        self._ensure_sorted_lanes()  # before the codes are read
         return self.decode_codes(self.codes.cpu().numpy())
+
+    def _lanes_narrow(self) -> tuple:
+        """``(lane tuple, original slots | None)``: this dictionary as
+        device lanes, restricted to entries narrow enough to pack.  A host
+        dictionary joined against a lane column may hold values wider than
+        ``MAX_LANE_BYTES``; they can equal no lane entry, so they are left
+        out (their slots returned so the caller can map back)."""
+        if self.dev_dictionary is not None:
+            self._ensure_sorted_lanes()  # translation needs sorted lanes
+            return self.dev_dictionary, None
+        from ..ops.lanes import MAX_LANE_BYTES, lanes_for_width, pack_host
+
+        d = self._dictionary
+        dev = self.codes.device
+        width = d.dtype.itemsize if d.size else 1
+        lanes = lanes_for_width(width)
+        if lanes is not None:
+            return tuple(torch.from_numpy(x).to(dev) for x in pack_host(d, lanes)), None
+        keep = np.char.str_len(d) <= MAX_LANE_BYTES
+        pos = np.flatnonzero(keep).astype(np.int32)
+        sub = d[keep].astype(f"S{MAX_LANE_BYTES}")
+        lanes = lanes_for_width(MAX_LANE_BYTES)
+        return tuple(torch.from_numpy(x).to(dev) for x in pack_host(sub, lanes)), pos
 
     def renumbered_to_col(self, other) -> torch.Tensor:
         """This column's codes in *other*'s code space (the probe side of
-        a join); an ``IntColumn`` *other* is demoted to its dictionary."""
-        return self.renumbered_to(other.dictionary)
+        a join): the device lane translation when either side keeps its
+        dictionary on the device (no host dictionary is built), the host
+        translation table otherwise.  An ``IntColumn`` *other* is demoted
+        to its dictionary."""
+        if other.kind == "int":
+            other = other._demote()
+        if self.dev_dictionary is None and other.dev_dictionary is None:
+            return self.renumbered_to(other.dictionary)
+        from ..ops.lanes import translate_lanes
+
+        if self.dict_size == 0:
+            return self.codes
+        q_lanes, q_pos = self._lanes_narrow()
+        b_lanes, b_pos = other._lanes_narrow()
+        codes = self.codes
+        if b_lanes[0].shape[0] == 0 or q_lanes[0].shape[0] == 0:
+            return torch.where(codes >= 0, ABSENT, codes)
+        trans = translate_lanes(b_lanes, q_lanes)
+        dev = trans.device
+        if b_pos is not None:
+            # subset slots of other -> other's full code space
+            b_full = torch.from_numpy(b_pos).to(dev)
+            got = torch.index_select(b_full, 0, trans.clamp(min=0).to(torch.int64))
+            trans = torch.where(trans >= 0, got, -1)
+        if q_pos is not None:
+            # subset results back over self's full dictionary; wide
+            # entries stay -1
+            full = torch.full((self.dict_size,), -1, dtype=torch.int32, device=dev)
+            full[torch.from_numpy(q_pos).to(dev).to(torch.int64)] = trans
+            trans = full
+        return apply_code_translation(codes, trans.to(codes.device))
 
     def renumbered_to(self, other_dictionary: np.ndarray) -> torch.Tensor:
         """This column's codes in another dictionary's code space (host
@@ -254,9 +485,12 @@ class DeviceTable:
         # (stream index of the first failing row, the error) of a terminal
         # Validate; fired by consumers only if streaming reaches that row
         self.deferred_error = None
-        # the ingest tier that made this table from a CSV file
-        # ("native-encoded", "native-strings" or "python"; None otherwise)
+        # the ingest tier that made this table from a CSV file ("streamed",
+        # "native-encoded", "native-strings" or "python"; None otherwise)
         self.ingest_tier = None
+        # the streamed tier's accounting: {"scan_wait": s, "place": s,
+        # "chunks": n, "workers": K}; None for the other tiers
+        self.ingest_seconds = None
 
     @classmethod
     def from_pylists(
@@ -272,22 +506,29 @@ class DeviceTable:
 
     @classmethod
     def from_encoded(
-        cls, data: Dict[str, tuple], nrows: int, device: "str | torch.device"
+        cls, data: Dict[str, object], nrows: int, device: "str | torch.device"
     ) -> "DeviceTable":
-        """Build from encoded host columns, as the native ingest tier
-        gives them: ``(dictionary, codes)`` pairs and ``("int", prefix,
-        values)`` typed triples."""
+        """Build from encoded columns as the ingest tiers give them:
+        ``(dictionary, codes)`` pairs and ``("int", prefix, values)``
+        typed triples (numpy arrays, or tensors already on the device), or
+        ready ``StringColumn``/``IntColumn`` values, which pass through."""
         from .typed import IntColumn
 
         dev = resolve_device(device)
+
+        def put(arr):
+            return arr if isinstance(arr, torch.Tensor) else torch.from_numpy(arr).to(dev)
+
         cols = {}
         for name, value in data.items():
-            if len(value) == 3 and value[0] == "int":
+            if isinstance(value, (StringColumn, IntColumn)):
+                cols[name] = value
+            elif len(value) == 3 and value[0] == "int":
                 _, prefix, vals = value
-                cols[name] = IntColumn(prefix, torch.from_numpy(vals).to(dev))
+                cols[name] = IntColumn(prefix, put(vals))
             else:
                 dictionary, codes = value
-                cols[name] = StringColumn(dictionary, torch.from_numpy(codes).to(dev))
+                cols[name] = StringColumn(dictionary, put(codes))
         return cls(cols, nrows, dev)
 
     @classmethod
@@ -355,13 +596,27 @@ def from_reference_arrays(
     device: "str | torch.device",
 ) -> DeviceTable:
     """A :class:`DeviceTable` from numpy columns as the JAX package holds
-    them — ``(dictionary, codes)`` pairs (``StringColumn.dictionary`` /
-    ``codes_host()``) and ``("int", prefix, values)`` triples
-    (``IntColumn.prefix`` / its value lanes) — so one encoded table can
-    feed both packages."""
+    them, so one encoded table can feed both packages:
+
+    * ``(dictionary, codes)`` pairs (``StringColumn.dictionary`` /
+      ``codes_host()``);
+    * ``("int", prefix, values)`` triples (``IntColumn.prefix`` / its
+      value lanes);
+    * ``("lanes", lane_arrays, codes[, sorted])`` lane-dictionary columns
+      (``StringColumn.dev_dictionary`` as numpy int32 arrays, the codes,
+      and whether the lanes are sorted; True when left out)."""
     from .typed import PAD_VALUE, IntColumn
 
     dev = resolve_device(device)
+
+    def checked_codes(name, codes, size):
+        codes = np.array(codes, dtype=np.int32)  # a writable copy
+        if codes.ndim != 1:
+            raise ValueError(f"column {name!r}: codes must be one-dimensional")
+        if codes.size and (codes.min() < ABSENT or codes.max() >= size):
+            raise ValueError(f"column {name!r}: codes out of dictionary range")
+        return codes
+
     cols = {}
     nrows = None
     for name, value in columns.items():
@@ -376,6 +631,21 @@ def from_reference_arrays(
                 raise ValueError(f"column {name!r}: INT32_MIN is not a typed value")
             n = int(vals.shape[0])
             col = IntColumn(prefix, torch.from_numpy(vals).to(dev))
+        elif isinstance(value[0], str) and value[0] == "lanes":
+            if len(value) not in (3, 4):
+                raise ValueError(f"column {name!r}: expected ('lanes', lanes, codes[, sorted])")
+            lanes = [np.array(x, dtype=np.int32) for x in value[1]]
+            if len(lanes) not in (2, 4, 8) or len({x.shape for x in lanes}) != 1 \
+                    or lanes[0].ndim != 1:
+                raise ValueError(f"column {name!r}: 2, 4 or 8 equal one-dimensional lanes")
+            sorted_ = bool(value[3]) if len(value) == 4 else True
+            codes = checked_codes(name, value[2], lanes[0].shape[0])
+            n = int(codes.shape[0])
+            col = StringColumn(
+                None, torch.from_numpy(codes).to(dev),
+                dev_dictionary=tuple(torch.from_numpy(x).to(dev) for x in lanes),
+                dev_dict_sorted=sorted_,
+            )
         else:
             dictionary, codes = value
             dictionary = np.asarray(dictionary)
@@ -383,11 +653,7 @@ def from_reference_arrays(
                 dictionary = np.char.encode(dictionary, "utf-8")
             if dictionary.size > 1 and not bool(np.all(dictionary[:-1] < dictionary[1:])):
                 raise ValueError(f"column {name!r}: dictionary is not sorted and unique")
-            codes = np.array(codes, dtype=np.int32)  # a writable copy
-            if codes.ndim != 1:
-                raise ValueError(f"column {name!r}: codes must be one-dimensional")
-            if codes.size and (codes.min() < ABSENT or codes.max() >= dictionary.size):
-                raise ValueError(f"column {name!r}: codes out of dictionary range")
+            codes = checked_codes(name, codes, dictionary.size)
             n = int(codes.shape[0])
             col = StringColumn(dictionary, torch.from_numpy(codes).to(dev))
         if nrows is None:

@@ -78,12 +78,30 @@ class IntColumn:
     def has_absent(self) -> bool:
         return False  # typed columns never hold absent cells
 
+    @property
+    def dev_dictionary(self):
+        return None  # no lane dictionary: the value lanes are the storage
+
+    def _ensure_sorted_lanes(self) -> None:
+        return None  # no deferred lane union to settle
+
     # ---- decode (no demotion) ----
+
+    def formatted_host(self) -> np.ndarray:
+        """Every row formatted to 'S' bytes through the C++ itoa (the CSV
+        sink's fast path)."""
+        return format_affix(self.prefix, self.values.cpu().numpy())
+
+    def formatted_str(self) -> np.ndarray:
+        """Every row formatted as a numpy str array."""
+        digits = self.values.cpu().numpy().astype(np.str_)
+        p = self.prefix.decode("utf-8")
+        return np.char.add(p, digits) if p else digits
 
     def decode(self) -> List[Optional[str]]:
         """Materialize the values on the host as Python strings, through
         the C++ itoa."""
-        d = format_affix(self.prefix, self.values.cpu().numpy())
+        d = self.formatted_host()
         return (np.char.decode(d, "utf-8") if d.size else np.empty(0, np.str_)).tolist()
 
     def equality_term(self, value: str):

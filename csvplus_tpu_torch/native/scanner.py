@@ -1,20 +1,25 @@
 """ctypes binding and build of the port's native CSV scanner.
 
-Port of the whole-file subset of ``csvplus_tpu/native/scanner.py``: the
-scan (single pass and threaded over newline-aligned chunks), the
-vectorized dictionary encode of a column straight from field offsets,
-the typed ``prefix + canonical int32`` parse, the C++ itoa, and the two
-whole-file ingest tiers built on them (:func:`read_encoded_columns_native`
-and :func:`read_columns_native`).
+Port of ``csvplus_tpu/native/scanner.py`` without its device-parse
+tier: the scan (single pass and threaded over newline-aligned chunks),
+the vectorized dictionary encode of a column straight from field
+offsets, the typed ``prefix + canonical int32`` parse (per column,
+strided over rectangular chunks, and fused with the tokenizer), the C++
+itoa, the two whole-file ingest tiers built on them
+(:func:`read_encoded_columns_native` and :func:`read_columns_native`),
+and the streamed tier's staged chunk pipeline
+(:func:`stream_encoded_chunks`).
 
 ``scanner.cpp`` is compiled with ``g++ -O3`` at first use into
 ``csvplus_tpu_torch/_build/``, under a name that carries a hash of the
 source.  Unlike the reference, a failed build or load **raises**
 (``RuntimeError``): the port never hides a broken scanner behind the
-Python parser.  The tiers decline (return None, and the caller takes the
+Python parser.  The tiers decline (return None, or raise
+:class:`StreamFallback` in the streamed tier, and the caller takes the
 next tier) only for the reference's reasons of semantics: leading-space
 trimming, a delimiter or comment that is not one byte, a NUL byte in the
-data, or a field longer than :data:`_VEC_MAX_FIELD_LEN` bytes.
+data, a field longer than :data:`_VEC_MAX_FIELD_LEN` bytes, or (streamed
+tier) a quote under LazyQuotes.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..csvio import ERR_BARE_QUOTE, ERR_FIELD_COUNT, ERR_QUOTE
-from ..errors import DataSourceError
+from ..errors import DataSourceError, map_error
 
 SOURCE = Path(__file__).resolve().parent / "scanner.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -73,7 +78,7 @@ _I32 = ctypes.c_int32
 _CH = ctypes.c_char
 
 # (restype, argtypes) of the entry points of scanner.cpp that the
-# whole-file tiers call (the streamed tier's are not bound yet)
+# ingest tiers and the CSV sink call
 _SIGNATURES = {
     "csv_count_bounds": (_I64, [_VP, _I64, _CH, _CH, _I64P, _I64P, _I64P]),
     "csv_scan": (_I64, [_VP, _I64, _CH, _CH, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -88,7 +93,22 @@ _SIGNATURES = {
     "csv_pack_int32": (_I64, [_VP, _I64P, _I32P, _I64, ctypes.c_char_p, _I64P, _I64,
                               _VP]),
     "csv_format_i32": (None, [_VP, _I64, _I32, _VP, _VP]),
+    "csv_scatter_fields": (None, [ctypes.c_char_p, _I64P, _I32P, _I32P, _I64P, _I64, _CH,
+                                  _VP]),
+    "csv_pack_int32_strided": (_I64, [_VP, _I64P, _I32P, _I64, _I64, _I64,
+                                      ctypes.c_char_p, _I64P, _I64, _VP]),
+    "csv_scan_parse_i32": (_I64, [_VP, _I64, _CH, _I64, ctypes.c_char_p, _I64P, _I64P,
+                                  ctypes.POINTER(ctypes.c_void_p), _I64]),
 }
+
+
+def _env_int(name: str, default: int) -> int:
+    """An int tuning knob from the environment; a malformed value gives
+    *default* (a typo never aborts an ingest), as in the reference."""
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
 
 
 def _load():
@@ -364,6 +384,86 @@ def pack_int32_native(
     if not all(_run_ranges(run, n)):
         return None
     return bytes(pbuf.raw[: plen.value]), out
+
+
+def pack_int32_strided_native(
+    combined: np.ndarray,
+    starts: np.ndarray,
+    lens: np.ndarray,
+    n_records: int,
+    stride: int,
+    off: int,
+    prefix: "bytes | None",
+):
+    """Typed parse of column *off* of a rectangular chunk, whose record i
+    holds it at flat field ``off + i*stride``: no per-column position
+    gather.  Same contract as :func:`pack_int32_native`."""
+    lib = _load()
+    if n_records == 0:
+        return None
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    lens = np.ascontiguousarray(lens, dtype=np.int32)
+    out = np.empty(n_records, dtype=np.int32)
+    marshalled = _prefix_marshal(prefix)
+    if marshalled is None:
+        return None
+    pbuf, plen = marshalled
+    ok = int(
+        lib.csv_pack_int32_strided(
+            combined.ctypes.data, starts.ctypes.data_as(_I64P), lens.ctypes.data_as(_I32P),
+            n_records, stride, off, pbuf, ctypes.byref(plen), _PREFIX_CAP, out.ctypes.data,
+        )
+    )
+    if not ok:
+        return None
+    return bytes(pbuf.raw[: plen.value]), out
+
+
+def scan_parse_i32_native(data: bytes, delimiter: str, ncols: int, header, typed_state):
+    """Tokenize and typed-parse a fully typed rectangular chunk in one C++
+    pass, with no (start, len) offset arrays.  Every selected column must
+    be typed with an established prefix.  Returns ``(nrec, {name:
+    ("int", prefix, values)})``, or None to bail (the caller then runs
+    the chunk through the generic scan, which owns error numbering)."""
+    lib = _load()
+    delim_b = delimiter.encode("utf-8")
+    if len(delim_b) != 1:
+        return None
+    n = len(data)
+    if n == 0 or ncols <= 0:
+        return None
+    # a typed record needs >= 1 digit per field plus its separator
+    max_records = n // (2 * ncols) + 2
+    outs = {}
+    ptrs = (ctypes.c_void_p * ncols)()
+    blob = bytearray()
+    poff = np.zeros(ncols, dtype=np.int64)
+    plen = np.zeros(ncols, dtype=np.int64)
+    for name, idx in header.items():
+        st = typed_state.get(name)
+        if st is None or st[0] is None or idx >= ncols:
+            return None
+        arr = np.empty(max_records, dtype=np.int32)
+        outs[name] = arr
+        ptrs[idx] = arr.ctypes.data
+        poff[idx] = len(blob)
+        plen[idx] = len(st[0])
+        blob.extend(st[0])
+    base = ctypes.cast(ctypes.c_char_p(data), ctypes.c_void_p).value
+    rc = int(
+        lib.csv_scan_parse_i32(
+            base, n, delim_b, ncols, bytes(blob),
+            poff.ctypes.data_as(_I64P), plen.ctypes.data_as(_I64P), ptrs, max_records,
+        )
+    )
+    if rc <= 0:
+        return None
+    # copy the used slice: a view would pin the whole max_records buffer
+    # (several times the real row count) for as long as the chunk lives
+    return rc, {
+        name: ("int", typed_state[name][0], np.ascontiguousarray(arr[:rc]))
+        for name, arr in outs.items()
+    }
 
 
 def format_i32_native(values: np.ndarray, width: int = 12):
@@ -692,3 +792,449 @@ def read_columns_native(reader, path: str):
             for s, l, o in zip(col_starts.tolist(), col_lens.tolist(), ok.tolist())
         ]
     return list(header), out
+
+
+# -- the streamed tier: a staged chunk pipeline ------------------------------
+
+
+class StreamFallback(Exception):
+    """Raised by the streamed tier on input it cannot handle (a quote
+    under LazyQuotes, a NUL byte, an over-long field, an empty file, a
+    lane dictionary outgrowing its width mid-stream); the caller then
+    takes the whole-file tiers, which re-read the file from the start."""
+
+
+_STREAM_CHUNK_BYTES = 64 << 20
+
+
+def _stream_chunk_bytes() -> int:
+    v = os.environ.get("CSVPLUS_STREAM_CHUNK_BYTES")
+    return int(v) if v else _STREAM_CHUNK_BYTES
+
+
+def _ingest_workers() -> int:
+    """K, the chunk workers of the staged pipeline
+    (``CSVPLUS_INGEST_WORKERS``).  0, unset or malformed = auto: half the
+    cores (the scan also threads within a chunk), capped at 8.  K = 1 runs
+    the same worker function inline."""
+    k = _env_int("CSVPLUS_INGEST_WORKERS", 0)
+    if k <= 0:
+        k = min(max((os.cpu_count() or 1) // 2, 1), 8)
+    return max(1, min(k, 32))
+
+
+def _iter_parity_chunks(reader, f, chunk_bytes: int):
+    """Readahead stage: cut the file into chunks that each start at a
+    record boundary with closed quote state.  The cut is the last newline
+    whose cumulative quote count is even (under strict quoting an odd
+    count means the newline lies inside a quoted field); the pending
+    tail's parity carries across reads, so each byte is parity-scanned
+    once.  Pure byte cutting, so every worker count sees the same
+    chunks."""
+    pending = b""
+    pend_parity = 0
+    pend_quote = False
+    eof = False
+    while not eof:
+        raw = f.read(chunk_bytes)
+        if not raw:
+            eof = True
+            data, pending = pending, b""
+            pend_parity, pend_quote = 0, False
+            if not data:
+                break
+        else:
+            raw_quote = b'"' in raw
+            if raw_quote or pend_quote:
+                if reader._lazy_quotes:
+                    # a bare quote in an unquoted field is legal under
+                    # LazyQuotes and breaks the parity cut
+                    raise StreamFallback("quote under LazyQuotes")
+                a = np.frombuffer(raw, dtype=np.uint8)
+                parity = (np.cumsum(a == ord('"'), dtype=np.int64) + pend_parity) & 1
+                safe_nl = np.flatnonzero((a == ord("\n")) & (parity == 0))
+                if safe_nl.size == 0:
+                    pending += raw  # one giant quoted record: read on
+                    pend_parity = int(parity[-1])
+                    pend_quote = pend_quote or raw_quote
+                    continue
+                cut = int(safe_nl[-1]) + 1
+                data, pending = pending + raw[:cut], raw[cut:]
+                pend_parity = int(parity[-1])
+                pend_quote = b'"' in pending
+            else:
+                cut = raw.rfind(b"\n") + 1
+                if cut == 0:
+                    pending += raw  # no record boundary yet
+                    continue
+                data, pending = pending + raw[:cut], raw[cut:]
+        yield data
+
+
+class _StreamCtx:
+    """State the chunk workers read, set by the first encoded chunk and
+    owned by the ordered reassembler afterwards.  ``typed`` maps the live
+    typed columns to their pinned prefix (None only while the first chunk
+    derives it).  The reassembler swaps in a smaller dict when a column
+    demotes; a worker reads the attribute once per chunk, so one in
+    flight may still encode a just-demoted column, and the reassembler
+    normalizes that result."""
+
+    __slots__ = ("reader", "header", "names", "expected", "pad_allowed", "typed",
+                 "fused_ncols", "delim_b", "scan_threads")
+
+    def __init__(self, reader):
+        self.reader = reader
+        self.header = None
+        self.names = []
+        self.expected = reader._num_fields
+        self.pad_allowed = reader._num_fields < 0
+        self.typed = {}
+        self.fused_ncols = 0
+        self.delim_b = reader._delimiter.encode("utf-8")
+        self.scan_threads = None
+
+
+class _ChunkResult:
+    """One chunk's scan + encode, made by a worker and consumed in file
+    order by the reassembler.  Errors are chunk-relative (absolute =
+    rel + next_record - 1): only the reassembler knows the chunk's base."""
+
+    __slots__ = ("nscanned", "nrec", "cols", "error")
+
+    def __init__(self):
+        self.nscanned = 0  # records scanned (the header included on chunk 0)
+        self.nrec = 0  # data records
+        self.cols = None
+        self.error = None  # ("data", rel_record, msg) | ("fallback", reason)
+
+
+_NOT_TYPED = object()  # sentinel: None is a valid (derive-mode) prefix
+
+
+def _encode_scanned(ctx, res, data, scratch, starts, lens, data_counts, field_offset,
+                    rec_base):
+    """Column encode over pre-scanned offset arrays, for the first chunk
+    (prefix-derive mode, inline) and the workers (pinned prefixes) alike.
+    Fills *res*; data-shaped problems land in ``res.error``."""
+    header = ctx.header
+    typed = ctx.typed  # one read: the reassembler may swap in a new dict
+    # scratch holds unescaped quoted content; negative starts index it
+    enc_data = data + scratch if scratch else data
+    combined = np.frombuffer(enc_data, dtype=np.uint8)
+    base = len(data)
+    abs_starts = np.where(starts >= 0, starts, base + (-starts - 1)) if scratch else starts
+    # rectangular chunks: column idx of record r is flat field
+    # field_offset + r*nf + idx, which the strided parse reads directly
+    typed_out = {}
+    failed_typed = set()
+    nrec = int(data_counts.shape[0])
+    res.nrec = nrec
+    uniform_nf = 0
+    if typed and not scratch and nrec:
+        mn, mx = int(data_counts.min()), int(data_counts.max())
+        if mn == mx:
+            uniform_nf = mn
+    if uniform_nf:
+        for name, idx in header.items():
+            prefix = typed.get(name, _NOT_TYPED)
+            if prefix is _NOT_TYPED or idx >= uniform_nf:
+                continue
+            packed = pack_int32_strided_native(
+                combined, starts, lens, nrec, uniform_nf, field_offset + idx, prefix
+            )
+            if packed is None:
+                failed_typed.add(name)  # a dictionary from here; the reassembler demotes
+                continue
+            typed_out[name] = ("int", packed[0], packed[1])
+
+    try:
+        cols = (
+            list(_column_positions(data_counts, field_offset, header, rec_base,
+                                   ctx.pad_allowed))
+            if len(typed_out) < len(header)
+            else []
+        )
+    except DataSourceError as e:
+        res.error = ("data", int(e.line), e.err)
+        return
+    cols = [c for c in cols if c[0] not in typed_out]
+
+    def enc_one(args):
+        name, pos, ok = args
+        all_present = bool(ok.all())
+        if all_present:
+            col_starts, col_lens = abs_starts[pos], lens[pos].astype(np.int32)
+        else:
+            col_starts = np.where(ok, abs_starts[np.where(ok, pos, 0)], 0)
+            col_lens = np.where(ok, lens[np.where(ok, pos, 0)], 0).astype(np.int32)
+        prefix = typed.get(name, _NOT_TYPED)
+        if prefix is not _NOT_TYPED and name not in failed_typed and all_present:
+            packed = pack_int32_native(combined, col_starts, col_lens, prefix)
+            if packed is not None:
+                return name, ("int", packed[0], packed[1])
+        enc = encode_fields_vectorized(combined, col_starts, col_lens)
+        if enc is None:
+            raise StreamFallback("field too long for vectorized encode")
+        return name, enc
+
+    try:
+        out = dict(_map_columns(enc_one, cols))
+    except StreamFallback as e:
+        res.error = ("fallback", str(e))
+        return
+    out.update(typed_out)
+    res.cols = out
+
+
+def _scan_encode_chunk(ctx, data):
+    """One worker's unit: scan and encode one chunk after the first,
+    against the context.  It reads ``ctx`` and mutates nothing shared, so
+    K workers run it at once (the native calls release the GIL) and the
+    reassembler's file-order merge is the only serialization point.  Any
+    exception reaches the consumer: the reference's re-execution of a
+    chunk after an injected transient worker crash (its ``_run_chunk``)
+    belongs to its chaos layer, which is not ported."""
+    res = _ChunkResult()
+    reader = ctx.reader
+    if b"\x00" in data:
+        res.error = ("fallback", "NUL in chunk")
+        return res
+    typed = ctx.typed
+    # fused path: every selected column typed with a pinned prefix and a
+    # plain chunk (no quote, CR or comment) -> one C++ pass tokenizes and
+    # parses without writing field offsets.  Any bail reruns the chunk
+    # through the generic path, which owns the error numbering.
+    if (
+        ctx.fused_ncols
+        and typed
+        and len(ctx.delim_b) == 1
+        and reader._comment is None
+        and len(typed) == len(ctx.header)
+        and all(
+            p is not None
+            # a prefix holding the delimiter or a record terminator would
+            # let the fused prefix compare read across fields
+            and ctx.delim_b not in p and b"\n" not in p and b"\r" not in p
+            for p in typed.values()
+        )
+        and b'"' not in data
+        and b"\r" not in data
+    ):
+        fused = scan_parse_i32_native(
+            data, reader._delimiter, ctx.fused_ncols, ctx.header,
+            {n: (p,) for n, p in typed.items()},
+        )
+        if fused is not None:
+            # fused records have exact arity by construction
+            res.nscanned = res.nrec = fused[0]
+            res.cols = fused[1]
+            return res
+    try:
+        # chunks start at record boundaries with closed quote state, so
+        # the threaded newline-split scan applies as to whole files
+        starts, lens, counts, scratch = scan_bytes_parallel(
+            data, delimiter=reader._delimiter, comment=reader._comment,
+            lazy_quotes=reader._lazy_quotes, n_threads=ctx.scan_threads,
+        )
+    except DataSourceError as e:
+        res.error = ("data", int(e.line), e.err)
+        return res
+    res.nscanned = int(counts.shape[0])
+    if reader._num_fields >= 0:
+        try:
+            _check_field_counts(counts, ctx.expected, 1)
+        except DataSourceError as e:
+            res.error = ("data", int(e.line), e.err)
+            return res
+    _encode_scanned(ctx, res, data, scratch, starts, lens, counts, 0, 1)
+    return res
+
+
+def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
+                          workers: Optional[int] = None):
+    """Generator over record-aligned chunks of *path*, each scanned and
+    encoded natively with no per-cell Python objects.
+
+    Yields ``(names, {name: encoded column}, nrows)`` per chunk: an
+    encoded column is a ``(dictionary, codes)`` pair or, for a column
+    whose every cell so far is ``prefix + canonical int32``, a typed
+    ``("int", prefix, int32 values)`` triple (``CSVPLUS_TYPED_LANES=0``
+    turns those off).  The column set is fixed by the first chunk with
+    records, which resolves the header, locks the field-count policy and
+    derives the typed prefixes inline.  Host memory holds a constant
+    number of chunks, never the whole file.
+
+    After that the staged pipeline runs: the readahead stage
+    (:func:`_iter_parity_chunks`), K workers (``CSVPLUS_INGEST_WORKERS``
+    or *workers*) running :func:`_scan_encode_chunk`, and an ordered
+    reassembler that emits chunks in file order.  Workers encode typed
+    columns speculatively against a prefix snapshot; the reassembler owns
+    demotion (the first non-conforming chunk in file order demotes) and
+    normalizes stale typed results through ``format_affix`` to the same
+    dictionary encoding, and it renumbers chunk-relative errors to
+    absolute records.  So what is yielded, where a column demotes and
+    every error's row number are the same for every K; K = 1 drives the
+    same worker function inline.
+
+    Raises :class:`StreamFallback` for the reference's reasons (see the
+    class) and :class:`DataSourceError` with absolute 1-based record
+    numbers for header and field-count errors.
+    """
+    if reader._trim_leading_space:
+        raise StreamFallback("trim")
+    if len(reader._delimiter.encode("utf-8")) != 1:
+        raise StreamFallback("delimiter")
+    if reader._comment is not None and len(reader._comment.encode("utf-8")) != 1:
+        raise StreamFallback("comment")
+    chunk_bytes = chunk_bytes or _stream_chunk_bytes()
+    k_workers = max(1, workers if workers is not None else _ingest_workers())
+    typed_enabled = os.environ.get("CSVPLUS_TYPED_LANES", "1") != "0"
+    next_record = 1  # absolute 1-based ordinal of the next record scanned
+    typed_live: set = set()  # columns still typed, in file order
+
+    try:
+        f = open(path, "rb")
+    except OSError as e:
+        raise DataSourceError(1, f"open: {e.strerror or e}") from e
+    with f:
+        chunks_iter = _iter_parity_chunks(reader, f, chunk_bytes)
+        ctx = None
+
+        # establishment, inline until the first chunk with records
+        while True:
+            try:
+                data = next(chunks_iter, None)
+            except OSError as e:
+                raise map_error(e, next_record) from e
+            if data is None:
+                break
+            if b"\x00" in data:
+                raise StreamFallback("NUL in chunk")
+            try:
+                starts, lens, counts, scratch = scan_bytes_parallel(
+                    data, delimiter=reader._delimiter, comment=reader._comment,
+                    lazy_quotes=reader._lazy_quotes,
+                )
+            except DataSourceError as e:
+                raise DataSourceError(e.line + next_record - 1, e.err)
+            if counts.shape[0] == 0:
+                continue  # a comment-only chunk before the first record
+            header, rec_base, field_offset, data_counts, expected = (
+                _resolve_header_from_arrays(reader, data, scratch, starts, lens, counts)
+            )
+            ctx = _StreamCtx(reader)
+            ctx.header = header
+            ctx.names = list(header)
+            ctx.expected = expected
+            if typed_enabled:
+                ctx.typed = {n: None for n in ctx.names}  # derive mode
+                if expected and expected > 0:
+                    ctx.fused_ncols = int(expected)
+                elif data_counts.size and int(data_counts.min()) == int(data_counts.max()):
+                    ctx.fused_ncols = int(data_counts[0])
+            if k_workers > 1:
+                # chunk workers and the scan's own threads split the cores
+                ctx.scan_threads = max(1, (os.cpu_count() or 1) // k_workers)
+            res = _ChunkResult()
+            res.nscanned = int(counts.shape[0])
+            _encode_scanned(ctx, res, data, scratch, starts, lens, data_counts,
+                            field_offset, rec_base)
+            if res.error is not None:
+                if res.error[0] == "fallback":
+                    raise StreamFallback(res.error[1])
+                raise DataSourceError(res.error[1], res.error[2])  # next_record == 1
+            # pin the derived prefixes; a column that came back as a
+            # dictionary left typed mode on its first chunk
+            ctx.typed = {
+                c: enc[1] for c, enc in res.cols.items() if len(enc) == 3 and enc[0] == "int"
+            }
+            typed_live = set(ctx.typed)
+            next_record += res.nscanned
+            yield ctx.names, res.cols, res.nrec
+            break
+        if ctx is None:
+            return  # no records at all: the consumer falls back
+
+        def emit(res):
+            """Ordered reassembly of one chunk: absolute error numbers,
+            demotion in file order, normalized stale typed results."""
+            nonlocal next_record
+            if res.error is not None:
+                if res.error[0] == "fallback":
+                    raise StreamFallback(res.error[1])
+                raise DataSourceError(res.error[1] + next_record - 1, res.error[2])
+            out = res.cols
+            demoted_now = False
+            for c in ctx.names:
+                enc = out[c]
+                if len(enc) == 3 and enc[0] == "int":
+                    if c not in typed_live:
+                        # a worker's snapshot predates this column's
+                        # demotion: re-encode exactly as a dictionary
+                        # (format_affix inverts the native parse)
+                        from ..columnar.typed import format_affix
+
+                        strs = format_affix(enc[1], np.asarray(enc[2], np.int32))
+                        dd, cc = np.unique(strs, return_inverse=True)
+                        out[c] = (dd, cc.astype(np.int32))
+                elif c in typed_live:
+                    # the first non-conforming chunk in file order: the
+                    # column leaves typed mode for good
+                    typed_live.discard(c)
+                    demoted_now = True
+            if demoted_now:
+                # new chunks skip the dead speculative work
+                ctx.typed = {c: p for c, p in ctx.typed.items() if c in typed_live}
+            next_record += res.nscanned
+            return ctx.names, out, res.nrec
+
+        cut_error = None
+        read_error = None
+        if k_workers == 1:
+            while True:
+                try:
+                    data = next(chunks_iter, None)
+                except StreamFallback as e:
+                    cut_error = e
+                    data = None
+                except OSError as e:
+                    read_error = e
+                    data = None
+                if data is None:
+                    break
+                yield emit(_scan_encode_chunk(ctx, data))
+        else:
+            from collections import deque
+            from concurrent.futures import ThreadPoolExecutor
+
+            pool = ThreadPoolExecutor(max_workers=k_workers, thread_name_prefix="csvplus-ingest")
+            try:
+                pending: deque = deque()
+                exhausted = False
+                while True:
+                    # at most K chunks in flight: K encodes + one being cut
+                    while not exhausted and len(pending) < k_workers:
+                        try:
+                            data = next(chunks_iter, None)
+                        except StreamFallback as e:
+                            # chunks already cut still emit first, in the
+                            # serial loop's order
+                            cut_error = e
+                            data = None
+                        except OSError as e:
+                            read_error = e
+                            data = None
+                        if data is None:
+                            exhausted = True
+                            break
+                        pending.append(pool.submit(_scan_encode_chunk, ctx, data))
+                    if not pending:
+                        break
+                    yield emit(pending.popleft().result())
+            finally:
+                pool.shutdown(wait=False, cancel_futures=True)
+        if read_error is not None:
+            raise map_error(read_error, next_record) from read_error
+        if cut_error is not None:
+            raise cut_error

@@ -8,9 +8,10 @@ Port of the single-join subset of ``csvplus_tpu/ops/join.py``.
   dictionary.  Sorted dictionaries make packed order == the reference's
   lexicographic string order, so the packed array is sorted too.
 * The probe side translates its key columns into the build dictionaries
-  (host translation table + device gather; a typed probe column looks its
-  value lanes up in the numerically parsed build dictionary instead, so
-  it is never demoted), packs them the same way, and
+  (host translation table + device gather; a lane-dictionary column on
+  either side translates by a device lane search instead; a typed probe
+  column looks its value lanes up in the numerically parsed build
+  dictionary, so it is never demoted), packs them the same way, and
   answers every row's ``[lower, lower + count)`` match range at once.
 * Fan-out is data-dependent, so only ``(total, max count)`` crosses to the
   host — one transfer — and the gather index vectors are built on device.
@@ -181,6 +182,10 @@ class DeviceIndex:
     def build(cls, table: DeviceTable, key_columns: Sequence[str]) -> "DeviceIndex":
         key_columns = list(key_columns)
         cols = [table.columns[c] for c in key_columns]
+        for c in cols:
+            # packed keys need code order == value order and one code per
+            # value: a deferred lane dictionary is sorted here
+            c._ensure_sorted_lanes()
         bits = [_bits_for(c.dict_size) for c in cols]
         total = sum(bits)
         if total > 62:

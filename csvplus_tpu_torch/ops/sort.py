@@ -37,8 +37,11 @@ def sort_table(table: DeviceTable, key_columns: Sequence[str]) -> DeviceTable:
 
     Sorting by a column needs code order == string order, so a typed key
     column is demoted to its dictionary here and comes out as a
-    ``StringColumn``, as in the reference; every other column, typed or
-    not, rides along as its storage array."""
+    ``StringColumn``, as in the reference, and a deferred (unsorted) lane
+    dictionary is sorted on the device; every other column, typed, lane
+    or not, rides along as its storage array."""
+    for c in key_columns:
+        table.columns[c]._ensure_sorted_lanes()
     keys = {c: table.columns[c].codes for c in key_columns}
     perm = sort_permutation(list(keys.values()))
     out = {}

@@ -1,15 +1,18 @@
 """Eager sinks: the terminals that drive a lazy chain.
 
-Port of ``to_csv``/``to_csv_file``/``to_rows`` from
-``csvplus_tpu/sinks.py`` (csvplus.go:376-415, 483-490, and the atomic
-``writeFile`` of csvplus.go:418-443: on any error the partly written file
-is closed and removed).  A device-planned source runs its plan inside
-``src(fn)`` (its run function is
-:func:`csvplus_tpu_torch.columnar.exec.plan_runner`), so the sinks are the
-same for both paths and write the same bytes.  Typed affix-int32 columns
-reach them as strings formatted by the native C++ itoa
-(``IntColumn.decode``), byte for byte the reference's; the reference's
-vectorized CSV encoder (``columnar/csvenc.py``) is not ported yet.
+Port of ``csvplus_tpu/sinks.py``: ``to_csv``/``to_csv_file``
+(csvplus.go:376-415), ``to_json``/``to_json_file`` (csvplus.go:445-480),
+``to_rows`` (csvplus.go:483-490) and the atomic ``writeFile``
+(csvplus.go:418-443: on any error the partly written file is closed and
+removed).
+
+A device-planned source runs its plan once (:func:`..columnar.exec.
+device_table_for`) and the body is encoded at once by
+:mod:`.columnar.csvenc`: quoting once per dictionary entry, the CSV body
+through the C++ scatter, typed columns through the C++ itoa.  A result
+with absent cells or a missing column streams its rows instead, for the
+reference's exact per-row errors; so does any source without a device
+plan.  The bytes are the same either way.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import IO, List
 
 from .csvio import write_record
 from .row import Row
+from .utils.gojson import go_json_object
 
 
 def to_csv(src, out: IO[str], *columns: str) -> None:
@@ -29,6 +33,27 @@ def to_csv(src, out: IO[str], *columns: str) -> None:
 
     write_record(out, list(columns))
 
+    if getattr(src, "plan", None) is not None:
+        from .columnar.csvenc import encode_csv_body
+        from .columnar.exec import device_table_for
+
+        table = device_table_for(src)  # remembered: a prefix never runs twice
+        if table is not None:
+            body = encode_csv_body(table, columns)
+            if body is not None:
+                out.write(body)
+                return
+            # stream the computed table for the exact per-row
+            # missing-column errors and partial output
+            from .source import iterate
+
+            iterate(
+                table.to_rows(),
+                lambda row: write_record(out, row.select_values(*columns)),
+                clone=False,
+            )
+            return
+
     def fn(row: Row) -> None:
         write_record(out, row.select_values(*columns))
 
@@ -38,6 +63,58 @@ def to_csv(src, out: IO[str], *columns: str) -> None:
 def to_csv_file(src, name: str, *columns: str) -> None:
     """CSV sink to a named file with no partial output (csvplus.go:411-415)."""
     _write_file(name, lambda f: to_csv(src, f, *columns))
+
+
+def to_json(src, out: IO[str]) -> None:
+    """Write the rows as a JSON array of objects (csvplus.go:446-475), in
+    Go's ``json.Encoder`` byte format: each object compact with sorted
+    keys and followed by a newline, objects separated by commas inside
+    ``[...]``, ``&<>`` unescaped (``SetEscapeHTML(false)``,
+    csvplus.go:456), written in ~10 KB batches when streamed."""
+    if getattr(src, "plan", None) is not None:
+        from .columnar.csvenc import encode_json_body
+        from .columnar.exec import device_table_for
+
+        table = device_table_for(src)
+        if table is not None:
+            body = encode_json_body(table)
+            if body is not None:
+                out.write("[" + body + "]")
+                return
+            # rows of different schemas: stream the computed table
+            from .source import iterate
+
+            rows_out: List[Row] = []
+            iterate(table.to_rows(), rows_out.append, clone=False)
+            src = lambda fn: [fn(r) for r in rows_out]  # noqa: E731
+
+    buf: List[str] = ["["]
+    buf_len = 1
+    count = 0
+
+    def emit(row: Row) -> None:
+        nonlocal buf_len, count
+        count += 1
+        if count != 1:
+            buf.append(",")
+            buf_len += 1
+        s = go_json_object(row) + "\n"
+        buf.append(s)
+        buf_len += len(s)
+        if buf_len > 10000:
+            out.write("".join(buf))
+            buf.clear()
+            buf_len = 0
+
+    src(emit)
+
+    buf.append("]")
+    out.write("".join(buf))
+
+
+def to_json_file(src, name: str) -> None:
+    """JSON sink to a named file with no partial output (csvplus.go:478-480)."""
+    _write_file(name, lambda f: to_json(src, f))
 
 
 def to_rows(src) -> List[Row]:

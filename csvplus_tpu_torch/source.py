@@ -23,7 +23,8 @@ host streaming path.
 This slice ports ``transform``, ``filter``, ``map``, ``validate``,
 ``top``, ``drop_columns``, ``select_columns``, ``index_on``,
 ``unique_index_on``, ``join``, ``on_device`` and the sinks ``to_csv``,
-``to_csv_file``, ``to_rows`` and ``to_device_table``.
+``to_csv_file``, ``to_json``, ``to_json_file``, ``to_rows`` and
+``to_device_table``.
 """
 
 from __future__ import annotations
@@ -273,6 +274,20 @@ class DataSource:
 
         to_csv_file(self, name, *columns)
 
+    def to_json(self, out) -> None:
+        """Drive the chain, writing a JSON array of row objects to *out*
+        (csvplus.go:446-475, byte-compatible with Go's json.Encoder)."""
+        from .sinks import to_json
+
+        to_json(self, out)
+
+    def to_json_file(self, name: str) -> None:
+        """JSON sink to a named file; the file is removed on any error
+        (csvplus.go:478-480)."""
+        from .sinks import to_json_file
+
+        to_json_file(self, name)
+
     def to_rows(self) -> List[Row]:
         """Drive the chain and collect every row (csvplus.go:483-490)."""
         from .sinks import to_rows
@@ -313,6 +328,8 @@ class DataSource:
     Join = join
     ToCsv = to_csv
     ToCsvFile = to_csv_file
+    ToJSON = to_json
+    ToJSONFile = to_json_file
     ToRows = to_rows
 
 

@@ -1,1 +1,1 @@
-"""Measurement helpers (positional checksums)."""
+"""Host helpers: positional checksums, the relay iterator, Go JSON encoding."""

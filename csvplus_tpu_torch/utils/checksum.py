@@ -16,7 +16,9 @@ gather, one weighted product and one sum, and the whole table one
 transfer.  A typed affix-int32 column has no dictionary: its rows are
 hashed on the device from the value lanes
 (:func:`fnv1a_affix_int_device`), byte-identical to hashing
-``prefix + decimal(value)``.
+``prefix + decimal(value)``; a lane-dictionary column hashes its
+dictionary on the device from the packed lanes
+(:func:`fnv1a_lanes_device`), sorted or not, with no download.
 """
 
 from __future__ import annotations
@@ -125,6 +127,33 @@ def fnv1a_affix_int_device(prefix: bytes, values: torch.Tensor) -> torch.Tensor:
     return _affix_rows_ops(_affix_seed(prefix), values)
 
 
+def fnv1a_lanes_device(lane_arrays) -> torch.Tensor:
+    """32-bit FNV-1a per dictionary entry (int64 tensor of values < 2^32),
+    computed on the device from the sign-flipped int32 lane packing
+    (:mod:`..ops.lanes`): byte-identical to :func:`fnv1a_values` on the
+    unpacked dictionary.  Bytes come out big-endian per lane word; the
+    trailing NUL padding is excluded through each entry's last non-NUL
+    byte."""
+    from ..ops.lanes import _SIGN
+
+    n = int(lane_arrays[0].shape[0])
+    dev = lane_arrays[0].device
+    if n == 0:
+        return torch.empty(0, dtype=torch.int64, device=dev)
+    byte_cols = []
+    for lane in lane_arrays:
+        word = (lane ^ int(_SIGN)).to(torch.int64) & _M32
+        for shift in (24, 16, 8, 0):
+            byte_cols.append((word >> shift) & 0xFF)
+    length = torch.zeros(n, dtype=torch.int64, device=dev)
+    for pos, b in enumerate(byte_cols):
+        length = torch.maximum(length, torch.where(b != 0, pos + 1, 0))
+    h = torch.full((n,), int(_FNV_OFFSET), dtype=torch.int64, device=dev)
+    for pos, b in enumerate(byte_cols):
+        h = torch.where(pos < length, _fnv_step(h, b), h)
+    return h
+
+
 def checksum_device_table(
     table,
     columns: Optional[Sequence[str]] = None,
@@ -149,7 +178,12 @@ def checksum_device_table(
             # every cell is present by the typed invariant
             h = fnv1a_affix_int_device(col.prefix, col.values[:n])
         else:
-            htab = torch.from_numpy(fnv1a_values(col.dictionary).astype(np.int64)).to(device)
+            if col.dev_dictionary is not None and col._dictionary is None:
+                # read before the codes: it remaps them if a sibling copy
+                # sorted the shared lane state meanwhile
+                htab = fnv1a_lanes_device(col.dev_dictionary)
+            else:
+                htab = torch.from_numpy(fnv1a_values(col.dictionary).astype(np.int64)).to(device)
             codes = col.codes[:n]
             if htab.numel():
                 g = torch.index_select(htab, 0, codes.clamp(min=0))

@@ -1,0 +1,44 @@
+"""``chip_smoke.py``'s phases 4-7 rehearsed on the CPU at a small size.
+
+Each phase drives the port's public API on ``device="cpu"`` and holds it
+against the script's own numpy oracles (row counts, positional
+checksums, dictionaries, CSV and JSON bytes); the mask kernel's wrapper
+runs its plain version here, so the launch counts are not checked.  The
+streamed phases lower ``CSVPLUS_STREAM_MIN_BYTES`` to 1 and the chunk size
+to 64 KiB, so their small files stream in many chunks."""
+
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+PHASES = {
+    "4-main": (False, lambda C, d: C.run_main_path(20_000, 1, "cpu", d)),
+    "5-streamed": (True, lambda C, d: C.run_streamed_path(20_000, 1, "cpu", d)),
+    "6-lane": (True, lambda C, d: C.run_lane_path(20_000, 2_000, 1, "cpu", d,
+                                                  lane_threshold=5_000)),
+    "7-host-dict": (True, lambda C, d: C.run_host_dict_path(30_000, 1, "cpu", d)),
+}
+
+
+@pytest.mark.parametrize("phase", sorted(PHASES))
+def test_chip_smoke_phase_rehearses_on_the_cpu(phase, tmp_path, monkeypatch):
+    streamed, run = PHASES[phase]
+    monkeypatch.delenv("CSVPLUS_INGEST_WORKERS", raising=False)
+    if streamed:
+        monkeypatch.setenv("CSVPLUS_STREAM_MIN_BYTES", "1")
+        monkeypatch.setenv("CSVPLUS_STREAM_CHUNK_BYTES", str(64 << 10))
+    else:
+        monkeypatch.delenv("CSVPLUS_STREAM_MIN_BYTES", raising=False)
+    out = run(_chip_smoke(), tmp_path)
+    assert out["mask_check"]["cases"] > 0 and out["mask_check"]["max_abs_err"] == 0

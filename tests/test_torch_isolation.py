@@ -1,10 +1,14 @@
 """The port stands alone: ``csvplus_tpu_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor any module of ``csvplus_tpu``, its ingest loads
-its own build of the native scanner and never the JAX package's, its
-device entry points refuse ``"cuda"`` where no card is present instead of
-running on the CPU, and ``chip_smoke.py`` fails without a card."""
+import neither ``jax`` nor any module of ``csvplus_tpu`` (on the
+whole-file and on the streamed ingest tier, with lane dictionaries and
+the vectorized CSV/JSON sinks), its ingest loads its own build of the
+native scanner and never the JAX package's, its device entry points
+refuse ``"cuda"`` where no card is present instead of running on the CPU
+(the streamed tier and the JSON sink's source too), and ``chip_smoke.py``
+fails without a card."""
 
 import ast
+import io
 import json
 import os
 import subprocess
@@ -18,7 +22,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "csvplus_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 MAIN_PATH = r"""
-import json, sys, tempfile
+import io, json, sys, tempfile
 from pathlib import Path
 import csvplus_tpu_torch as T
 from csvplus_tpu_torch.utils.checksum import checksum_device_table
@@ -34,19 +38,23 @@ prod = T.from_file(str(d / "p.csv")).on_device("cpu").unique_index_on("prod_id")
 src = orders.filter(T.Not(T.Like({"prod_id": "p0", "qty": "1"}))).join(cust, "cust_id").join(prod)
 rows = src.to_rows()
 sums = checksum_device_table(src.to_device_table(), positional=True)
+src.to_csv(io.StringIO(), "order_id", "name")
+src.to_json(io.StringIO())
+lanes = orders.plan.table.columns["order_id"].dev_dictionary is not None
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
              or m == "csvplus_tpu" or m.startswith("csvplus_tpu."))
 libs = sorted({line.split()[-1] for line in open("/proc/self/maps")
                if line.rstrip().endswith(".so") or ".so." in line})
 print(json.dumps({"rows": len(rows), "sums": len(sums), "foreign": bad, "libs": libs,
-                  "tier": orders.plan.table.ingest_tier}))
+                  "tier": orders.plan.table.ingest_tier, "lanes": lanes}))
 """
 
 
-def _env():
+def _env(**extra):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT)
+    env.update(extra)
     return env
 
 
@@ -77,6 +85,23 @@ def test_main_path_loads_the_ports_own_scanner_only(tmp_path):
     assert not [p for p in out["libs"] if "csvplus_tpu/native" in p or "_scanner.so" in p]
 
 
+def test_streamed_lane_path_loads_no_jax_and_no_reference_module(tmp_path):
+    """The same script on the streamed tier (small chunks, two workers)
+    with order_id in a device-lane dictionary."""
+    res = subprocess.run(
+        [sys.executable, "-c", MAIN_PATH], cwd=tmp_path,
+        env=_env(CSVPLUS_STREAM_MIN_BYTES="1", CSVPLUS_STREAM_CHUNK_BYTES="512",
+                 CSVPLUS_INGEST_WORKERS="2", CSVPLUS_DICT_DEVICE_MIN_DISTINCT="1",
+                 CSVPLUS_TYPED_LANES="0"),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["tier"] == "streamed" and out["lanes"] is True
+    assert out["rows"] > 0 and out["sums"] == 7
+    assert out["foreign"] == []
+
+
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_sources_import_no_jax_or_reference(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -101,6 +126,24 @@ def test_on_device_cuda_raises_without_a_card(people_csv):
         T.from_file(people_csv).on_device()
     with pytest.raises(RuntimeError, match="no CUDA card"):
         T.take(T.from_file(people_csv)).on_device("cuda")
+
+
+def test_streamed_tier_and_json_source_refuse_cuda_without_a_card(people_csv, monkeypatch):
+    """The streamed tier raises on "cuda" without a card (it does not fall
+    back to the CPU or to a whole-file tier), and so does the source a
+    JSON sink would read."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import csvplus_tpu_torch as T
+
+    monkeypatch.setenv("CSVPLUS_STREAM_MIN_BYTES", "1")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        T.from_file(people_csv).on_device()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        T.from_file(people_csv).on_device("cuda").to_json(io.StringIO())
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        T.take_rows([T.Row({"a": "1"})]).on_device().to_json_file("never-written.json")
+    assert not os.path.exists("never-written.json")
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["in-repo", "alone"])
