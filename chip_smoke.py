@@ -35,7 +35,9 @@ Phases; any failure raises, exits non-zero and prints no result line:
    arrays: row count, positional checksums of every column, first rows.
    The mask kernel's launch count must rise, the result must lie on the
    card, and no orders-side column may be demoted to a dictionary in the
-   cold and warm runs of either pipeline.
+   cold and warm runs of either pipeline.  Prints warm (a) with the
+   executor's verifier hook on and off (``CSVPLUS_VERIFY=0``), and the
+   hook alone.
 5. The streamed main path at 50M orders (BASELINE config 4's row count in
    phase 4's layout, ~1.2 GB of CSV): the file must be at least 256 MiB
    and take the ``streamed`` tier with four typed orders columns, at the
@@ -66,18 +68,32 @@ Phases; any failure raises, exits non-zero and prints no result line:
    uint16 codes.  Each column must be a host dictionary equal to the
    oracle's sorted union, with positional checksums and a two-column
    ``Like`` filter equal to the oracle's.
-8. A ``{"kernels": [...]}`` line, then the last line
+8. The plan cache, on phase 5's 50M-order tables: pipelines (a), (b)
+   and the unfiltered join (c) built as plans and run through a fresh
+   ``csvplus_tpu_torch.serve.PlanCache`` per leg, "cascaded"
+   (``CSVPLUS_MULTIWAY=0``, ``CSVPLUS_FUSE=0``) and "fused" (the
+   defaults), cold (admission: verify + optimize) then warm (a hit).
+   Every run equals the oracle and lies on the card; the legs are
+   bitwise equal; ``optimize_failed`` is 0; the fusion decisions equal
+   the reference's (``PLANCACHE_DECISIONS``); the mask kernel launches in
+   both legs; the fused leg runs ``multiway_join`` and
+   ``multiway_join_selected``.  Then ``except_`` of a unique index of a
+   seeded subset of 100 product ids against its oracle.  Prints each
+   run's admission, cold and warm seconds, the peak device memory over
+   the inputs, the recipe and the expansion paths.
+9. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Phases 4-7 also hold the mask kernel's wrapper against its plain version,
+Phases 4-8 also hold the mask kernel's wrapper against its plain version,
 bitwise, on the inputs of every call their filters made (recorded during
 the path's run and replayed after its launch count was read).
 
 Writes its CSVs under ``.chip_smoke_data/`` beside this file and removes
 them at the end.  Needs one card; imports nothing of JAX or csvplus_tpu.
-Phases 4-7 run on the CPU too, at a small size, as a rehearsal:
-``run_main_path``, ``run_streamed_path``, ``run_lane_path`` and
-``run_host_dict_path`` with ``device="cpu"``.
+Phases 4-8 run on the CPU too, at a small size, as a rehearsal:
+``run_main_path``, ``run_streamed_path`` (with phase 8 at its end),
+``run_lane_path``, ``run_host_dict_path`` and ``run_plancache_path`` with
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -651,8 +667,36 @@ def run_main_path(
                          "main_path": run["main_demotions"]}}
     log(f"demotions (prefix, rows): index builds {out['demotions']['index_build']}, "
         f"main path {out['demotions']['main_path']}")
+    out["verifier"] = verifier_cost(run["srcs"]["a"], device)
     if profile:
         profile_pipelines(run["srcs"])
+    return out
+
+
+def verifier_cost(src, device: str, reps: int = 7) -> dict:
+    """The plain API's warm pipeline (a) with the executor's verifier hook
+    on (the default) and off (``CSVPLUS_VERIFY=0``), alternating, and the
+    hook alone (``verify_before_lower`` of the plan).  Run after the
+    path's launch count was read."""
+    from csvplus_tpu_torch.analysis.verify import verify_before_lower
+
+    times = {"on": [], "off": []}
+    for _ in range(reps):
+        for mode in ("on", "off"):
+            with _env_set({} if mode == "on" else {"CSVPLUS_VERIFY": "0"}):
+                t0 = time.perf_counter()
+                src.to_device_table()
+                _sync(device)
+                times[mode].append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        verify_before_lower(src.plan)
+    hook_s = (time.perf_counter() - t0) / 200
+    out = {"warm_on_s": float(np.median(times["on"])), "warm_off_s": float(np.median(times["off"])),
+           "hook_s": hook_s, "runs_s": times}
+    log(f"verifier hook: warm (a) median {out['warm_on_s'] * 1e3:.2f} ms with it, "
+        f"{out['warm_off_s'] * 1e3:.2f} ms without (CSVPLUS_VERIFY=0), {reps} runs each, "
+        f"alternating; verify_before_lower alone {hook_s * 1e6:.1f} us")
     return out
 
 
@@ -827,6 +871,9 @@ def run_streamed_path(n_orders: int, seed: int, device: str, workdir: Path) -> d
         "both == oracle bytes (size, sha256)")
     csv_path.unlink()
     json_path.unlink()
+    del run, b_src
+    gc.collect()  # phase 5's results; a source and its run function form a cycle
+    out["plancache"] = run_plancache_path(orders, cust, prod, data, device)
     return out
 
 
@@ -1097,6 +1144,191 @@ def run_host_dict_path(n_rows: int, seed: int, device: str, workdir: Path) -> di
             "filter_rows": int(rows.size), "launches": launches, "mask_check": mask_check}
 
 
+# -- phase 8: the plan cache, cascaded and fused -----------------------------
+
+#: What the plan cache decides for each shape of this phase, as
+#: ``(fused, fused_chains, fusion_refused)`` of a cache that admitted only
+#: that shape: the reference's decisions, established on the CPU in
+#: ``tests/test_torch_plancache.py`` at this phase's dimension tables,
+#: predicates and distinct counts, with 2,000,000 orders.  The filtered
+#: pipelines fuse the filter and both joins into one FusedProbe
+#: (``multiway_join_selected``); the unfiltered join (c) becomes one
+#: MultiwayJoin (``multiway_join``); the cascaded leg fuses nothing.
+PLANCACHE_DECISIONS = {
+    "cascaded": {"a": (0, 0, 0), "b": (0, 0, 0), "c": (0, 0, 0)},
+    "fused": {"a": (1, 1, 0), "b": (1, 1, 0), "c": (1, 0, 0)},
+}
+PLANCACHE_LEGS = {"cascaded": {"CSVPLUS_MULTIWAY": "0", "CSVPLUS_FUSE": "0"}, "fused": {}}
+N_EXCEPT_PRODUCTS = 100  # a seeded subset of the 1,000 product ids
+
+
+@contextlib.contextmanager
+def _env_set(values: dict):
+    """Set environment variables inside the block, restoring them after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _table_sums(table, device: str, what: str) -> dict:
+    """Positional checksums of every column, after checking the columns
+    lie on *device*."""
+    from csvplus_tpu_torch.utils.checksum import checksum_device_table
+
+    for c in table.columns.values():
+        if c.storage.device.type != device:
+            raise AssertionError(f"{what}: result column on {c.storage.device}")
+    return checksum_device_table(table, sorted(table.columns), positional=True)
+
+
+def _check_oracle(table, sums: dict, want: tuple, what: str) -> None:
+    n_want, want_sums, want_first = want
+    if table.nrows != n_want:
+        raise AssertionError(f"{what}: {table.nrows} rows, oracle {n_want}")
+    if sums != want_sums:
+        raise AssertionError(f"{what}: checksums {sums} != oracle {want_sums}")
+    import torch
+
+    first = table.to_rows(torch.arange(min(3, table.nrows)))
+    if [dict(r) for r in first] != want_first:
+        raise AssertionError(f"{what}: first rows {first} != {want_first}")
+
+
+def run_plancache_path(orders, cust, prod, data: dict, device: str, label: str = "50M") -> dict:
+    """Phase 8: pipelines (a) and (b) and the unfiltered join (c), built
+    as plans and run through a fresh ``PlanCache`` per leg — "cascaded"
+    (``CSVPLUS_MULTIWAY=0``, ``CSVPLUS_FUSE=0``, set before admission)
+    and "fused" (the defaults) — cold (admission: verify + optimize) then
+    warm (a hit).  Every run is held against the numpy oracle; the legs
+    must be bitwise equal, the rewriter must never fail, the fusion
+    decisions must be the reference's, the mask kernel must launch in
+    both legs and the fused leg must run ``multiway_join`` and
+    ``multiway_join_selected``.  Then one ``except_`` of a unique index
+    of a seeded product subset, against its oracle."""
+    import torch
+
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.ops import join as J
+    from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.serve import PlanCache
+
+    cuda = device == "cuda"
+    cases = {name: (orders.filter(pred).join(cust, "cust_id").join(prod).plan, keep)
+             for name, (pred, keep) in _pipelines(data).items()}
+    cases["c"] = (orders.join(cust, "cust_id").join(prod).plan, np.ones(data["n"], dtype=bool))
+    t0 = time.perf_counter()
+    oracles = {}
+    for name, (plan, keep) in cases.items():
+        cols = sorted(set(ORDERS_COLS) | {"id", "name", "prod_id", "product", "price"})
+        oracles[name] = oracle(data, keep, cols)
+    log(f"{label} plan cache: oracles of {sorted(cases)} in {time.perf_counter() - t0:.1f}s")
+
+    out = {"legs": {}}
+    sums_by_leg = {}
+    with recorded_mask_calls() as calls:
+        for leg, env in PLANCACHE_LEGS.items():
+            with _env_set(env):
+                cache = PlanCache()
+                M.launches = 0  # this leg's run starts here
+                J.expand_paths.clear()
+                runs = {}
+                sums_by_leg[leg] = {}
+                for name, (plan, _) in cases.items():
+                    gc.collect()
+                    if cuda:
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        base = torch.cuda.memory_allocated()
+                    t0 = time.perf_counter()
+                    exe = cache.executable_for(plan)  # a miss: verify + optimize
+                    t_admit = time.perf_counter() - t0
+                    hits = cache.stats()["hits"]
+                    t0 = time.perf_counter()
+                    cold = exe.run(plan)
+                    _sync(device)
+                    t_cold = time.perf_counter() - t0
+                    peak = torch.cuda.max_memory_allocated() - base if cuda else None
+                    cold_sums = _table_sums(cold, device, f"{label} {leg} ({name}) cold")
+                    _check_oracle(cold, cold_sums, oracles[name], f"{label} {leg} ({name}) cold")
+                    cold_cols = list(cold.columns)
+                    del cold
+                    t0 = time.perf_counter()
+                    warm = cache.execute(plan)
+                    _sync(device)
+                    t_warm = time.perf_counter() - t0
+                    if cache.stats()["hits"] != hits + 1:
+                        raise AssertionError(f"{label} {leg} ({name}): the warm run missed")
+                    warm_sums = _table_sums(warm, device, f"{label} {leg} ({name}) warm")
+                    _check_oracle(warm, warm_sums, oracles[name], f"{label} {leg} ({name}) warm")
+                    if list(warm.columns) != cold_cols:
+                        raise AssertionError(f"{label} {leg} ({name}): column order changed")
+                    sums_by_leg[leg][name] = (warm.nrows, cold_cols, warm_sums)
+                    del warm
+                    steps = [s[0] for s in exe.recipe.steps] if exe.recipe else []
+                    runs[name] = {"admit_s": t_admit, "cold_run_s": t_cold, "warm_s": t_warm,
+                                  "peak_device_bytes_over_inputs": peak,
+                                  "recipe": steps}
+                    log(f"{label} {leg} ({name}): admission {t_admit:.4f}s, cold run "
+                        f"{t_cold:.3f}s, warm {t_warm:.4f}s, peak device memory "
+                        f"{peak} bytes over the inputs' {base if cuda else None}; recipe "
+                        f"{steps}; == oracle (count, positional checksums, first rows)")
+                launches = M.launches  # ... and ends here
+                st = cache.stats()
+            want = [sum(d[i] for d in PLANCACHE_DECISIONS[leg].values()) for i in range(3)]
+            got = [st["fused"], st["fused_chains"], st["fusion_refused"]]
+            if got != want:
+                raise AssertionError(f"{label} {leg}: fused/fused_chains/fusion_refused {got}, "
+                                     f"the reference decides {want}")
+            if st["optimize_failed"] != 0 or st["lowered"] != len(cases):
+                raise AssertionError(f"{label} {leg}: plan cache stats {st}")
+            if launches <= 0 and cuda:
+                raise AssertionError(f"{label} {leg}: the mask kernel never launched")
+            paths = dict(J.expand_paths)
+            out["legs"][leg] = {"runs": runs, "stats": st, "launches": launches,
+                                "expand_paths": paths}
+            log(f"{label} {leg} leg: stats {st}; mask kernel launches {launches}; "
+                f"expand paths {paths}")
+        fused_paths = out["legs"]["fused"]["expand_paths"]
+        for kind in ("multiway-", "fused-"):
+            if not any(p.startswith(kind) for p in fused_paths):
+                raise AssertionError(f"{label}: the fused leg never took a {kind}* path")
+        if sums_by_leg["cascaded"] != sums_by_leg["fused"]:
+            raise AssertionError(f"{label}: the cascaded and fused legs differ")
+        log(f"{label} plan cache: the cascaded and fused legs are bitwise equal "
+            "(row counts, column order, positional checksums of every column)")
+
+        # except_: the anti-join mask on the card
+        rng = np.random.default_rng(data["n"])
+        subset = np.sort(rng.choice(N_PROD, N_EXCEPT_PRODUCTS, replace=False))
+        prods = T.from_file(str(data["paths"]["prod"])).on_device(device)
+        idx = prods.filter(T.Any(*[T.Like({"prod_id": f"p{i}"}) for i in subset])) \
+            .unique_index_on("prod_id")
+        M.launches = 0
+        t0 = time.perf_counter()
+        table = orders.except_(idx, "prod_id").to_device_table()
+        _sync(device)
+        t_except = time.perf_counter() - t0
+        except_launches = M.launches
+        keep = ~np.isin(data["prod"], subset)
+        sums = _table_sums(table, device, f"{label} except_")
+        _check_oracle(table, sums, oracle(data, keep, sorted(ORDERS_COLS)), f"{label} except_")
+        out["except"] = {"rows_out": table.nrows, "seconds": t_except,
+                         "launches": except_launches}
+        log(f"{label} except_ of {N_EXCEPT_PRODUCTS} product ids: {table.nrows:,} rows == "
+            f"oracle in {t_except:.3f}s")
+        del table
+    out["mask_check"] = check_path_masks(calls, f"{label} plan cache")
+    out["launches"] = out["legs"]["fused"]["launches"]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20160914)
@@ -1146,7 +1378,9 @@ def main(argv=None) -> int:
         host_dict = run_host_dict_path(N_HOST_DICT_ROWS, args.seed, "cuda", workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    plancache = streamed.pop("plancache")
     paths = {"10M native-encoded": main_path, "50M streamed": streamed,
+             "50M plan cache": plancache,
              "14M lane dictionary": lane, "13M host dictionary": host_dict}
     path_cases = sum(p["mask_check"]["cases"] for p in paths.values())
     log(f"mask kernel == plain version, bitwise, in {mask['cases']} matrix cases and "
@@ -1158,9 +1392,13 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "csvplus_tpu_torch/csrc/mask.cu",
         "replaces": "csvplus_tpu/ops/pallas_mask.py:41",
-        # the slice's main path: the 50M-order streamed pipelines
-        "launches": streamed["launches"],
-        "launches_by_path": {name: p["launches"] for name, p in paths.items()},
+        # the slice's main path: the 50M-order pipelines through the
+        # plan cache with its defaults (the fused leg)
+        "launches": plancache["launches"],
+        "launches_by_path": {
+            **{name: p["launches"] for name, p in paths.items()},
+            **{f"50M plan cache {leg}": v["launches"] for leg, v in plancache["legs"].items()},
+            "50M except_": plancache["except"]["launches"]},
         "max_abs_err": max([mask["max_abs_err"]]
                            + [p["mask_check"]["max_abs_err"] for p in paths.values()]),
         "ms": shape["ms"],
@@ -1172,6 +1410,7 @@ def main(argv=None) -> int:
     }]
     log("main path phases " + json.dumps(main_path))
     log("streamed path phases " + json.dumps(streamed))
+    log("plan cache path phases " + json.dumps(plancache))
     log("lane path phases " + json.dumps(lane))
     log("host dictionary path phases " + json.dumps(host_dict))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")

@@ -1,0 +1,691 @@
+"""Cost domain over the plan IR: cardinality + per-placement bytes.
+
+Port of ``csvplus_tpu/analysis/cost.py``: the same estimates from the
+same inputs, so the two packages rank plans alike.  Per chain stage it
+estimates the OUTPUT cardinality and the bytes the stage's output pins
+per placement class — host, device, and *replicated* (a broadcast join
+build side materialized once per shard).  Estimates are seeded from
+real statistics when the process has them and schema defaults
+otherwise:
+
+* column distinct counts come from dictionary sizes (``dict_size``; a
+  typed ``IntColumn`` counts its distinct values once and caches them);
+* join build-side key distributions come from the SpaceSaving sketches
+  every device index feeds on its first probe (:mod:`..obs.joinskew`):
+  the expected per-probe fan-out is ``n_build × Σ share²``;
+* everything else falls back to documented default selectivities.
+
+The domain is advisory: it RANKS candidate plans (filter orders, join
+orders, the cascade against the multiway join, staged against fused
+probes) for the rewriter.  Proofs of safety live in :mod:`.provenance`;
+nothing here may make a rewrite legal, only cheap.  Every input is
+metadata the plan already holds: ``estimate_plan`` is O(plan), not
+O(rows).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from itertools import permutations
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from .. import plan as P
+from ..predicates import All, Any_, Like, Not
+from ..ops.join import device_index_static_info
+from . import provenance as PV
+from .schema import placement_of_column
+
+__all__ = [
+    "CostEstimate",
+    "choose_fusion",
+    "choose_join_operator",
+    "estimate_plan",
+    "predicate_selectivity",
+    "rank_join_orders",
+]
+
+#: Bytes per row per column: int32 codes / int32 typed lanes.
+BYTES_PER_CELL = 4.0
+#: Distinct-count default when no dictionary metadata exists.
+DEFAULT_DISTINCT = 32
+#: Selectivity floor/defaults.
+MIN_SELECTIVITY = 1e-4
+OPAQUE_SELECTIVITY = 0.33  # unlowerable predicate: assume 1-in-3
+WHILE_SELECTIVITY = 0.5  # TakeWhile/DropWhile prefix split
+EXCEPT_SELECTIVITY = 0.5  # anti-join survival rate
+DEFAULT_ROWS = 1024.0  # leaf with no table metadata (structural plans)
+
+
+@dataclass(frozen=True)
+class CostEstimate:
+    """Estimated output of one chain stage."""
+
+    stage: str
+    rows: float
+    bytes_host: float
+    bytes_device: float
+    bytes_replicated: float
+    selectivity: Optional[float] = None  # narrowing stages only
+    note: str = ""
+
+    def as_dict(self) -> Dict[str, Any]:
+        d = {
+            "stage": self.stage,
+            "rows": round(self.rows, 1),
+            "bytes_host": round(self.bytes_host, 1),
+            "bytes_device": round(self.bytes_device, 1),
+            "bytes_replicated": round(self.bytes_replicated, 1),
+        }
+        if self.selectivity is not None:
+            d["selectivity"] = round(self.selectivity, 6)
+        if self.note:
+            d["note"] = self.note
+        return d
+
+
+def _distinct_of(col) -> int:
+    """Distinct-value estimate from column metadata (no device sync)."""
+    try:
+        n = int(getattr(col, "dict_size"))
+        return max(1, n)
+    except (AttributeError, TypeError, ValueError):
+        return DEFAULT_DISTINCT
+
+
+def _match_share(col: str, value, distinct: Dict[str, int],
+                 sketches: Optional[Dict[str, Any]]) -> float:
+    """Pass fraction of ``col == value``.  When a live SpaceSaving
+    sketch exists under the single-column label (the build-side
+    sketches — ``offer_build_sample`` decodes single-column keys to the
+    raw values, so a ``Like`` literal looks up directly), use the
+    value's OBSERVED share: tracked values take ``count/observed``;
+    untracked ones split the residual tail uniformly over the remaining
+    distinct values.  No sketch or an empty one falls back to the
+    static uniform ``1/distinct`` guess."""
+    d = float(distinct.get(col, DEFAULT_DISTINCT))
+    sk = sketches.get(col) if sketches else None
+    observed = getattr(sk, "observed", 0) if sk is not None else 0
+    if observed <= 0:
+        return 1.0 / d
+    top = sk.topk()
+    for key, count, _err in top:
+        if key == value:
+            return count / observed
+    tail_share = max(0.0, 1.0 - sum(c for _, c, _ in top) / observed)
+    tail_keys = max(1, int(d) - len(top))
+    return tail_share / tail_keys
+
+
+def predicate_selectivity(
+    pred,
+    distinct: Dict[str, int],
+    sketches: Optional[Dict[str, Any]] = None,
+) -> float:
+    """Estimated pass fraction of *pred* given per-column distinct
+    counts: a ``Like`` equality keeps the value's sketch-observed share
+    when a live single-column sketch covers it (:func:`_match_share`),
+    else ~1/distinct per referenced column; ``All``/``Any``/``Not``
+    compose under independence.  Advisory only — selectivity feeds the
+    rewriter's PRICING, never its licensing, so a wild estimate can
+    cost performance but not correctness."""
+    if isinstance(pred, Like):
+        s = 1.0
+        for col, value in pred.match.items():
+            s *= _match_share(col, value, distinct, sketches)
+        return max(MIN_SELECTIVITY, s)
+    if isinstance(pred, All):
+        s = 1.0
+        for q in pred.preds:
+            s *= predicate_selectivity(q, distinct, sketches)
+        return max(MIN_SELECTIVITY, s)
+    if isinstance(pred, Any_):
+        miss = 1.0
+        for q in pred.preds:
+            miss *= 1.0 - predicate_selectivity(q, distinct, sketches)
+        return max(MIN_SELECTIVITY, 1.0 - miss)
+    if isinstance(pred, Not):
+        return max(
+            MIN_SELECTIVITY,
+            1.0 - predicate_selectivity(pred.pred, distinct, sketches),
+        )
+    return OPAQUE_SELECTIVITY
+
+
+def _sketch_fanout(sketch, n_build: float, d_build: int) -> Tuple[float, str]:
+    """Expected per-probe match count from a build-side SpaceSaving
+    sketch: ``n_build × Σ share²`` over tracked keys, with the untracked
+    tail spread uniformly over the remaining distinct keys.  Falls back
+    to the uniform ``n_build / d_build`` when the sketch is empty."""
+    observed = sketch.observed
+    if observed <= 0:
+        return (n_build / max(1, d_build), "uniform (empty sketch)")
+    shares = [c / observed for _, c, _ in sketch.topk()]
+    sum_sq = sum(s * s for s in shares)
+    tail_share = max(0.0, 1.0 - sum(shares))
+    tail_keys = max(1, d_build - len(shares))
+    sum_sq += (tail_share * tail_share) / tail_keys
+    return (n_build * sum_sq, f"sketch ({len(shares)} tracked keys)")
+
+
+def _probe_cost(index, sketches) -> Tuple[float, float, str, Optional[tuple]]:
+    """Price one build side's probe: expected per-row fanout, replicated
+    bytes when the broadcast tier pins the build table per shard, a
+    human note, and the ``device_index_static_info`` tuple.  Shared by
+    the unit ``Join`` estimate and the per-dimension fold of the fused
+    ``MultiwayJoin`` — one pricing model, two physical operators."""
+    info = device_index_static_info(index)
+    dev = getattr(index, "device_table", None)
+    n_build = float(getattr(getattr(dev, "table", None), "nrows", 0) or 0)
+    meta = info[3] if info is not None else None
+    d_build = (meta or {}).get("packed_keys") or max(
+        1, int(n_build) or DEFAULT_DISTINCT)
+    label = ",".join(info[1]) if info is not None and info[1] else None
+    sk = sketches.get(label) if label else None
+    if sk is not None:
+        fanout, note = _sketch_fanout(sk, n_build, d_build)
+    else:
+        fanout = n_build / max(1, d_build)
+        note = "uniform build keys (no sketch)"
+    replicated = 0.0
+    # Broadcast-tier build sides are replicated once per shard: below the partition threshold the build table
+    # rides every device.
+    pmin = (meta or {}).get("partition_min_keys")
+    if pmin is not None and d_build < pmin and dev is not None:
+        tbl = getattr(dev, "table", None)
+        ncols = len(getattr(tbl, "columns", {}) or {})
+        replicated = n_build * ncols * BYTES_PER_CELL
+        note += "; broadcast-tier build (replicated per shard)"
+    return fanout, replicated, note, info
+
+
+def _placement_bucket(col) -> str:
+    kind = placement_of_column(col).kind
+    if kind in ("device", "sharded"):
+        return "device"
+    if kind == "host":
+        return "host"
+    return "device"  # unknown: price it at the expensive tier
+
+
+def estimate_plan(
+    root: P.PlanNode,
+    sketches: Optional[Dict[str, Any]] = None,
+) -> List[CostEstimate]:
+    """One :class:`CostEstimate` per :func:`~csvplus_tpu_torch.plan.linearize`
+    slot.  *sketches* maps join-key labels (``",".join(key_columns)``,
+    the ``offer_build_sample`` convention) to SpaceSaving sketches; when
+    ``None`` the process-global :data:`~csvplus_tpu_torch.obs.joinskew.joinskew`
+    registry is consulted."""
+    if sketches is None:
+        from ..obs.joinskew import joinskew
+
+        sketches = joinskew.build_sketches()
+    chain = P.linearize(root)
+    facts = [PV.stage_facts(i, n) for i, n in enumerate(chain)]
+    out: List[CostEstimate] = []
+
+    # Rolling state: rows, per-column distinct counts, per-column
+    # placement buckets ("host"/"device").  Schema evolution follows the
+    # provenance facts so the two domains can never disagree on it.
+    leaf = chain[0]
+    table = getattr(leaf, "table", None)
+    distinct: Dict[str, int] = {}
+    bucket: Dict[str, str] = {}
+    if table is not None and getattr(table, "columns", None):
+        rows = float(getattr(table, "nrows", 0))
+        for name, col in table.columns.items():
+            distinct[name] = _distinct_of(col)
+            bucket[name] = _placement_bucket(col)
+    else:
+        rows = DEFAULT_ROWS
+    replicated = 0.0
+
+    def snapshot(pos: int, sel: Optional[float], note: str) -> CostEstimate:
+        bh = sum(rows * BYTES_PER_CELL for b in bucket.values() if b == "host")
+        bd = sum(rows * BYTES_PER_CELL for b in bucket.values() if b == "device")
+        return CostEstimate(
+            facts[pos].label, rows, bh, bd, replicated, sel, note)
+
+    out.append(snapshot(0, None, "" if table is not None else
+                        "no table metadata: default cardinality"))
+
+    for pos in range(1, len(chain)):
+        node, f = chain[pos], facts[pos]
+        sel: Optional[float] = None
+        note = ""
+        if isinstance(node, P.Filter):
+            sel = predicate_selectivity(node.pred, distinct, sketches)
+            rows *= sel
+        elif isinstance(node, (P.TakeWhile, P.DropWhile)):
+            sel = WHILE_SELECTIVITY
+            rows *= sel
+        elif isinstance(node, P.Top):
+            rows = min(rows, float(node.n))
+        elif isinstance(node, P.DropRows):
+            rows = max(0.0, rows - float(node.n))
+        elif isinstance(node, P.Except):
+            sel = EXCEPT_SELECTIVITY
+            rows *= sel
+            note = "default anti-join survival"
+        elif isinstance(node, P.Join):
+            fanout, rep, note, info = _probe_cost(node.index, sketches)
+            rows *= max(fanout, MIN_SELECTIVITY)
+            replicated += rep
+            # Index columns joining the schema.
+            if info is not None:
+                kinds, meta = info[0], info[3]
+                place = (meta or {}).get("placement")
+                b = "device" if place is None or place.kind != "host" else "host"
+                for name in kinds:
+                    bucket.setdefault(name, b)
+                    distinct.setdefault(name, DEFAULT_DISTINCT)
+        elif isinstance(node, P.MultiwayJoin):
+            # One chain slot, N build sides: fanouts compose
+            # multiplicatively (exactly the cascade's row count — the
+            # fused operator is bitwise-equal by contract) but NO
+            # interior slot ever materializes, which is the whole point;
+            # choose_join_operator prices that difference explicitly.
+            dim_notes = []
+            for index, _cols in node.joins:
+                fanout, rep, dnote, info = _probe_cost(index, sketches)
+                rows *= max(fanout, MIN_SELECTIVITY)
+                replicated += rep
+                dim_notes.append(dnote)
+                if info is not None:
+                    kinds, meta = info[0], info[3]
+                    place = (meta or {}).get("placement")
+                    b = ("device" if place is None or place.kind != "host"
+                         else "host")
+                    for name in kinds:
+                        bucket.setdefault(name, b)
+                        distinct.setdefault(name, DEFAULT_DISTINCT)
+            note = f"multiway x{len(node.joins)}: " + " | ".join(dim_notes)
+        elif isinstance(node, P.FusedProbe):
+            # Absorbed filters narrow first (that is the fused win: the
+            # selection shrinks BEFORE the fan-out), then the probe
+            # dimensions fold exactly like MultiwayJoin; the absorbed
+            # projection/map footprint rides the generic facts-based
+            # schema evolution below.
+            sels: List[float] = []
+            for kind, payload in node.ops:
+                if kind == "filter":
+                    s = predicate_selectivity(payload, distinct, sketches)
+                    sels.append(s)
+                    rows *= s
+            dim_notes = []
+            for index, _cols in node.joins:
+                fanout, rep, dnote, info = _probe_cost(index, sketches)
+                rows *= max(fanout, MIN_SELECTIVITY)
+                replicated += rep
+                dim_notes.append(dnote)
+                if info is not None:
+                    kinds, meta = info[0], info[3]
+                    place = (meta or {}).get("placement")
+                    b = ("device" if place is None or place.kind != "host"
+                         else "host")
+                    for name in kinds:
+                        bucket.setdefault(name, b)
+                        distinct.setdefault(name, DEFAULT_DISTINCT)
+            if sels:
+                sel = 1.0
+                for s in sels:
+                    sel *= s
+            note = (f"fused probe x{len(node.joins)}: "
+                    + " | ".join(dim_notes))
+
+        # Schema evolution from provenance facts.
+        if f.keeps_only is not None:
+            for name in list(bucket):
+                if name not in f.keeps_only:
+                    bucket.pop(name)
+                    distinct.pop(name, None)
+        for name in f.removes:
+            bucket.pop(name, None)
+            distinct.pop(name, None)
+        for name in f.writes:
+            bucket.setdefault(name, "device")
+            if f.op == "MapExpr":
+                distinct[name] = 1  # constant write / renamed column
+            else:
+                distinct.setdefault(name, DEFAULT_DISTINCT)
+        out.append(snapshot(pos, sel, note))
+    return out
+
+
+def _stage_multiplier(node: P.PlanNode, est: CostEstimate,
+                      prev_rows: float) -> float:
+    if prev_rows <= 0:
+        return 1.0
+    return est.rows / prev_rows
+
+
+def rank_join_orders(
+    root: P.PlanNode,
+    report=None,
+    sketches: Optional[Dict[str, Any]] = None,
+) -> List[Dict[str, Any]]:
+    """Rank orderings of the longest consecutive ``Join``/``Except`` run
+    in *root* by total intermediate cardinality (the classic Σ-of-
+    intermediates objective, multipliers taken from
+    :func:`estimate_plan`).
+
+    Each candidate is marked ``provable``: reachable from the submitted
+    order purely by provenance-proven swaps — i.e. the relative order of
+    row-EXPANDING stages is preserved (reordering two expansions changes
+    the bitwise row layout) and every NARROWING stage moved earlier
+    proves :func:`~csvplus_tpu_torch.analysis.provenance.prove_swap_before`
+    against each stage it crosses.  The rewriter applies only provable
+    orderings.
+    """
+    chain = P.linearize(root)
+    facts = [PV.stage_facts(i, n) for i, n in enumerate(chain)]
+    ests = estimate_plan(root, sketches=sketches)
+
+    # Longest consecutive run of probe stages.
+    best_run: Tuple[int, int] = (0, 0)
+    i = 1
+    while i < len(chain):
+        if isinstance(chain[i], (P.Join, P.Except)):
+            j = i
+            while j + 1 < len(chain) and isinstance(
+                    chain[j + 1], (P.Join, P.Except)):
+                j += 1
+            if j + 1 - i > best_run[1] - best_run[0]:
+                best_run = (i, j + 1)
+            i = j + 1
+        else:
+            i += 1
+    lo, hi = best_run
+    if hi - lo < 2:
+        return []
+
+    run = list(range(lo, hi))
+    rows_in = ests[lo - 1].rows
+    mult = {p: _stage_multiplier(chain[p], ests[p], ests[p - 1].rows)
+            for p in run}
+
+    def presence_ok(_col: str) -> bool:
+        # Without a verifier report we cannot prove presence; with one,
+        # PRESENT at the run's entry state covers every position inside
+        # the run a narrowing stage can move to.
+        if report is None:
+            return False
+        from .schema import Presence
+
+        state = report.states[lo - 1]
+        info = state.schema.get(_col)
+        return info is not None and info.presence == Presence.PRESENT
+
+    def provable(perm: Sequence[int]) -> bool:
+        expanders = [p for p in perm if facts[p].multiplicity == PV.EXPAND]
+        if expanders != [p for p in run
+                         if facts[p].multiplicity == PV.EXPAND]:
+            return False
+        for idx, p in enumerate(perm):
+            if facts[p].multiplicity != PV.NARROW:
+                continue
+            # Stages it now precedes but originally followed.
+            for q in perm[idx + 1:]:
+                if q < p and PV.prove_swap_before(
+                        "join-order", facts[p], facts[q],
+                        presence_ok) is not None:
+                    return False
+        return True
+
+    perms = (list(permutations(run)) if len(run) <= 4
+             else [tuple(run), tuple(sorted(run, key=lambda p: mult[p]))])
+    ranked = []
+    for perm in perms:
+        total = 0.0
+        r = rows_in
+        for p in perm:
+            r *= mult[p]
+            total += r
+        ranked.append({
+            "order": [facts[p].label for p in perm],
+            # Original-chain slot indices in execution order — the
+            # executor-facing form: the rewriter turns the best provable
+            # entry into a ("permute", ...) recipe step.
+            "slots": list(perm),
+            "run": list(run),
+            "est_intermediate_rows": round(total, 1),
+            "provable": provable(perm),
+            "submitted": list(perm) == run,
+        })
+    ranked.sort(key=lambda d: d["est_intermediate_rows"])
+    return ranked
+
+
+def choose_join_operator(
+    root: P.PlanNode,
+    sketches: Optional[Dict[str, Any]] = None,
+) -> Optional[Dict[str, Any]]:
+    """Price the longest consecutive run of ``Join`` stages both ways —
+    cascaded (every interior intermediate table materializes: its full
+    estimated row count times its column count) versus the fused
+    single-pass multiway operator (per dimension, one int32
+    ``(lower, count)`` bounds pair per INPUT row, plus the expansion's
+    row-id vectors at the OUTPUT cardinality; no intermediate table) —
+    and return the cheaper physical operator.
+
+    Advisory like everything in this module: the rewriter only FUSES
+    when provenance licenses it (later keys PRESENT before the run) and
+    this function says the fused form is cheaper.  Returns ``None`` when the plan has no
+    run of two or more consecutive ``Join`` stages.
+    """
+    if sketches is None:
+        from ..obs.joinskew import joinskew
+
+        sketches = joinskew.build_sketches()
+    chain = P.linearize(root)
+    best: Tuple[int, int] = (0, 0)
+    i = 1
+    while i < len(chain):
+        if isinstance(chain[i], P.Join):
+            j = i
+            while j + 1 < len(chain) and isinstance(chain[j + 1], P.Join):
+                j += 1
+            if j + 1 - i > best[1] - best[0]:
+                best = (i, j + 1)
+            i = j + 1
+        else:
+            i += 1
+    lo, hi = best
+    n_dims = hi - lo
+    if n_dims < 2:
+        return None
+    ests = estimate_plan(root, sketches=sketches)
+    facts = [PV.stage_facts(i, n) for i, n in enumerate(chain)]
+    rows_in = ests[lo - 1].rows
+    rows_out = ests[hi - 1].rows
+    # Cascade: slots lo..hi-2 each materialize a full intermediate table
+    # (the run's FINAL output exists under both operators — excluded),
+    # and every level probes bounds (an int32 ``(lower, count)`` pair)
+    # over the rows ENTERING that level — which grow with each fanout.
+    cascade_bytes = sum(
+        ests[p].bytes_host + ests[p].bytes_device for p in range(lo, hi - 1)
+    ) + sum(
+        ests[p - 1].rows * 2.0 * BYTES_PER_CELL for p in range(lo, hi)
+    )
+    # Multiway: every dimension probes bounds over the ORIGINAL input
+    # rows; nothing else materializes beyond the final output both
+    # operators share.  (This is also why the cascade can win: when an
+    # early dimension drops most rows, its later levels probe fewer
+    # rows than the fused pass, which always probes all of rows_in.)
+    multiway_bytes = rows_in * 2.0 * BYTES_PER_CELL * n_dims
+    chosen = "multiway" if multiway_bytes < cascade_bytes else "cascade"
+    return {
+        "run": [facts[p].label for p in range(lo, hi)],
+        "slots": list(range(lo, hi)),
+        "dims": n_dims,
+        "est_rows_in": round(rows_in, 1),
+        "est_rows_out": round(rows_out, 1),
+        "cascade_intermediate_bytes": round(cascade_bytes, 1),
+        "multiway_bytes": round(multiway_bytes, 1),
+        "chosen": chosen,
+    }
+
+
+def choose_fusion(
+    root: P.PlanNode,
+    sketches: Optional[Dict[str, Any]] = None,
+) -> Optional[Dict[str, Any]]:
+    """Price the maximal absorbable Filter/Map/projection run ending at
+    the chain's first probe (``Join``/``MultiwayJoin``) both ways —
+    staged (the executor materializes the selected stream FULL-WIDTH
+    before probing: every live column gathers down to the selection)
+    versus fused (``FusedProbe``: only the distinct key columns gather
+    for probing; everything else rides the emit gather both operators
+    share) — and return the per-placement comparison.
+
+    The decision is per placement lane (total-bytes pricing alone can
+    approve a fusion that raises one lane's memory):
+    ``chosen == "fuse"`` only when the fused bytes are <= the staged
+    bytes on EVERY lane and strictly smaller in total.  The replicated
+    lane is identical under both operators (the same build sides
+    broadcast either way) and is excluded.  A run whose staged
+    materialize is provably a passthrough (identity selection over
+    unpadded storage, no absorbed filter and nothing narrowing above
+    it) is refused outright — fusing it saves nothing.
+
+    Advisory like everything in this module: the rewriter only fuses
+    when provenance licenses every absorbed op (``analysis/rewrite.py``
+    pass 5).  Returns
+    ``None`` when the chain has no probe; ``blocked_by`` names the
+    opaque Filter/Map op bounding the run from below, if one does.
+    """
+    if sketches is None:
+        from ..obs.joinskew import joinskew
+
+        sketches = joinskew.build_sketches()
+    chain = P.linearize(root)
+    facts = [PV.stage_facts(i, n) for i, n in enumerate(chain)]
+    probe = None
+    for i in range(1, len(chain)):
+        if isinstance(chain[i], (P.Join, P.MultiwayJoin)):
+            probe = i
+            break
+    if probe is None:
+        return None
+
+    def absorbable(f: PV.StageFacts) -> bool:
+        # the provenance license, purely structural: a known-footprint,
+        # row-linear, non-aborting op of an absorbable kind
+        return (
+            f.op in ("Filter", "MapExpr", "SelectCols", "DropCols")
+            and not f.barrier
+            and f.reads is not None
+            and f.row_linear
+            and not f.aborting
+        )
+
+    start = probe
+    while start - 1 >= 1 and absorbable(facts[start - 1]):
+        start -= 1
+    blocked_by = None
+    if start - 1 >= 1 and facts[start - 1].op in (
+        "Filter", "MapExpr", "SelectCols", "DropCols"
+    ):
+        # an op of an absorbable KIND that failed the license: an
+        # opaque predicate/expr bounds the run from below
+        blocked_by = facts[start - 1].label
+
+    _KINDS = {
+        P.Filter: "filter", P.MapExpr: "map",
+        P.SelectCols: "select", P.DropCols: "drop",
+    }
+    ops = [_KINDS[type(n)] for n in chain[start:probe]]
+    pnode = chain[probe]
+    joins = (
+        pnode.joins if isinstance(pnode, P.MultiwayJoin)
+        else ((pnode.index, tuple(pnode.columns)),)
+    )
+    ests = estimate_plan(root, sketches=sketches)
+    rows_in = ests[start - 1].rows
+    rows_selected = ests[probe - 1].rows
+
+    out: Dict[str, Any] = {
+        "run": [facts[p].label for p in range(start, probe + 1)],
+        "slots": list(range(start, probe + 1)),
+        "ops": ops,
+        "dims": len(joins),
+        "est_rows_in": round(rows_in, 1),
+        "est_rows_selected": round(rows_selected, 1),
+        "blocked_by": blocked_by,
+    }
+
+    # Staged leg: the pre-probe materialize gathers every live column
+    # down to the selection — exactly the bytes of the chain state
+    # entering the probe, per placement lane.
+    staged_host = ests[probe - 1].bytes_host
+    staged_device = ests[probe - 1].bytes_device
+
+    # Fused leg: only the distinct key columns gather for probing.
+    key_cols: set = set()
+    for _idx, cols in joins:
+        key_cols |= set(cols)
+    leaf = chain[0]
+    table = getattr(leaf, "table", None)
+    leaf_cols = getattr(table, "columns", None) or {}
+    fused_host = fused_device = 0.0
+    for c in sorted(key_cols):
+        col = leaf_cols.get(c)
+        b = _placement_bucket(col) if col is not None else "device"
+        if b == "host":
+            fused_host += rows_selected * BYTES_PER_CELL
+        else:
+            fused_device += rows_selected * BYTES_PER_CELL
+
+    out.update({
+        "staged_bytes_host": round(staged_host, 1),
+        "staged_bytes_device": round(staged_device, 1),
+        "fused_bytes_host": round(fused_host, 1),
+        "fused_bytes_device": round(fused_device, 1),
+    })
+
+    if not ops:
+        out.update({"chosen": "staged",
+                    "note": "no absorbable run before the probe"})
+        return out
+
+    # Is the staged materialize real?  materialize() passes through on
+    # an identity selection over unpadded storage; it is a real gather
+    # only when something narrowed the selection (an absorbed filter or
+    # a narrowing stage above the leaf) or the storage is padded /
+    # range-restricted.
+    nrows = int(getattr(table, "nrows", 0) or 0)
+    stored = nrows
+    if leaf_cols:
+        try:
+            stored = len(next(iter(leaf_cols.values())))
+        except TypeError:
+            stored = nrows
+    padded_leaf = table is not None and stored != nrows
+    narrowed_before = any(
+        facts[p].multiplicity == PV.NARROW for p in range(1, start)
+    )
+    if not ("filter" in ops or padded_leaf or narrowed_before):
+        out.update({"chosen": "staged",
+                    "note": "identity stream: staged materialize is free"})
+        return out
+
+    per_lane_ok = (
+        fused_host <= staged_host and fused_device <= staged_device
+    )
+    strictly_cheaper = (
+        fused_host + fused_device < staged_host + staged_device
+    )
+    if per_lane_ok and strictly_cheaper:
+        out.update({
+            "chosen": "fuse",
+            "note": (f"fused probe gathers {len(key_cols)} key column(s) "
+                     "for the selection; the staged materialize of every "
+                     "live column never happens"),
+        })
+    else:
+        out.update({
+            "chosen": "staged",
+            "note": ("staged materialize prices no worse than the fused "
+                     "key gathers on some placement lane"),
+        })
+    return out

@@ -1,0 +1,499 @@
+"""The verifier-checked plan rewriter.
+
+Port of ``csvplus_tpu/analysis/rewrite.py``.  ``optimize_plan`` applies
+six rewrite rules, each one only when the provenance domain
+(:mod:`.provenance`) PROVES it bitwise-safe against the executor's
+semantics, and records a typed
+:class:`~.provenance.ProvenanceDiagnostic` naming the blocking stage for
+every refusal:
+
+* **predicate pushdown** — ``Filter``/``Except`` stages bubble toward
+  the leaf across Map/Select/Drop/Join stages
+  (:func:`~.provenance.prove_swap_before` per crossing);
+* **filter reordering** — inside a run of adjacent narrowing stages,
+  most-selective-first by the cost domain's estimates;
+* **join ordering** — the cost domain's best *provable* ranked ordering
+  of the longest Join/Except run (:func:`~.cost.rank_join_orders`),
+  recorded on the recipe (``join_order``);
+* **multiway fuse** — a run of two or more consecutive ``Join`` stages
+  collapses into one :class:`~csvplus_tpu_torch.plan.MultiwayJoin` when
+  the cost model prices the single-pass form cheaper
+  (:func:`~.cost.choose_join_operator`) AND every later join's key
+  columns are provably PRESENT on the stream entering the run.
+  ``CSVPLUS_MULTIWAY=0`` disables just this rule;
+* **probe-pass fusion** — the licensed Filter/Map/projection run just
+  before the chain's first probe collapses into one
+  :class:`~csvplus_tpu_torch.plan.FusedProbe` when the per-placement
+  pricing rule (:func:`~.cost.choose_fusion`) approves: the probe
+  consumes the selection directly and the staged pre-join
+  ``materialize()`` never happens.  ``CSVPLUS_FUSE=0`` disables just
+  this rule;
+* **projection pushdown** — leaf columns no stage reads or writes and
+  the final schema omits are dropped right after the leaf
+  (:func:`~.provenance.live_columns`).
+
+The rewritten plan is re-verified and the EQUIVALENCE VERDICT asserted:
+admission verdict (``ok``) and emptiness prediction must match the
+original report's, else :class:`RewriteVerdictMismatch`.
+
+**Replay.**  The plan cache stores shapes, not plans: one structural key
+admits later submissions over DIFFERENT tables.  A rewrite therefore
+ships as a :class:`PlanRecipe`, a data-only description replayed onto
+each submitted root by :func:`apply_recipe`.  Every presence fact a
+proof consumed is recorded as a leaf obligation (``require_present``)
+and re-checked against the submitted table by :func:`leaf_presence_ok`
+(metadata only) before the recipe replays.
+
+``CSVPLUS_OPTIMIZE=0`` disables the rewriter everywhere.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence, Tuple
+
+from .. import plan as P
+from ..errors import CsvPlusError
+from ..utils.env import env_flag
+from . import provenance as PV
+from .provenance import ProvenanceDiagnostic, StageFacts
+from .schema import Presence
+
+__all__ = [
+    "PlanRecipe",
+    "RewriteResult",
+    "RewriteVerdictMismatch",
+    "fuse_enabled",
+    "multiway_enabled",
+    "optimize_enabled",
+    "optimize_plan",
+    "apply_recipe",
+    "leaf_presence_ok",
+]
+
+
+def optimize_enabled() -> bool:
+    return env_flag("CSVPLUS_OPTIMIZE")
+
+
+def multiway_enabled() -> bool:
+    """The multiway-fuse rule's own hatch (``CSVPLUS_MULTIWAY=0``),
+    nested under the global ``CSVPLUS_OPTIMIZE`` switch — the bench's
+    cascaded leg runs with the optimizer ON but the fuse OFF so both
+    legs share every other rewrite."""
+    return optimize_enabled() and env_flag("CSVPLUS_MULTIWAY")
+
+
+def fuse_enabled() -> bool:
+    """The probe-pass fusion rule's own hatch (``CSVPLUS_FUSE=0``),
+    nested under the global ``CSVPLUS_OPTIMIZE`` switch — the
+    macro-bench's staged leg runs with the optimizer ON but fusion OFF
+    so both legs share every other rewrite."""
+    return optimize_enabled() and env_flag("CSVPLUS_FUSE")
+
+
+class RewriteVerdictMismatch(CsvPlusError):
+    """Re-verifying the rewritten plan produced a different verdict
+    than the original — the rewrite is discarded and this is raised so
+    the prover bug is loud (callers on the serving path fall back to
+    the unrewritten plan and count it)."""
+
+
+@dataclass(frozen=True)
+class PlanRecipe:
+    """A data-only rewrite, replayable onto any root with the same
+    structural cache key.  ``steps`` entries are ``("permute", slots)``
+    (a reordering of the :func:`~csvplus_tpu_torch.plan.linearize` chain),
+    ``("fuse_joins", lo, k)`` (collapse the ``k`` consecutive ``Join``
+    stages starting at post-permute slot ``lo`` into one
+    :class:`~csvplus_tpu_torch.plan.MultiwayJoin`),
+    ``("fuse_chain", s, m)`` (collapse the ``m`` stages starting at
+    slot ``s`` — a Filter/Map/projection run ending in a probe — into
+    one :class:`~csvplus_tpu_torch.plan.FusedProbe`), or
+    ``("drop_after_leaf", columns)``.  ``require_present`` are leaf
+    columns whose cells must be PRESENT for the proofs to hold on the
+    submitted table.  ``join_order`` is the cost-chosen execution order
+    of the plan's probe run (original chain slots) when the join-order
+    rule picked one — advisory metadata for the plan cache's
+    attribution counters; the executable form already
+    rides the permute step."""
+
+    steps: Tuple[Tuple, ...]
+    require_present: Tuple[str, ...] = ()
+    join_order: Tuple[int, ...] = ()
+
+    def __bool__(self) -> bool:
+        return bool(self.steps)
+
+
+@dataclass(frozen=True)
+class RewriteResult:
+    """Outcome of :func:`optimize_plan` over one plan."""
+
+    root: P.PlanNode  # rewritten (or the original when nothing applied)
+    report: "object"  # PlanReport of `root`
+    original_report: "object"
+    recipe: Optional[PlanRecipe]
+    applied: Tuple[str, ...] = ()
+    blocked: Tuple[ProvenanceDiagnostic, ...] = ()
+
+
+def apply_recipe(root: P.PlanNode, recipe: PlanRecipe) -> P.PlanNode:
+    """Replay *recipe* onto *root* (same structural shape) and rebuild
+    the chain — O(nodes), no verification, no table access beyond the
+    leaf reference already in hand."""
+    chain: List[P.PlanNode] = list(P.linearize(root))
+    for step in recipe.steps:
+        if step[0] == "permute":
+            chain = [chain[i] for i in step[1]]
+        elif step[0] == "fuse_joins":
+            lo, k = int(step[1]), int(step[2])
+            run = chain[lo:lo + k]
+            if len(run) != k or not all(isinstance(s, P.Join) for s in run):
+                # the structural key pins op types, so this only fires on
+                # a recipe replayed against the wrong shape — refuse loud
+                raise ValueError("fuse_joins step does not address a Join run")
+            joins = tuple((s.index, tuple(s.columns)) for s in run)
+            chain[lo:lo + k] = [P.MultiwayJoin(run[0].child, joins)]
+        elif step[0] == "fuse_chain":
+            s, m = int(step[1]), int(step[2])
+            run = chain[s:s + m]
+            kinds = {P.Filter: "filter", P.MapExpr: "map",
+                     P.SelectCols: "select", P.DropCols: "drop"}
+            last = run[-1] if run else None
+            if (len(run) != m or m < 2
+                    or not isinstance(last, (P.Join, P.MultiwayJoin))
+                    or not all(type(nd) in kinds for nd in run[:-1])):
+                raise ValueError(
+                    "fuse_chain step does not address an op run ending "
+                    "in a probe")
+            ops = []
+            for nd in run[:-1]:
+                kind = kinds[type(nd)]
+                if kind == "filter":
+                    payload = nd.pred
+                elif kind == "map":
+                    payload = nd.expr
+                else:
+                    payload = tuple(nd.columns)
+                ops.append((kind, payload))
+            joins = (
+                last.joins if isinstance(last, P.MultiwayJoin)
+                else ((last.index, tuple(last.columns)),)
+            )
+            chain[s:s + m] = [
+                P.FusedProbe(run[0].child, tuple(ops), tuple(joins))
+            ]
+        elif step[0] == "drop_after_leaf":
+            chain.insert(1, P.DropCols(chain[0], tuple(step[1])))
+        else:  # unknown step kind: a recipe from a newer writer — refuse
+            raise ValueError(f"unknown recipe step {step[0]!r}")
+    node = chain[0]
+    for stage in chain[1:]:
+        node = dataclasses.replace(stage, child=node)
+    return node
+
+
+def leaf_presence_ok(root: P.PlanNode, columns: Sequence[str]) -> bool:
+    """Are all *columns* provably PRESENT on *root*'s leaf table?  The
+    replay-time check for :attr:`PlanRecipe.require_present` — cached
+    metadata only (``col_info_for`` never syncs)."""
+    if not columns:
+        return True
+    from .schema import col_info_for
+
+    table = getattr(P.linearize(root)[0], "table", None)
+    cols = getattr(table, "columns", None)
+    if not cols:
+        return False
+    for name in columns:
+        col = cols.get(name)
+        if col is None or col_info_for(col).presence is not Presence.PRESENT:
+            return False
+    return True
+
+
+# ---------------------------------------------------------------------------
+
+
+def _stable_presence_fn(
+    facts: Sequence[StageFacts],
+    leaf_present: frozenset,
+    upto: int,
+    consumed: set,
+) -> Callable[[str], bool]:
+    """Presence oracle for the input state of ORIGINAL chain slot
+    *upto*: True only when the column is PRESENT at the leaf and no
+    earlier stage can touch it — the *stable* presence the replay-time
+    leaf check can re-establish.  Columns certified True are recorded
+    into *consumed* (they become recipe obligations)."""
+
+    def ok(col: str) -> bool:
+        if col not in leaf_present:
+            return False
+        for q in range(1, upto):
+            f = facts[q]
+            if f.barrier or f.reads is None:
+                return False
+            if col in f.writes or col in f.removes:
+                return False
+            if f.keeps_only is not None and col not in f.keeps_only:
+                return False
+        consumed.add(col)
+        return True
+
+    return ok
+
+
+def _is_mover(f: StageFacts) -> bool:
+    return f.op in ("Filter", "Except")
+
+
+def optimize_plan(root: P.PlanNode, report=None, *,
+                  sketches=None) -> RewriteResult:
+    """Apply every provenance-proven rewrite to *root*, re-verify, and
+    assert the equivalence verdict.  See the module docstring for the
+    rule set and the replay contract."""
+    from .verify import verify_plan
+
+    if report is None:
+        report = verify_plan(root)
+    chain = P.linearize(root)
+    facts = PV.plan_facts(root)
+    n = len(chain)
+    applied: List[str] = []
+    blocked: List[ProvenanceDiagnostic] = []
+    consumed: set = set()
+    leaf_present = frozenset(
+        name for name, info in report.states[0].schema.items()
+        if info.presence is Presence.PRESENT
+    )
+
+    def try_swap(rule: str, order: List[int], j: int) -> bool:
+        """Prove + perform the swap of order[j] before order[j-1]."""
+        p, q = order[j], order[j - 1]
+        oracle = _stable_presence_fn(facts, leaf_present, q, consumed)
+        diag = PV.prove_swap_before(rule, facts[p], facts[q], oracle)
+        if diag is not None:
+            blocked.append(diag)
+            return False
+        order[j - 1], order[j] = order[j], order[j - 1]
+        return True
+
+    # 1. Predicate pushdown: bubble each narrowing stage toward the
+    # leaf across non-narrowing stages (narrow-vs-narrow order is the
+    # reordering rule's job, with a cost argument).
+    order = list(range(n))
+    pushed: set = set()
+    changed = True
+    while changed:
+        changed = False
+        for j in range(2, n):
+            p, q = order[j], order[j - 1]
+            if not _is_mover(facts[p]) or q == 0 or _is_mover(facts[q]):
+                continue
+            if try_swap("predicate-pushdown", order, j):
+                pushed.add(p)
+                changed = True
+    for p in sorted(pushed):
+        applied.append(
+            f"predicate-pushdown: {facts[p].label} moved to slot "
+            f"{order.index(p)}")
+
+    # 2. Filter reordering: most-selective-first inside each run of
+    # adjacent narrowing stages (plain bubble sort; every adjacent swap
+    # is individually proven, so a blocked pair simply stays put).
+    from .cost import choose_join_operator, estimate_plan, rank_join_orders
+
+    ests = estimate_plan(root, sketches=sketches)
+    sel = {p: (ests[p].selectivity if ests[p].selectivity is not None
+               else 1.0) for p in range(n)}
+    reordered: set = set()
+    changed = True
+    while changed:
+        changed = False
+        for j in range(2, n):
+            p, q = order[j], order[j - 1]
+            if not _is_mover(facts[p]) or not _is_mover(facts[q]):
+                continue
+            if sel[p] < sel[q] and try_swap("filter-reorder", order, j):
+                reordered.add(p)
+                changed = True
+    for p in sorted(reordered):
+        applied.append(
+            f"filter-reorder: {facts[p].label} hoisted "
+            f"(selectivity {sel[p]:.4f})")
+
+    # 3. Join ordering: realize the cost domain's best PROVABLE ranked
+    # ordering of the longest probe run (``rank_join_orders``).  Provable
+    # orderings preserve expander order, so only NARROW stages ever
+    # move — in most plans passes 1-2 already landed the target and this
+    # pass just records the chosen order; stragglers are bubbled with
+    # every hoist re-proven against the live oracle.
+    join_order: Tuple[int, ...] = ()
+    ranked = rank_join_orders(root, report, sketches=sketches)
+    best = next((r for r in ranked if r["provable"]), None)
+    if best is not None and not best["submitted"]:
+        run_set = set(best["run"])
+        target = list(best["slots"])
+        rank_of = {p: i for i, p in enumerate(target)}
+        changed = True
+        while changed:
+            changed = False
+            for j in range(2, n):
+                p, q = order[j], order[j - 1]
+                if p not in run_set or q not in run_set:
+                    continue
+                if rank_of[p] < rank_of[q] and try_swap(
+                        "join-order", order, j):
+                    changed = True
+        if [p for p in order if p in run_set] == target:
+            join_order = tuple(target)
+            applied.append(
+                f"join-order: probe run executes as {best['order']} "
+                f"(est {best['est_intermediate_rows']:.0f} intermediate "
+                f"rows)")
+
+    steps: List[Tuple] = []
+    if order != list(range(n)):
+        steps.append(("permute", tuple(order)))
+
+    # 4. Multiway fuse: collapse a post-permutation run of
+    # >= 2 consecutive Joins into one single-pass MultiwayJoin when the
+    # cost model prices the fused operator cheaper AND every later
+    # dimension's key columns are provably PRESENT entering the run.
+    # The license is exactly the bitwise-parity condition: with later
+    # keys PRESENT, no earlier build side can fill them (stream-wins
+    # merge keeps present cells), and no per-level key check can raise
+    # at an intermediate row number the fused pass would report
+    # differently — so probing the original stream IS probing the
+    # cascade's intermediate.
+    if multiway_enabled():
+        permuted = apply_recipe(root, PlanRecipe(tuple(steps))) if steps else root
+        choice = choose_join_operator(permuted, sketches=sketches)
+        if choice is not None and choice["chosen"] == "multiway":
+            lo, k = int(choice["slots"][0]), int(choice["dims"])
+            pchain = P.linearize(permuted)
+            later = sorted(
+                {c for nd in pchain[lo + 1:lo + k] for c in nd.columns})
+            pre = [order[j] for j in range(1, lo)]
+
+            def fuse_ok(col: str) -> bool:
+                if col not in leaf_present:
+                    return False
+                for q in pre:
+                    f = facts[q]
+                    if f.barrier or f.reads is None:
+                        return False
+                    if col in f.writes or col in f.removes:
+                        return False
+                    if f.keeps_only is not None and col not in f.keeps_only:
+                        return False
+                return True
+
+            bad = [c for c in later if not fuse_ok(c)]
+            if bad:
+                blocked.append(ProvenanceDiagnostic(
+                    "multiway-fuse", facts[order[lo]].label,
+                    f"later-dimension key(s) {bad} not provably PRESENT "
+                    f"entering the run — the cascade could fill them from "
+                    f"an earlier build side or error at an intermediate "
+                    f"row"))
+            else:
+                consumed.update(later)
+                steps.append(("fuse_joins", lo, k))
+                applied.append(
+                    f"multiway-fuse: {k}-way run at slot {lo} (est "
+                    f"cascade {choice['cascade_intermediate_bytes']:.0f}B "
+                    f"intermediate vs multiway "
+                    f"{choice['multiway_bytes']:.0f}B)")
+
+    # 5. Probe-pass fusion: absorb the licensed Filter/Map/
+    # projection run immediately before the chain's first probe into
+    # one FusedProbe when the per-placement pricing approves.  The
+    # license is structural — choose_fusion only extends the run across
+    # ops whose provenance facts are row-linear with a known footprint,
+    # and the absorbed ops execute through the SAME executor code paths
+    # (masks, metadata updates, error sites), only the node boundary
+    # moves — so fusion adds NO presence obligations; parity is by
+    # construction (gather associativity), re-checked by the verdict
+    # equivalence below like every other rule.
+    if fuse_enabled():
+        from .cost import choose_fusion
+
+        cur = apply_recipe(root, PlanRecipe(tuple(steps))) if steps else root
+        fchoice = choose_fusion(cur, sketches=sketches)
+        if fchoice is not None:
+            if fchoice.get("blocked_by"):
+                blocked.append(ProvenanceDiagnostic(
+                    "probe-fuse", fchoice["blocked_by"],
+                    "opaque predicate/expr bounds the absorbable run — "
+                    "its column footprint is unknown"))
+            if fchoice["chosen"] == "fuse" and fchoice["ops"]:
+                s = int(fchoice["slots"][0])
+                m = len(fchoice["slots"])
+                steps.append(("fuse_chain", s, m))
+                staged_b = (fchoice["staged_bytes_host"]
+                            + fchoice["staged_bytes_device"])
+                fused_b = (fchoice["fused_bytes_host"]
+                           + fchoice["fused_bytes_device"])
+                applied.append(
+                    f"probe-fuse: {len(fchoice['ops'])} op(s) fused into "
+                    f"the probe at slot {s} (est staged materialize "
+                    f"{staged_b:.0f}B vs fused key gathers {fused_b:.0f}B)")
+            elif fchoice["ops"]:
+                blocked.append(ProvenanceDiagnostic(
+                    "probe-fuse", fchoice["run"][-1],
+                    f"cost model prices staged cheaper "
+                    f"({fchoice['note']})"))
+
+    # 6. Projection pushdown: drop dead leaf columns right after the
+    # leaf.  Liveness is order-independent (a union over stage
+    # footprints, identical for the fused operators by construction), so
+    # neither the permutation nor the fuses above change it.
+    final_schema = tuple(report.states[-1].schema.keys())
+    live = PV.live_columns(facts[1:], final_schema)
+    if live is None:
+        bad = next((f for f in facts[1:]
+                    if f.barrier or f.reads is None
+                    or (f.op == "Join" and f.fallback_writes is None)),
+                   None)
+        if bad is not None:
+            blocked.append(ProvenanceDiagnostic(
+                "projection-pushdown", bad.label,
+                f"{bad.op} has an unknown column footprint — no liveness "
+                f"claim is sound"))
+    else:
+        leaf_cols = list(report.states[0].schema.keys())
+        dead = tuple(c for c in leaf_cols if c not in live)
+        if dead and len(dead) < len(leaf_cols):
+            steps.append(("drop_after_leaf", dead))
+            applied.append(
+                f"projection-pushdown: drop {list(dead)} after "
+                f"{facts[0].label}")
+
+    # The bubble passes re-attempt stuck pairs once per sweep; keep the
+    # first refusal only.
+    seen: set = set()
+    unique_blocked = tuple(
+        d for d in blocked
+        if (d.rule, d.stage, d.message) not in seen
+        and not seen.add((d.rule, d.stage, d.message)))
+
+    if not steps:
+        return RewriteResult(root, report, report, None, tuple(applied),
+                             unique_blocked)
+
+    recipe = PlanRecipe(tuple(steps), tuple(sorted(consumed)), join_order)
+    new_root = apply_recipe(root, recipe)
+    opt_report = verify_plan(new_root)
+    if (opt_report.ok != report.ok
+            or opt_report.predicts_empty != report.predicts_empty):
+        raise RewriteVerdictMismatch(
+            f"rewritten plan verdict (ok={opt_report.ok}, "
+            f"predicts_empty={opt_report.predicts_empty}) diverged from "
+            f"original (ok={report.ok}, "
+            f"predicts_empty={report.predicts_empty}); rewrite discarded")
+    return RewriteResult(new_root, opt_report, report, recipe,
+                         tuple(applied), unique_blocked)

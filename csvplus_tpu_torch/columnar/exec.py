@@ -1,26 +1,33 @@
 """The device plan executor.
 
-Port of ``csvplus_tpu/columnar/exec.py`` for the nodes of
-:mod:`csvplus_tpu_torch.plan`.  It walks a plan chain rooted at a ``Scan``
-of a :class:`~csvplus_tpu_torch.columnar.table.DeviceTable`:
+Port of ``csvplus_tpu/columnar/exec.py``.  It walks a plan chain
+(:mod:`csvplus_tpu_torch.plan`) rooted at a ``Scan`` of a
+:class:`~csvplus_tpu_torch.columnar.table.DeviceTable`:
 
 * ``Filter`` -> boolean mask (:mod:`..ops.filter`, through the fused mask
   kernel) and a compaction of the selection vector;
 * ``Validate`` (last stage only) -> a deferred row-numbered error;
-* ``Top`` -> selection slicing;
+* ``Top``/``DropRows`` -> selection slicing; ``TakeWhile``/``DropWhile``
+  -> one cut at the first false row (a device argmax);
 * ``SelectCols``/``DropCols``/``MapExpr`` -> column-metadata updates;
-* ``Join`` -> the packed-key probe and gathers of :mod:`..ops.join`.
+* ``Join`` -> the packed-key probe and gathers of :mod:`..ops.join`;
+  ``MultiwayJoin`` -> one pass over a run of joins; ``FusedProbe`` -> a
+  Filter/Map/projection run evaluated on the selection, then a probe of
+  the selected rows with no materialized stream; ``Except`` -> the
+  anti-join mask over the key columns only.
 
 Execution keeps a selection vector (int64 row ids on the device) over
 full-length columns and gathers as late as possible.
 
-The port runs the plan **without the static verifier and optimizer** of
-``csvplus_tpu/analysis/``: it lowers exactly as the reference does under
-``CSVPLUS_VERIFY=0`` (whose hook sits in the reference's
-``execute_plan_view``).  The reference's rewriter is certified to keep the
-output bitwise equal, so the results still match the reference run with
-its defaults.  A stage that cannot lower raises :class:`UnsupportedPlan`,
-and the caller falls back to the host streaming path.
+Before lowering, the static verifier (:mod:`..analysis.verify`) runs, as
+the reference's executor runs it by default (``CSVPLUS_VERIFY=1``): a
+plan it finds unlowerable raises :class:`UnsupportedPlan` before any
+device work, and the caller falls back to the host streaming path with
+the reference's outcome.  ``CSVPLUS_VERIFY=0`` skips it.  The plain
+fluent API lowers the plan as built — it never rewrites, so its joins
+stay the cascade; the rewriter's ``MultiwayJoin``/``FusedProbe`` forms
+run only through the plan cache (:mod:`..serve.plancache`), which
+verifies each shape once and then executes with ``preverified=True``.
 """
 
 from __future__ import annotations
@@ -105,26 +112,55 @@ def execute_plan(root: P.PlanNode) -> DeviceTable:
     return execute_plan_view(root).materialize()
 
 
-def execute_plan_view(root: P.PlanNode) -> _View:
+def execute_plan_view(root: P.PlanNode, preverified: bool = False) -> _View:
     """Run the plan, returning the final view (columns + selection vector
-    + source row numbering) without materializing.  No verifier runs
-    first (see the module docstring)."""
+    + source row numbering) without materializing.
+
+    The static verifier runs first (see the module docstring):
+    unlowerable plans raise :class:`UnsupportedPlan` before any device
+    work.  ``preverified=True`` skips it: the caller vouches that a plan
+    of this exact structural shape already verified clean — the plan
+    cache, which verifies each shape once at admission, is the one
+    caller that does."""
+    if not preverified:
+        from ..analysis.verify import verify_before_lower
+
+        verify_before_lower(root)
     stages = P.linearize(root)
     # Validate lowers only as the final stage: upstream of anything else
     # the host's push semantics cannot be reproduced by an eager check
     for node in stages[:-1]:
         if isinstance(node, P.Validate):
             raise UnsupportedPlan("Validate is device-lowered only as last stage")
-    table: DeviceTable = stages[0].table
+    leaf = stages[0]
+    table: DeviceTable = leaf.table
     view = _scan_view(table, scan_base=table.row_base)
     for node in stages[1:]:
         view = _exec_stage(view, node)
     return view
 
 
+def _join_specs(view: _View, joins) -> list:
+    """(DeviceIndex, key columns) per build side, each key set checked
+    over the current selection (host-parity errors, row numbers in the
+    originating source's numbering)."""
+    specs = []
+    for index, columns in joins:
+        dev_index = index.device_table
+        if dev_index is None or not dev_index.supported:
+            raise UnsupportedPlan("join build side has no packed device index")
+        _check_key_cells(view, columns)
+        specs.append((dev_index, tuple(columns)))
+    return specs
+
+
+def _drop(view: _View, columns) -> None:
+    view.cols = {n: c for n, c in view.cols.items() if n not in set(columns)}
+
+
 def _exec_stage(view: _View, node: P.PlanNode) -> _View:
     """Execute one plan node against the view (mutating or replacing it)."""
-    from ..ops.join import join_tables
+    from ..ops import join as J
 
     if isinstance(node, P.Filter):
         view.sel = view.sel[_sel_mask(view, node.pred)]
@@ -139,21 +175,80 @@ def _exec_stage(view: _View, node: P.PlanNode) -> _View:
             view.deferred_error = (
                 first, DataSourceError(rowno, CsvPlusError(node.message))
             )
+    elif isinstance(node, (P.TakeWhile, P.DropWhile)):
+        stop = ~_sel_mask(view, node.pred)
+        # the first false row, or the whole selection: one scalar transfer
+        n = int(view.sel.shape[0])
+        cut = int(torch.where(stop.any(), torch.argmax(stop.to(torch.uint8)), n).item()) if n else 0
+        if isinstance(node, P.TakeWhile):
+            view.sel = view.sel[:cut]  # stop at the first false row
+        else:
+            view.sel = view.sel[cut:]  # pass from the first false row on
     elif isinstance(node, P.Top):
         view.sel = view.sel[: node.n]
+    elif isinstance(node, P.DropRows):
+        view.sel = view.sel[node.n:]
     elif isinstance(node, P.SelectCols):
         _apply_select(view, node.columns)
     elif isinstance(node, P.DropCols):
-        view.cols = {n: c for n, c in view.cols.items() if n not in set(node.columns)}
+        _drop(view, node.columns)
     elif isinstance(node, P.MapExpr):
         _apply_map(view, node.expr)
     elif isinstance(node, P.Join):
+        ((dev_index, columns),) = _join_specs(view, [(node.index, node.columns)])
+        view = _scan_view(J.join_tables(view.materialize(), dev_index, list(columns)))
+    elif isinstance(node, P.MultiwayJoin):
+        # every build side's keys validate against the ORIGINAL stream
+        # (the rewriter's license proves later keys PRESENT), then one
+        # materialize feeds one expansion — no intermediate table
+        specs = _join_specs(view, node.joins)
+        view = _scan_view(J.multiway_join(view.materialize(), specs))
+    elif isinstance(node, P.FusedProbe):
+        # the absorbed run executes through the same view code paths the
+        # staged stages use (masks, metadata updates, error sites); the
+        # probe then consumes the selection directly
+        rows_full = int(view.sel.shape[0])
+        for kind, payload in node.ops:
+            if kind == "filter":
+                view.sel = view.sel[_sel_mask(view, payload)]
+            elif kind == "map":
+                _apply_map(view, payload)
+            elif kind == "select":
+                _apply_select(view, payload)
+            elif kind == "drop":
+                _drop(view, payload)
+            else:
+                raise UnsupportedPlan(f"no device lowering for fused op {kind!r}")
+        specs = _join_specs(view, node.joins)
+        rows_selected = int(view.sel.shape[0])
+        if rows_selected == 0:
+            # nothing selected: the staged join's empty folds define the
+            # result schema, and materializing zero rows is free
+            joined = J.multiway_join(view.materialize(), specs)
+        else:
+            joined = J.multiway_join_selected(
+                view.cols, view.sel, view.device, specs, identity=view.identity
+            )
+        from ..obs.joinskew import joinskew
+
+        joinskew.on_fused(
+            "+".join(",".join(di.key_columns) for di, _ in specs),
+            len(specs), rows_full, rows_selected, joined.nrows,
+        )
+        view = _scan_view(joined)
+    elif isinstance(node, P.Except):
         dev_index = node.index.device_table
         if dev_index is None or not dev_index.supported:
-            raise UnsupportedPlan("join build side has no packed device index")
+            raise UnsupportedPlan("except build side has no packed device index")
         _check_key_cells(view, node.columns)
-        joined = join_tables(view.materialize(), dev_index, list(node.columns))
-        view = _scan_view(joined)
+        # the anti-join needs only the KEY columns: gather just those
+        key_view = _View(
+            {c: view.cols[c] for c in node.columns if c in view.cols},
+            view.sel, view.device, view.full_len, identity=view.identity,
+        )
+        keep = J.except_mask(key_view.materialize(), dev_index, list(node.columns))
+        # rows pass through 1:1, so the row space and its numbering stay
+        view.sel = view.sel[keep]
     else:
         raise UnsupportedPlan(f"no device lowering for {type(node).__name__}")
     return view

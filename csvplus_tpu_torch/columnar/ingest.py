@@ -105,9 +105,9 @@ def _stream_ingest_wanted(path: str) -> bool:
     """The streamed tier engages for files of ``CSVPLUS_STREAM_MIN_BYTES``
     (default 256 MiB) and more, where the whole-file tiers' ``f.read()``
     would hold the whole file in host memory; 0 turns it off."""
-    from ..native.scanner import _env_int
+    from ..utils.env import env_int
 
-    thresh = _env_int("CSVPLUS_STREAM_MIN_BYTES", _STREAM_MIN_BYTES)
+    thresh = env_int("CSVPLUS_STREAM_MIN_BYTES", _STREAM_MIN_BYTES)
     if thresh <= 0:
         return False
     try:
@@ -185,15 +185,16 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
     the scan pipeline (what the prefetch did not hide) and the time it
     spent placing chunks (uploads, dictionary bookkeeping), the chunk
     count and K."""
-    from ..native.scanner import StreamFallback, _env_int, _ingest_workers, stream_encoded_chunks
+    from ..native.scanner import StreamFallback, _ingest_workers, stream_encoded_chunks
     from ..ops.lanes import lanes_for_width, pack_host
+    from ..utils.env import env_int
     from .table import resolve_device
     from .typed import IntColumn, format_affix
 
     dev = resolve_device(device)
     upload = _uploader(dev)
-    prefetch_depth = _env_int("CSVPLUS_STREAM_PREFETCH", 1)
-    lane_thresh = _env_int("CSVPLUS_DICT_DEVICE_MIN_DISTINCT", 4_000_000)
+    prefetch_depth = env_int("CSVPLUS_STREAM_PREFETCH", 1)
+    lane_thresh = env_int("CSVPLUS_DICT_DEVICE_MIN_DISTINCT", 4_000_000)
     names = None
     chunk_dicts: "dict[str, list]" = {}  # host mode: 'S' arrays
     chunk_lanes: "dict[str, list]" = {}  # lane mode: device lane tuples

@@ -58,6 +58,7 @@ class IntColumn:
         self.prefix = prefix
         self.values = values
         self._demoted = _demoted  # cached StringColumn after demotion
+        self._distinct: Optional[int] = None  # cached distinct-value count
         self._demote_lock = threading.Lock()
 
     # ---- the storage protocol shared with StringColumn ----
@@ -81,6 +82,19 @@ class IntColumn:
     @property
     def dev_dictionary(self):
         return None  # no lane dictionary: the value lanes are the storage
+
+    @property
+    def dict_size(self) -> int:
+        """The dictionary size this column would demote to: its count of
+        distinct values (the affix format is one-to-one on canonical
+        values), which the cost model reads as the column's distinct
+        count.  The reference demotes the column to answer; here one
+        ``torch.unique`` counts them, cached, and nothing is demoted."""
+        if self._demoted is not None:
+            return self._demoted.dict_size
+        if self._distinct is None:
+            self._distinct = int(torch.unique(self.values).numel())
+        return self._distinct
 
     def _ensure_sorted_lanes(self) -> None:
         return None  # no deferred lane union to settle

@@ -120,6 +120,11 @@ class IndexImpl:
             return self.dev.table.to_rows(np.arange(lower, upper, dtype=np.int64))
         return self.rows[lower:upper]
 
+    def has(self, values: Sequence[str]) -> bool:
+        """True when any row matches the key prefix (csvplus.go:899-905)."""
+        lower, upper = self.bounds(values)
+        return lower < upper
+
     def dedup(self, resolve: Callable[[List[Row]], Optional[Row]]) -> None:
         """Replace each duplicate-key group by *resolve*'s row; a row with
         fewer cells than key columns drops the group (csvplus.go:809-867)."""

@@ -37,6 +37,7 @@ import numpy as np
 
 from ..csvio import ERR_BARE_QUOTE, ERR_FIELD_COUNT, ERR_QUOTE
 from ..errors import DataSourceError, map_error
+from ..utils.env import env_int
 
 SOURCE = Path(__file__).resolve().parent / "scanner.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -100,15 +101,6 @@ _SIGNATURES = {
     "csv_scan_parse_i32": (_I64, [_VP, _I64, _CH, _I64, ctypes.c_char_p, _I64P, _I64P,
                                   ctypes.POINTER(ctypes.c_void_p), _I64]),
 }
-
-
-def _env_int(name: str, default: int) -> int:
-    """An int tuning knob from the environment; a malformed value gives
-    *default* (a typo never aborts an ingest), as in the reference."""
-    try:
-        return int(os.environ.get(name, default))
-    except ValueError:
-        return default
 
 
 def _load():
@@ -817,7 +809,7 @@ def _ingest_workers() -> int:
     (``CSVPLUS_INGEST_WORKERS``).  0, unset or malformed = auto: half the
     cores (the scan also threads within a chunk), capped at 8.  K = 1 runs
     the same worker function inline."""
-    k = _env_int("CSVPLUS_INGEST_WORKERS", 0)
+    k = env_int("CSVPLUS_INGEST_WORKERS", 0)
     if k <= 0:
         k = min(max((os.cpu_count() or 1) // 2, 1), 8)
     return max(1, min(k, 32))

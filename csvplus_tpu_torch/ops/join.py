@@ -15,6 +15,13 @@ Port of the single-join subset of ``csvplus_tpu/ops/join.py``.
   answers every row's ``[lower, lower + count)`` match range at once.
 * Fan-out is data-dependent, so only ``(total, max count)`` crosses to the
   host — one transfer — and the gather index vectors are built on device.
+* A run of joins can execute as ONE pass (:func:`multiway_join`): every
+  build side is probed over the original stream rows and the
+  cross-product fan-out expands once, with no intermediate table; the
+  fused probe (:func:`multiway_join_selected`) probes a selection without
+  materializing it first.  Only the rewriter (``analysis/rewrite.py``,
+  through the plan cache) emits the plan nodes that reach them.
+* :func:`except_mask` is the anti-join's keep-mask.
 
 Key tiers, kept as in the reference so tier choice matches:
 
@@ -28,6 +35,8 @@ Key tiers, kept as in the reference so tier choice matches:
 
 from __future__ import annotations
 
+import threading
+from collections import Counter
 from dataclasses import dataclass
 from typing import ClassVar, List, Optional, Sequence, Tuple
 
@@ -37,6 +46,12 @@ import torch
 from ..columnar.table import DeviceTable, StringColumn, merge_with_fallback
 
 _MASK31 = (1 << 31) - 1
+
+#: Joins this process ran, counted by expansion path ("unique-identity",
+#: "unique-partial", "fan-out", prefixed "multiway-" or "fused-" for the
+#: single-pass operators) — counted where the path is chosen, nowhere
+#: else.  ``chip_smoke.py`` and the tests read it.
+expand_paths: Counter = Counter()
 
 
 def _bits_for(n: int) -> int:
@@ -161,6 +176,56 @@ def _build_direct_cum(keys: torch.Tensor, total_bits: int) -> torch.Tensor:
     return torch.cumsum(hist, 0, dtype=torch.int32)
 
 
+def device_index_static_info(index):
+    """Static shape of an index's device copy, for the plan verifier and
+    the cost model: ``(column -> lane kind, key column tuple, supported,
+    meta)``, or ``None`` when the index carries no device table (the
+    executor then raises ``UnsupportedPlan`` and the chain falls back to
+    the host path).  ``meta`` holds ``placement`` (where the packed key
+    array lives, :func:`~csvplus_tpu_torch.analysis.schema.placement_of_array`),
+    ``packed_keys`` (the build-side key count) and ``partition_min_keys``
+    (the partitioned tier's threshold, read through the live class).
+    Reads only metadata; never touches device data."""
+    dev = getattr(index, "device_table", None)
+    if dev is None:
+        return None
+    if not getattr(dev, "supported", False):
+        # an unsupported device copy may hold no packed table at all
+        return ({}, (), False, None)
+    from ..analysis.schema import placement_of_array
+
+    packed = getattr(dev, "packed_i32", None)
+    if packed is None:
+        packed = getattr(dev, "packed_hi", None)
+    meta = {
+        "placement": placement_of_array(packed),
+        "packed_keys": int(packed.shape[0]) if packed is not None else None,
+        "partition_min_keys": int(
+            getattr(dev, "PARTITION_MIN_KEYS", DeviceIndex.PARTITION_MIN_KEYS)
+        ),
+    }
+    return (
+        {n: c.kind for n, c in dev.table.columns.items()},
+        tuple(dev.key_columns),
+        True,
+        meta,
+    )
+
+
+def _decode_sample(col: StringColumn, codes: np.ndarray) -> list:
+    """Values of a few dictionary slots of *col*.  A lane dictionary
+    still on the device gathers and unpacks only those slots (the
+    column's host dictionary would unpack every entry); the values are
+    the ones ``decode_codes`` gives."""
+    if col._dictionary is None:
+        from .lanes import unpack_host
+
+        idx = torch.from_numpy(codes).to(col.codes.device)
+        lanes = [torch.index_select(lane, 0, idx).cpu().numpy() for lane in col.dev_dictionary]
+        return [v.decode("utf-8") for v in unpack_host(lanes).tolist()]
+    return col.decode_codes(codes)
+
+
 @dataclass
 class DeviceIndex:
     """Columnar build side of a join: key-sorted table + packed keys."""
@@ -177,6 +242,16 @@ class DeviceIndex:
     # Universes up to 2^DIRECT_MAX_BITS get the dictionary-direct probe
     # table (2^23 + 1 int32 = 32 MB at the cap); larger ones search.
     DIRECT_MAX_BITS: ClassVar[int] = 23
+
+    # The reference probes build sides of at least this many keys through
+    # its range-partitioned multi-device tier.  One process drives one
+    # card here, so no probe takes that tier; the verifier and the cost
+    # model read the threshold (``device_index_static_info``) as the
+    # reference's do.
+    PARTITION_MIN_KEYS: ClassVar[int] = 4_000_000
+
+    # Build-side key sample offered to the cost model's sketch, at most.
+    BUILD_SAMPLE: ClassVar[int] = 4096
 
     @classmethod
     def build(cls, table: DeviceTable, key_columns: Sequence[str]) -> "DeviceIndex":
@@ -207,9 +282,56 @@ class DeviceIndex:
         hi, lo = pack_lanes(codes, shifts, bits)
         return cls(table, key_columns, shifts, bits, packed_hi=hi, packed_lo=lo)
 
+    def __post_init__(self):
+        # serializes the once-per-index build-side sample
+        self._aux_lock = threading.Lock()
+        self._skew_offered = False
+
     @property
     def supported(self) -> bool:
         return self.shifts is not None
+
+    def _decode_packed(self, packed: np.ndarray) -> list:
+        """Decode packed build keys back to their column values: each key
+        column's code is its bit field, decoded through the column
+        dictionary (only the sampled codes).  Single-column keys unwrap
+        to the scalar."""
+        parts = []
+        p64 = packed.astype(np.int64)
+        for name, s, b in zip(self.key_columns, self.shifts, self.bits):
+            codes = (p64 >> s) & ((1 << b) - 1)
+            parts.append(_decode_sample(self.table.columns[name], codes))
+        if len(parts) == 1:
+            return list(parts[0])
+        return [tuple(vs) for vs in zip(*parts)]
+
+    def offer_build_sample(self) -> None:
+        """Once per index: a strided sample of the SORTED packed build keys
+        (at most ``BUILD_SAMPLE``, ``step = ceil(n / BUILD_SAMPLE)``),
+        decoded and offered into the process-global build-side sketch
+        (:mod:`..obs.joinskew`) that the cost model reads.  Sorted order
+        makes the strided sample a share estimator.  The download is one
+        bounded ``.cpu()``; after the first call this is one attribute
+        read."""
+        if self._skew_offered or not self.supported:
+            return
+        with self._aux_lock:
+            if self._skew_offered:
+                return
+            self._skew_offered = True
+        n = int(self.table.nrows)
+        if n == 0:
+            return
+        step = max(1, -(-n // self.BUILD_SAMPLE))
+        if self.packed_i32 is not None:
+            sample = self.packed_i32[::step].cpu().numpy()
+        else:
+            pair = torch.stack([self.packed_hi[::step], self.packed_lo[::step]]).cpu().numpy()
+            sample = (pair[0].astype(np.int64) << 31) | pair[1].astype(np.int64)
+        vals, cnts = np.unique(sample, return_counts=True)
+        from ..obs.joinskew import joinskew
+
+        joinskew.offer_build(",".join(self.key_columns), self._decode_packed(vals), cnts)
 
     @property
     def direct_cum(self) -> Optional[torch.Tensor]:
@@ -259,6 +381,7 @@ class DeviceIndex:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(lower, counts) per probe row, both int32 on the probe's device.
         Fewer probe columns than key columns = a prefix probe."""
+        self.offer_build_sample()
         k = len(probe_cols)
         # a typed probe column translates its value lanes against the
         # parsed build dictionary: the probe side is never demoted
@@ -379,11 +502,14 @@ def join_tables(
         # every stream row matched once: stream columns pass through
         # ungathered, build rows are addressed by the lower bounds
         build_ids = lower.to(torch.int64)
+        expand_paths["unique-identity"] += 1
     elif maxc <= 1:
         probe_ids = torch.nonzero(counts > 0).squeeze(1)
         build_ids = torch.index_select(lower, 0, probe_ids).to(torch.int64)
+        expand_paths["unique-partial"] += 1
     else:
         probe_ids, build_ids = expand_matches_device(lower, counts, total)
+        expand_paths["fan-out"] += 1
 
     build_names = list(dev_index.table.columns)
     stream_names = list(stream.columns)
@@ -410,3 +536,243 @@ def join_tables(
             g = merge_with_fallback(g, out_cols[name])
         out_cols[name] = g
     return DeviceTable(out_cols, n_out, stream.device)
+
+
+# -- single-pass multiway join ---------------------------------------------
+#
+# A run of cascaded binary joins over one stream materializes every
+# intermediate table.  ``multiway_join`` replaces the run with ONE pass:
+# every build side is probed over the ORIGINAL stream rows (a probe
+# answer depends only on the key value, so probing the stream row equals
+# probing the intermediate row that carries the same key), the
+# cross-product fan-out per stream row expands once, and each build
+# side's rows are addressed by a mixed-radix decomposition of the
+# within-row output offset — build side 0 outermost, the cascade's
+# nested emission order.  Row order, column order and merge semantics are
+# bitwise those of folding ``join_tables`` left to right; the rewriter
+# licenses the fusion only when every later join's key columns are
+# provably PRESENT on the stream before the run.
+#
+# The reference's jitted kernels pad their outputs to powers of two to
+# bound retraces and slice the result to the true total; here every
+# array is sized to the total.  Row ids are int64, as the executor's
+# selection vector is.
+
+
+def _multiway_stats(counts: Sequence[torch.Tensor]) -> Tuple[int, int, int]:
+    """(total matches, max fan-out, cascade intermediate rows avoided) in
+    one host transfer.  The reference sums int32; these sums run in
+    int64, which equals it at every size whose total fits in int32 (the
+    reference's own limit), so the fast-path decisions agree."""
+    prod = counts[0].to(torch.int64)
+    inter = torch.zeros((), dtype=torch.int64, device=prod.device)
+    for c in counts[1:]:
+        inter = inter + prod.sum()
+        prod = prod * c.to(torch.int64)
+    maxp = prod.max() if prod.shape[0] else torch.zeros((), dtype=torch.int64, device=prod.device)
+    total, maxp, inter = torch.stack([prod.sum(), maxp, inter]).tolist()
+    return int(total), int(maxp), int(inter)
+
+
+def _multiway_expand(
+    lowers: Sequence[torch.Tensor], counts: Sequence[torch.Tensor], total: int
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Cross-product fan-out to exactly *total* output slots: the per-row
+    fan-out (product of the build sides' match counts) drives the
+    exclusive-prefix-sum + segment-marker + running-max inversion of
+    ``_expand_kernel``; the within-row offset then decomposes in mixed
+    radix (build side 0 major, suffix products as the radices) into one
+    build-row offset per build side."""
+    cs = [c.to(torch.int64) for c in counts]
+    prod = cs[0]
+    for c in cs[1:]:
+        prod = prod * c
+    dev = prod.device
+    ends = torch.cumsum(prod, 0)
+    starts = ends - prod
+    nonempty = prod > 0
+    ids = torch.arange(prod.shape[0], dtype=torch.int64, device=dev)
+    seg = torch.zeros(total, dtype=torch.int64, device=dev)
+    # non-empty segment starts strictly increase: no collisions, and the
+    # reference's dropped out-of-range marks of empty segments are simply
+    # not written
+    seg[starts[nonempty]] = ids[nonempty]
+    probe_ids = torch.cummax(seg, 0).values
+    r = torch.arange(total, dtype=torch.int64, device=dev) - torch.index_select(starts, 0, probe_ids)
+    suffix = torch.ones_like(prod)
+    sufs = []
+    for c in reversed(cs):
+        sufs.append(suffix)
+        suffix = suffix * c
+    sufs.reverse()
+    build_ids = []
+    for d, (lo, c, su) in enumerate(zip(lowers, cs, sufs)):
+        o = r // torch.index_select(su.clamp(min=1), 0, probe_ids)
+        if d > 0:  # build side 0 is the major digit: no wrap needed
+            o = o % torch.index_select(c.clamp(min=1), 0, probe_ids)
+        build_ids.append(torch.index_select(lo.to(torch.int64), 0, probe_ids) + o)
+    return probe_ids, tuple(build_ids)
+
+
+def _multiway_ids(lowers, counts, nrows: int, label: str):
+    """(probe ids or None, per-build-side build ids, total, intermediate
+    rows avoided) for the multiway fan-out, choosing the path as the
+    reference does: every row matched once in every build side (stream
+    side passes through), at most once (compaction, each build row is its
+    lower bound), or the cross-product expansion."""
+    total, maxp, inter = _multiway_stats(counts)
+    if maxp <= 1 and total == nrows:
+        expand_paths[f"{label}-unique-identity"] += 1
+        return None, tuple(lo.to(torch.int64) for lo in lowers), total, inter
+    if maxp <= 1:
+        mask = counts[0] > 0
+        for c in counts[1:]:
+            mask = mask & (c > 0)
+        probe_ids = torch.nonzero(mask).squeeze(1)
+        expand_paths[f"{label}-unique-partial"] += 1
+        build = tuple(torch.index_select(lo, 0, probe_ids).to(torch.int64) for lo in lowers)
+        return probe_ids, build, total, inter
+    expand_paths[f"{label}-fan-out"] += 1
+    probe_ids, build = _multiway_expand(lowers, counts, total)
+    return probe_ids, build, total, inter
+
+
+def _merge_fold(cur: dict, gathered) -> dict:
+    """The cascade's merge, left to right: level d inserts build side d's
+    columns first, then overlays the running result with stream-wins /
+    absent-cell-fallback semantics (``join_tables``' merge per level)."""
+    for cols in gathered:
+        new = dict(cols)
+        for name, col in cur.items():
+            if name in new:
+                col = merge_with_fallback(col, new[name])
+            new[name] = col
+        cur = new
+    return cur
+
+
+def _gather_builds(specs, build_ids) -> list:
+    """Every build side's columns gathered by its build row ids."""
+    return [
+        {n: c.with_storage(torch.index_select(c.storage, 0, ids))
+         for n, c in di.table.columns.items()}
+        for (di, _), ids in zip(specs, build_ids)
+    ]
+
+
+def multiway_join(
+    stream: DeviceTable, specs: "Sequence[Tuple[DeviceIndex, Sequence[str]]]"
+) -> DeviceTable:
+    """stream ⋈ index_1 ⋈ ... ⋈ index_k in ONE pass over the stream —
+    bitwise ``join_tables`` applied left to right (row order, column
+    order, values, errors), with no intermediate table.  *specs* lists
+    the cascade's (DeviceIndex, key columns) pairs in cascade order."""
+    from ..obs.joinskew import joinskew
+
+    if len(specs) == 1:  # degenerate run: exactly the binary join
+        return join_tables(stream, specs[0][0], specs[0][1])
+    if stream.nrows == 0:
+        # an empty stream never errors: fold the cascade's empty result
+        # per level so column order and kinds match it exactly
+        out = stream
+        empty = torch.zeros(0, dtype=torch.int64, device=stream.device)
+        for dev_index, _cols in specs:
+            cols = {**dev_index.table.columns, **out.columns}
+            out = DeviceTable({n: c.gather(empty) for n, c in cols.items()}, 0, stream.device)
+        return out
+
+    # every build side's keys validate and probe over the ORIGINAL rows;
+    # the fusion license makes that exactly the cascade's per-level checks
+    answers = [
+        dev_index.probe(_checked_probe_cols(stream, cols), stream.nrows)
+        for dev_index, cols in specs
+    ]
+    probe_ids, build_ids, total, inter = _multiway_ids(
+        [lo for lo, _ in answers], [ct for _, ct in answers], stream.nrows, "multiway"
+    )
+    # every build side's answers live at once here (the cascade holds one
+    # side's at a time): free them before the gathers
+    del answers
+    if probe_ids is None:
+        cur = dict(stream.columns)
+        n_out = stream.nrows
+    else:
+        cur = {n: c.with_storage(torch.index_select(c.storage, 0, probe_ids))
+               for n, c in stream.columns.items()}
+        n_out = total
+    cur = _merge_fold(cur, _gather_builds(specs, build_ids))
+    joinskew.on_multiway(
+        "+".join(",".join(di.key_columns) for di, _ in specs),
+        len(specs), stream.nrows, n_out, inter,
+    )
+    return DeviceTable(cur, n_out, stream.device)
+
+
+def multiway_join_selected(
+    cols: dict,
+    sel: torch.Tensor,
+    device: torch.device,
+    specs: "Sequence[Tuple[DeviceIndex, Sequence[str]]]",
+    identity: bool = False,
+) -> DeviceTable:
+    """selection(cols, sel) ⋈ index_1 ⋈ ... ⋈ index_k without ever
+    materializing the selected stream — bitwise
+    ``multiway_join(gather(cols, sel), specs)`` (and, for one spec,
+    ``join_tables``).  *cols* maps names to FULL-length columns, *sel* is
+    the selected row ids, *identity* says sel is the whole range in order
+    (then the stream columns pass through, as ``materialize()`` does).
+
+    Key columns gather down to the selection only for probing (the same
+    arrays a staged materialize would probe, so every answer is
+    identical); the emit gathers the stream columns from full-length
+    storage by the composed ``sel[probe_ids]``, one gather where the
+    staged chain gathers twice.  Typed value lanes and lane-dictionary
+    columns go through ``with_storage`` and ``merge_with_fallback``
+    exactly as in ``join_tables``.  The reference re-places build codes
+    for a multi-device mesh here (``_aligned_codes``); on one card that
+    is the identity, so there is nothing to port.
+
+    Caller contract: *sel* is nonempty, and every spec's key columns were
+    validated over the selected rows (the executor raises the host-parity
+    errors with the right row numbers)."""
+    from ..obs.joinskew import joinskew
+
+    n_sel = int(sel.shape[0])
+    answers = [
+        dev_index.probe([cols[c] if identity else cols[c].gather(sel) for c in kcols], n_sel)
+        for dev_index, kcols in specs
+    ]
+    probe_ids, build_ids, total, inter = _multiway_ids(
+        [lo for lo, _ in answers], [ct for _, ct in answers], n_sel, "fused"
+    )
+    del answers  # as in multiway_join: free the answers before the gathers
+    if probe_ids is None:
+        # every selected row matched once per build side: the stream side
+        # is the selection itself (identity: no gather at all)
+        emit = None if identity else sel
+        n_out = n_sel
+    else:
+        emit = probe_ids if identity else torch.index_select(sel, 0, probe_ids)
+        n_out = total
+    if emit is None:
+        cur = dict(cols)
+    else:
+        cur = {n: c.with_storage(torch.index_select(c.storage, 0, emit)) for n, c in cols.items()}
+    cur = _merge_fold(cur, _gather_builds(specs, build_ids))
+    if len(specs) >= 2:  # counter parity: the staged binary join never ticks
+        joinskew.on_multiway(
+            "+".join(",".join(di.key_columns) for di, _ in specs),
+            len(specs), n_sel, n_out, inter,
+        )
+    return DeviceTable(cur, n_out, device)
+
+
+def except_mask(
+    stream: DeviceTable, dev_index: DeviceIndex, columns: Sequence[str]
+) -> torch.Tensor:
+    """Boolean keep-mask of the anti-join (csvplus.go:585-608): True where
+    the stream row's key has no match in the index."""
+    if stream.nrows == 0:
+        return torch.zeros(0, dtype=torch.bool, device=stream.device)
+    _, counts = dev_index.probe(_checked_probe_cols(stream, columns), stream.nrows)
+    return counts == 0

@@ -1,0 +1,325 @@
+"""Verified-plan executable cache: the entry point of the plan-analysis
+slice.
+
+Port of ``csvplus_tpu/serve/plancache.py``.  It caches by query shape:
+
+* **Admission = verification.**  A submitted plan runs the static
+  verifier (:func:`csvplus_tpu_torch.analysis.verify_plan`) once per
+  shape.  A plan with any error-severity diagnostic is rejected with
+  :class:`PlanRejected` at admission and is never lowered and never
+  cached.
+* **The key is structural, not data.**  :func:`plan_cache_key` folds in,
+  per chain node, the op type and its shape-relevant parameters:
+  predicate/expr reprs, column tuples, windowing counts, and for the
+  Scan leaf and Join/Except build sides the table SCHEMA
+  signature (column names, lane kinds, placements, cardinality class).
+  Table identity and row contents are excluded, so two
+  structurally identical plans over different data share one entry.
+* **A warm hit skips verification and optimization.**  The cached
+  :class:`PlanExecutable` replays its recipe onto the submitted root and
+  executes through the executor's ``preverified`` path
+  (:func:`csvplus_tpu_torch.columnar.exec.execute_plan_view`).  The
+  ``lowered`` counter ticks only on misses.
+* **Admission also optimizes.**  After verification the miss path runs
+  the rewriter (:mod:`csvplus_tpu_torch.analysis.rewrite`) once per shape
+  and stores the resulting data-only :class:`PlanRecipe`: the optimized
+  plan executes under the original key.  ``CSVPLUS_OPTIMIZE=0``
+  disables the rewriter; a rewriter failure is counted
+  (``optimize_failed``) and the shape runs unrewritten, as in the
+  reference (its callers should watch that counter: a rewriter bug then
+  shows only as a slower, still correct run).
+* **LRU-bounded.**  ``CSVPLUS_PLANCACHE_SIZE`` entries (default 256);
+  hit/miss/evict/reject counters exported via :meth:`PlanCache.stats`.
+
+Thread model: the cache is a monitor (one instance lock around the
+OrderedDict and counters).  Verification of a miss runs outside the
+lock; two racing threads may verify one new shape once each, and the
+second insert wins harmlessly.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Any, Dict, Optional, Tuple
+
+from .. import plan as P
+from ..errors import CsvPlusError
+from ..utils.env import env_int
+
+#: Default LRU bound (entries), overridden via ``CSVPLUS_PLANCACHE_SIZE``.
+DEFAULT_CACHE_SIZE = 256
+
+
+class PlanRejected(CsvPlusError):
+    """Plan failed static verification at admission; it was never
+    lowered and never cached."""
+
+    def __init__(self, diagnostics):
+        self.diagnostics = list(diagnostics)
+        detail = "; ".join(str(d) for d in self.diagnostics) or "(no diagnostics)"
+        super().__init__(f"plan rejected at admission: {detail}")
+
+
+def _schema_sig(table) -> Tuple:
+    """Structural signature of a device table: per-column (name, lane,
+    placement) plus the cardinality CLASS (empty vs nonempty) — the
+    facts verification and lowering depend on, with no data identity.
+    Built from cached metadata only (``placement_of_column`` never
+    syncs), mirroring how the verifier seeds ``scan_state``."""
+    from ..analysis.schema import placement_of_column
+
+    cols = tuple(
+        (name, getattr(col, "kind", "str"), repr(placement_of_column(col)))
+        for name, col in table.columns.items()
+    )
+    return (cols, int(getattr(table, "nrows", 0)) > 0)
+
+
+def _node_sig(node: P.PlanNode) -> Tuple:
+    """One chain node's contribution to the structural key.
+
+    Predicates/exprs contribute their ``repr`` — every symbolic DSL node
+    has a value-bearing repr (``Like({'name': 'amy'})``), so structurally
+    equal predicates collide and any constant change misses.
+    """
+    t = type(node).__name__
+    if isinstance(node, P.Scan):
+        return (t, _schema_sig(node.table))
+    if isinstance(node, (P.Filter, P.TakeWhile, P.DropWhile)):
+        return (t, repr(node.pred))
+    if isinstance(node, P.Validate):
+        return (t, repr(node.pred), node.message)
+    if isinstance(node, P.MapExpr):
+        return (t, repr(node.expr))
+    if isinstance(node, (P.SelectCols, P.DropCols)):
+        return (t, tuple(node.columns))
+    if isinstance(node, (P.Top, P.DropRows)):
+        return (t, int(node.n))
+    if isinstance(node, (P.Join, P.Except)):
+        impl = getattr(node.index, "_impl", node.index)
+        build = getattr(impl, "dev", None)
+        build_sig: Any = None
+        if build is not None:
+            build_sig = (
+                tuple(build.key_columns),
+                _schema_sig(build.table),
+            )
+        return (t, tuple(node.columns), tuple(impl.columns), build_sig)
+    if isinstance(node, P.MultiwayJoin):
+        # Never submitted by user combinators (only the rewriter emits
+        # it), but a complete signature keeps the key total if one ever
+        # arrives: the per-dimension (keys, index cols, build schema)
+        # tuples in cascade order.
+        dims = []
+        for index, columns in node.joins:
+            impl = getattr(index, "_impl", index)
+            build = getattr(impl, "dev", None)
+            build_sig = None
+            if build is not None:
+                build_sig = (
+                    tuple(build.key_columns),
+                    _schema_sig(build.table),
+                )
+            dims.append((tuple(columns), tuple(impl.columns), build_sig))
+        return (t, tuple(dims))
+    if isinstance(node, P.FusedProbe):
+        # Also rewriter-only, but keep the key total: the
+        # absorbed ops contribute their value-bearing reprs (matching
+        # the standalone Filter/MapExpr/SelectCols/DropCols signatures)
+        # and the probe dimensions sign like MultiwayJoin's.
+        ops = tuple(
+            (kind, repr(payload) if kind in ("filter", "map")
+             else tuple(payload))
+            for kind, payload in node.ops
+        )
+        dims = []
+        for index, columns in node.joins:
+            impl = getattr(index, "_impl", index)
+            build = getattr(impl, "dev", None)
+            build_sig = None
+            if build is not None:
+                build_sig = (
+                    tuple(build.key_columns),
+                    _schema_sig(build.table),
+                )
+            dims.append((tuple(columns), tuple(impl.columns), build_sig))
+        return (t, ops, tuple(dims))
+    # future node kinds degrade to type-only — a coarser key can only
+    # cause false misses, never false hits across different op types
+    return (t,)
+
+
+def plan_cache_key(root: P.PlanNode) -> Tuple:
+    """Structural cache key for a plan chain: op tree + schema +
+    placement, NOT data.  See the module docstring for what each node
+    contributes."""
+    return tuple(_node_sig(n) for n in P.linearize(root))
+
+
+class PlanExecutable:
+    """One cached shape: the verified report plus execution counters.
+
+    ``run(root)`` executes the SUBMITTED root (same shape, possibly
+    different data) through the preverified executor path — the stored
+    report vouches for the shape, so verification does not rerun.
+
+    ``recipe`` is the provenance-proven rewrite computed once at
+    admission (:func:`csvplus_tpu_torch.analysis.rewrite.optimize_plan`):
+    the OPTIMIZED plan is what executes, under the ORIGINAL structural
+    key.  Replay is data-only (a slot permutation, fuse steps, a leaf
+    drop list) and costs O(nodes).  The recipe's presence
+    obligations are re-checked against each submitted leaf
+    (the structural key pins schema but not cell presence); a
+    submission that fails them runs unrewritten — correct, just not
+    optimized.
+    """
+
+    __slots__ = ("key", "report", "recipe", "runs", "unoptimized_runs")
+
+    def __init__(self, key: Tuple, report, recipe=None):
+        self.key = key
+        self.report = report
+        self.recipe = recipe
+        self.runs = 0
+        self.unoptimized_runs = 0  # presence obligations failed
+
+    def run(self, root: P.PlanNode):
+        """Execute and materialize; returns the result DeviceTable."""
+        from ..columnar.exec import execute_plan_view
+
+        self.runs += 1  # stats only; a lost increment under races is benign
+        if self.recipe is not None:
+            from ..analysis.rewrite import apply_recipe, leaf_presence_ok
+
+            if leaf_presence_ok(root, self.recipe.require_present):
+                root = apply_recipe(root, self.recipe)
+            else:
+                self.unoptimized_runs += 1
+        return execute_plan_view(root, preverified=True).materialize()
+
+
+class PlanCache:
+    """LRU of :class:`PlanExecutable` keyed by :func:`plan_cache_key`."""
+
+    def __init__(self, size: Optional[int] = None):
+        self.size = (
+            int(size)
+            if size is not None
+            else env_int("CSVPLUS_PLANCACHE_SIZE", DEFAULT_CACHE_SIZE)
+        )
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[Tuple, PlanExecutable]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.rejected = 0
+        self.lowered = 0  # shapes verified+admitted (ticks only on miss)
+        self.optimized = 0  # admitted shapes that carry a rewrite recipe
+        self.optimize_failed = 0  # rewriter raised; shape runs unrewritten
+        # Attribution: which optimized shapes carry a
+        # cost-chosen join-order permutation / a fused MultiwayJoin.
+        self.reordered = 0
+        self.fused = 0
+        # Attribution: shapes whose recipe fused a Filter/Map/
+        # projection run into the probe pass (FusedProbe), and shapes
+        # where the rewriter CONSIDERED fusing but the pricing rule or
+        # an opaque op refused (a "probe-fuse" blocked diagnostic).
+        self.fused_chains = 0
+        self.fusion_refused = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def executable_for(self, root: P.PlanNode) -> PlanExecutable:
+        """The cached executable for *root*'s shape, verifying and
+        admitting the shape first on a miss.  Raises
+        :class:`PlanRejected` (and caches nothing) when verification
+        reports any error-severity diagnostic."""
+        key = plan_cache_key(root)
+        with self._lock:
+            exe = self._entries.get(key)
+            if exe is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                return exe
+        # verification runs unlocked: pure, possibly slow, and a racing
+        # duplicate verify of one new shape is cheaper than holding the
+        # cache lock across it
+        from ..analysis.verify import verify_plan
+
+        report = verify_plan(root)
+        if not report.ok:
+            with self._lock:
+                self.misses += 1
+                self.rejected += 1
+            raise PlanRejected(report.errors)
+        recipe = None
+        fusion_refused_flag = False
+        from ..analysis.rewrite import optimize_enabled, optimize_plan
+
+        if optimize_enabled():
+            try:
+                result = optimize_plan(root, report)
+                recipe = result.recipe
+                fusion_refused_flag = any(
+                    d.rule == "probe-fuse" for d in result.blocked
+                )
+            except Exception:
+                # The rewriter is advisory: a prover bug (verdict
+                # mismatch, unexpected node) must never cost an
+                # admission.  The shape runs unrewritten; the counter
+                # keeps the failure visible in stats().
+                with self._lock:
+                    self.optimize_failed += 1
+        exe = PlanExecutable(key, report, recipe)
+        with self._lock:
+            self.misses += 1
+            existing = self._entries.get(key)
+            if existing is not None:
+                return existing  # racing insert won; reuse it
+            self.lowered += 1
+            if fusion_refused_flag:
+                # refusals can exist with no recipe at all (nothing else
+                # applied): count them independent of recipe presence
+                self.fusion_refused += 1
+            if recipe is not None:
+                self.optimized += 1
+                if getattr(recipe, "join_order", ()):
+                    self.reordered += 1
+                if any(s[0] == "fuse_joins" for s in recipe.steps):
+                    self.fused += 1
+                if any(s[0] == "fuse_chain" for s in recipe.steps):
+                    self.fused_chains += 1
+            self._entries[key] = exe
+            while len(self._entries) > self.size:
+                self._entries.popitem(last=False)
+                self.evictions += 1
+        return exe
+
+    def execute(self, root: P.PlanNode):
+        """Admit (or hit) and execute in one call; the common serving
+        entry point."""
+        exe = self.executable_for(root)
+        return exe.run(root)
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            total = self.hits + self.misses
+            return {
+                "size": len(self._entries),
+                "bound": self.size,
+                "hits": self.hits,
+                "misses": self.misses,
+                "evictions": self.evictions,
+                "rejected": self.rejected,
+                "lowered": self.lowered,
+                "optimized": self.optimized,
+                "optimize_failed": self.optimize_failed,
+                "reordered": self.reordered,
+                "fused": self.fused,
+                "fused_chains": self.fused_chains,
+                "fusion_refused": self.fusion_refused,
+                "hit_rate": round(self.hits / total, 4) if total else None,
+            }

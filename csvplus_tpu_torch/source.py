@@ -20,9 +20,10 @@ stage of a chain is symbolic and the origin is a device table, the chain
 runs on the device executor; an opaque callback drops the chain to the
 host streaming path.
 
-This slice ports ``transform``, ``filter``, ``map``, ``validate``,
-``top``, ``drop_columns``, ``select_columns``, ``index_on``,
-``unique_index_on``, ``join``, ``on_device`` and the sinks ``to_csv``,
+Ported so far: ``transform``, ``filter``, ``map``, ``validate``,
+``top``, ``drop``, ``take_while``, ``drop_while``, ``drop_columns``,
+``select_columns``, ``index_on``, ``unique_index_on``, ``join``,
+``except_``, ``on_device``, ``explain`` and the sinks ``to_csv``,
 ``to_csv_file``, ``to_json``, ``to_json_file``, ``to_rows`` and
 ``to_device_table``.
 """
@@ -57,12 +58,23 @@ def iterate(rows: Sequence[Row], fn: RowFunc, clone: bool = True) -> None:
 class DataSource:
     """A lazy stream of Rows; call it with a row callback to execute."""
 
-    __slots__ = ("_run", "plan", "_plan_unsupported")
+    __slots__ = ("_run", "plan", "_plan_unsupported", "plan_note")
 
     def __init__(self, run: Callable[[RowFunc], None], plan: Any = None):
         self._run = run
         self.plan = plan  # symbolic plan node, or None (host-only chain)
         self._plan_unsupported = False  # memo: device plan cannot lower
+        self.plan_note = None  # why device execution stopped, if it did
+
+    def explain(self) -> str:
+        """The execution plan: the device plan when the chain is symbolic,
+        or where (and why) it fell to the host path."""
+        from .plan import explain as _explain
+
+        base = _explain(self.plan)
+        if self.plan is None and self.plan_note:
+            return f"{base}\n  device execution stopped at: {self.plan_note}"
+        return base
 
     def __call__(self, fn: RowFunc) -> None:
         """Push every row into *fn* (which may raise StopPipeline)."""
@@ -85,9 +97,9 @@ class DataSource:
 
             self._run(step)
 
-        from .plan import map_plan
+        from .plan import transform_plan
 
-        return _make(run, map_plan(self.plan, trans))
+        return _make(run, transform_plan(self.plan, trans), self, "transform", trans)
 
     def filter(self, pred: Callable[[Row], bool]) -> "DataSource":
         """Keep rows for which *pred* is true (csvplus.go:276-286)."""
@@ -101,7 +113,7 @@ class DataSource:
 
         from .plan import filter_plan
 
-        return _make(run, filter_plan(self.plan, pred))
+        return _make(run, filter_plan(self.plan, pred), self, "filter", pred)
 
     def map(self, mf: Callable[[Row], Row]) -> "DataSource":
         """Apply *mf* to every row (csvplus.go:290-296)."""
@@ -115,7 +127,7 @@ class DataSource:
 
         from .plan import map_plan
 
-        return _make(run, map_plan(self.plan, mf))
+        return _make(run, map_plan(self.plan, mf), self, "map", mf)
 
     def validate(
         self, vf: Callable[[Row], "None | bool"], message: str = "validation failed"
@@ -139,7 +151,7 @@ class DataSource:
 
             from .plan import validate_plan
 
-            return _make(run, validate_plan(self.plan, pred, message))
+            return _make(run, validate_plan(self.plan, pred, message), self, "validate", pred)
 
         def run(fn: RowFunc) -> None:
             def step(row: Row) -> None:
@@ -148,7 +160,7 @@ class DataSource:
 
             self._run(step)
 
-        return _make(run, None)
+        return _make(run, None, self, "validate", vf)
 
     def top(self, n: int) -> "DataSource":
         """Pass down at most *n* rows, then stop cleanly (csvplus.go:313-326)."""
@@ -167,7 +179,60 @@ class DataSource:
 
         from .plan import top_plan
 
-        return _make(run, top_plan(self.plan, n))
+        return _make(run, top_plan(self.plan, n), self)
+
+    def drop(self, n: int) -> "DataSource":
+        """Skip the first *n* rows (csvplus.go:329-342)."""
+
+        def run(fn: RowFunc) -> None:
+            counter = n
+
+            def step(row: Row) -> None:
+                nonlocal counter
+                if counter == 0:
+                    fn(row)
+                else:
+                    counter -= 1
+
+            self._run(step)
+
+        from .plan import drop_plan
+
+        return _make(run, drop_plan(self.plan, n), self)
+
+    def take_while(self, pred: Callable[[Row], bool]) -> "DataSource":
+        """Pass rows until *pred* is first false, then stop (csvplus.go:346-358)."""
+
+        def run(fn: RowFunc) -> None:
+            def step(row: Row) -> None:
+                if not pred(row):
+                    raise StopPipeline
+                fn(row)
+
+            self._run(step)
+
+        from .plan import take_while_plan
+
+        return _make(run, take_while_plan(self.plan, pred), self, "take_while", pred)
+
+    def drop_while(self, pred: Callable[[Row], bool]) -> "DataSource":
+        """Skip rows while *pred* holds, then pass everything (csvplus.go:362-374)."""
+
+        def run(fn: RowFunc) -> None:
+            yielding = False
+
+            def step(row: Row) -> None:
+                nonlocal yielding
+                if not yielding and pred(row):
+                    return
+                yielding = True
+                fn(row)
+
+            self._run(step)
+
+        from .plan import drop_while_plan
+
+        return _make(run, drop_while_plan(self.plan, pred), self, "drop_while", pred)
 
     # -- column projection (csvplus.go:492-525) ----------------------------
 
@@ -186,7 +251,7 @@ class DataSource:
 
         from .plan import drop_columns_plan
 
-        return _make(run, drop_columns_plan(self.plan, columns))
+        return _make(run, drop_columns_plan(self.plan, columns), self)
 
     def select_columns(self, *columns: str) -> "DataSource":
         """Keep exactly the listed columns; error if any is missing
@@ -202,7 +267,7 @@ class DataSource:
 
         from .plan import select_columns_plan
 
-        return _make(run, select_columns_plan(self.plan, columns))
+        return _make(run, select_columns_plan(self.plan, columns), self)
 
     # -- index / join (index.py) -------------------------------------------
 
@@ -225,12 +290,7 @@ class DataSource:
         listed stream columns match the index's key columns left to right
         (none given: the index's own key names).  On a name collision the
         stream row's value wins (csvplus.go:560, 571-583)."""
-        if not columns:
-            cols = list(index._impl.columns)
-        elif len(columns) > len(index._impl.columns):
-            raise ValueError("too many source columns in Join()")
-        else:
-            cols = list(columns)
+        cols = _resolve_join_columns(index, columns, "Join()")
 
         def run(fn: RowFunc) -> None:
             index.materialize()  # host probe loop: decode a lazy index once
@@ -244,7 +304,26 @@ class DataSource:
 
         from .plan import join_plan
 
-        return _make(run, join_plan(self.plan, index, cols))
+        return _make(run, join_plan(self.plan, index, cols), self, "join")
+
+    def except_(self, index, *columns: str) -> "DataSource":
+        """Anti-join: pass through rows whose key is NOT in *index*
+        (csvplus.go:585-608)."""
+        cols = _resolve_join_columns(index, columns, "Except()")
+
+        def run(fn: RowFunc) -> None:
+            index.materialize()  # host probe loop: decode a lazy index once
+
+            def step(row: Row) -> None:
+                values = row.select_values(*cols)
+                if not index._impl.has(values):
+                    fn(row)
+
+            self._run(step)
+
+        from .plan import except_plan
+
+        return _make(run, except_plan(self.plan, index, cols), self, "except")
 
     # -- device migration --------------------------------------------------
 
@@ -321,11 +400,15 @@ class DataSource:
     Map = map
     Validate = validate
     Top = top
+    Drop = drop
+    TakeWhile = take_while
+    DropWhile = drop_while
     DropColumns = drop_columns
     SelectColumns = select_columns
     IndexOn = index_on
     UniqueIndexOn = unique_index_on
     Join = join
+    Except = except_
     ToCsv = to_csv
     ToCsvFile = to_csv_file
     ToJSON = to_json
@@ -333,16 +416,51 @@ class DataSource:
     ToRows = to_rows
 
 
-def _make(run, plan) -> DataSource:
+_STAGE_BREAK_NOTES = {
+    "join": "join() against an index with no device copy "
+    "(call index.on_device() to keep the chain on device)",
+    "except": "except_() against an index with no device copy "
+    "(call index.on_device() to keep the chain on device)",
+    "validate": "validate() callbacks have no symbolic form",
+}
+
+
+def _make(run, plan, parent=None, stage: str = "", arg: Any = None) -> DataSource:
     """A combinator result: device plan execution when the chain is
-    symbolic, with *run* (the host streaming closure) as fallback."""
+    symbolic, with *run* (the host streaming closure) as fallback.  When
+    the stage breaks an existing device plan (an opaque argument, a
+    host-only index), the reason is recorded, and carried through later
+    stages, for :meth:`DataSource.explain`."""
     if plan is None:
-        return DataSource(run)
+        ds = DataSource(run)
+        if parent is not None:
+            if parent.plan is not None and stage:
+                ds.plan_note = _STAGE_BREAK_NOTES.get(
+                    stage, f"{stage}({_describe_arg(arg)}) is not symbolic"
+                )
+            else:
+                ds.plan_note = parent.plan_note  # keep the original reason
+        return ds
     from .columnar.exec import plan_runner
 
     ds = DataSource(run, plan=plan)
     ds._run = plan_runner(plan, fallback=run, owner=ds)
     return ds
+
+
+def _describe_arg(arg: Any) -> str:
+    if arg is None:
+        return ""
+    return getattr(arg, "__name__", None) or type(arg).__name__
+
+
+def _resolve_join_columns(index, columns: Sequence[str], what: str) -> List[str]:
+    """Join/Except column-list resolution (csvplus.go:546-550, 589-593)."""
+    if not columns:
+        return list(index._impl.columns)
+    if len(columns) > len(index._impl.columns):
+        raise ValueError(f"too many source columns in {what}")
+    return list(columns)
 
 
 def take_rows(rows: Iterable[Row]) -> DataSource:

@@ -1,11 +1,13 @@
-"""``chip_smoke.py``'s phases 4-7 rehearsed on the CPU at a small size.
+"""``chip_smoke.py``'s phases 4-8 rehearsed on the CPU at a small size.
 
 Each phase drives the port's public API on ``device="cpu"`` and holds it
 against the script's own numpy oracles (row counts, positional
 checksums, dictionaries, CSV and JSON bytes); the mask kernel's wrapper
 runs its plain version here, so the launch counts are not checked.  The
 streamed phases lower ``CSVPLUS_STREAM_MIN_BYTES`` to 1 and the chunk size
-to 64 KiB, so their small files stream in many chunks."""
+to 64 KiB, so their small files stream in many chunks.  Phase 8 (the
+plan cache, cascaded and fused) runs at the end of phase 5 on its
+streamed tables, and alone here on whole-file tables."""
 
 import importlib.util
 from pathlib import Path
@@ -28,7 +30,26 @@ PHASES = {
     "6-lane": (True, lambda C, d: C.run_lane_path(20_000, 2_000, 1, "cpu", d,
                                                   lane_threshold=5_000)),
     "7-host-dict": (True, lambda C, d: C.run_host_dict_path(30_000, 1, "cpu", d)),
+    "8-plancache": (False, lambda C, d: _plancache(C, d)),
 }
+
+
+def _plancache(C, workdir):
+    import csvplus_tpu_torch as T
+
+    data = C.generate(workdir, 20_000, 1)
+    orders = T.from_file(str(data["paths"]["orders"])).on_device("cpu")
+    _, cust, prod = C._index_dims(data, "cpu")
+    out = C.run_plancache_path(orders, cust, prod, data, "cpu", label="20K")
+    for leg in ("cascaded", "fused"):
+        st = out["legs"][leg]["stats"]
+        assert st["optimize_failed"] == 0 and st["hits"] == 3 and st["lowered"] == 3
+    assert out["legs"]["cascaded"]["stats"]["fused"] == 0
+    assert out["legs"]["fused"]["stats"]["fused"] == 3
+    assert "fused-unique-identity" in out["legs"]["fused"]["expand_paths"]
+    assert "multiway-unique-identity" in out["legs"]["fused"]["expand_paths"]
+    assert 0 < out["except"]["rows_out"] < 20_000
+    return out
 
 
 @pytest.mark.parametrize("phase", sorted(PHASES))
@@ -42,3 +63,5 @@ def test_chip_smoke_phase_rehearses_on_the_cpu(phase, tmp_path, monkeypatch):
         monkeypatch.delenv("CSVPLUS_STREAM_MIN_BYTES", raising=False)
     out = run(_chip_smoke(), tmp_path)
     assert out["mask_check"]["cases"] > 0 and out["mask_check"]["max_abs_err"] == 0
+    if phase == "5-streamed":
+        assert out["plancache"]["mask_check"]["max_abs_err"] == 0

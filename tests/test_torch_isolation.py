@@ -1,7 +1,8 @@
 """The port stands alone: ``csvplus_tpu_torch`` and ``chip_smoke.py``
 import neither ``jax`` nor any module of ``csvplus_tpu`` (on the
 whole-file and on the streamed ingest tier, with lane dictionaries and
-the vectorized CSV/JSON sinks), its ingest loads its own build of the
+the vectorized CSV/JSON sinks, and through the plan cache with every
+module the plan-analysis slice added), its ingest loads its own build of the
 native scanner and never the JAX package's, its device entry points
 refuse ``"cuda"`` where no card is present instead of running on the CPU
 (the streamed tier and the JSON sink's source too), and ``chip_smoke.py``
@@ -100,6 +101,42 @@ def test_streamed_lane_path_loads_no_jax_and_no_reference_module(tmp_path):
     assert out["tier"] == "streamed" and out["lanes"] is True
     assert out["rows"] > 0 and out["sums"] == 7
     assert out["foreign"] == []
+
+
+PLANCACHE_PATH = r"""
+import json, sys
+import csvplus_tpu_torch as T
+import csvplus_tpu_torch.analysis, csvplus_tpu_torch.obs.joinskew, csvplus_tpu_torch.obs.sketch
+import csvplus_tpu_torch.parallel.pjoin, csvplus_tpu_torch.serve, csvplus_tpu_torch.utils.env
+from csvplus_tpu_torch.serve import PlanCache
+
+orders = T.take_rows([T.Row({"k": f"c{i % 7}", "p": f"p{i % 5}", "q": str(i % 3)})
+                      for i in range(200)]).on_device("cpu")
+cust = T.take_rows([T.Row({"k": f"c{i}", "n": f"n{i}"}) for i in range(7)]).on_device("cpu")
+prod = T.take_rows([T.Row({"p": f"p{i}", "x": f"x{i}"}) for i in range(5)]).on_device("cpu")
+plan = orders.filter(T.Not(T.Like({"q": "1"}))).join(cust.unique_index_on("k")) \
+    .join(prod.unique_index_on("p")).except_(cust.top(2).unique_index_on("k")).plan
+cache = PlanCache()
+table = cache.execute(plan)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+             or m == "csvplus_tpu" or m.startswith("csvplus_tpu."))
+print(json.dumps({"rows": table.nrows, "stats": cache.stats(), "foreign": bad}))
+"""
+
+
+def test_plancache_path_loads_no_jax_and_no_reference_module(tmp_path):
+    """The slice's entry point, with every module it added (analysis,
+    serve, obs, parallel, utils.env) imported and a fused plan run."""
+    res = subprocess.run(
+        [sys.executable, "-c", PLANCACHE_PATH], cwd=tmp_path, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["foreign"] == []
+    assert out["rows"] > 0 and out["stats"]["optimize_failed"] == 0
+    assert out["stats"]["fused"] == 1
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
