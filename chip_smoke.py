@@ -81,19 +81,37 @@ Phases; any failure raises, exits non-zero and prints no result line:
    seeded subset of 100 product ids against its oracle.  Prints each
    run's admission, cold and warm seconds, the peak device memory over
    the inputs, the recipe and the expansion paths.
-9. A ``{"kernels": [...]}`` line, then the last line
+9. Point lookups and the serving tier (after phase 8, on the card):
+   (s1) BASELINE config 2 at its published size, ``bench_serve.py``'s
+   layout as a 1,000,000-row CSV (``cust_id = c<i*7 % 3n>``, all
+   distinct; ``v = <i>``): ``unique_index_on("cust_id")`` (the host
+   mirror tier), 10,000 uniform probes through a loop of single ``find``
+   calls and through ``find_many``, 60,000 through ``LookupServer`` from
+   32 callback-chained closed-loop clients.  (s2) phase 5's 50M-order
+   table: ``unique_index_on("order_id")`` and ``index_on("cust_id")``,
+   both over the 16M-key mirror cap (bounds from ``torch.searchsorted`` on
+   the card, rows from one device gather per batch, no host mirror);
+   60,000 ``order_id`` probes (1 % absent) through the server; 1,000
+   plans ``cust_idx.find(c).filter(Any(Like prod_id p1..p50))`` through
+   ``submit_plan``, 500 cold then 500 warm (all hits, nothing lowered).
+   Every answer equals a numpy oracle; the server never retries or
+   degrades and its breaker never opens; the plans launch the mask
+   kernel, and their results lie on the card.  Prints the index build
+   seconds, lookups/s of each route, p50/p99 and the mean batch, plans/s
+   and the peak device memory over the inputs.
+10. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Phases 4-8 also hold the mask kernel's wrapper against its plain version,
+Phases 4-9 also hold the mask kernel's wrapper against its plain version,
 bitwise, on the inputs of every call their filters made (recorded during
 the path's run and replayed after its launch count was read).
 
 Writes its CSVs under ``.chip_smoke_data/`` beside this file and removes
 them at the end.  Needs one card; imports nothing of JAX or csvplus_tpu.
-Phases 4-8 run on the CPU too, at a small size, as a rehearsal:
-``run_main_path``, ``run_streamed_path`` (with phase 8 at its end),
-``run_lane_path``, ``run_host_dict_path`` and ``run_plancache_path`` with
-``device="cpu"``.
+Phases 4-9 run on the CPU too, at a small size, as a rehearsal:
+``run_main_path``, ``run_streamed_path`` (with phases 8 and 9 at its
+end), ``run_lane_path``, ``run_host_dict_path``, ``run_plancache_path``
+and ``run_serving_path`` with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -785,9 +803,11 @@ def json_oracle(data: dict, keep: np.ndarray, limit: int) -> bytes:
     return b"[" + _lines(pieces)[1:] + b"]"
 
 
-def run_streamed_path(n_orders: int, seed: int, device: str, workdir: Path) -> dict:
+def run_streamed_path(n_orders: int, seed: int, device: str, workdir: Path,
+                      serve: "dict | None" = None) -> dict:
     """Phase 5: the streamed ingest tier at *n_orders*, both pipelines and
-    both file sinks, held against numpy oracles."""
+    both file sinks, held against numpy oracles; then phases 8 and 9 on
+    its tables (*serve* sizes phase 9, see :func:`run_serving_path`)."""
     import torch
 
     from csvplus_tpu_torch.columnar import typed
@@ -874,6 +894,7 @@ def run_streamed_path(n_orders: int, seed: int, device: str, workdir: Path) -> d
     del run, b_src
     gc.collect()  # phase 5's results; a source and its run function form a cycle
     out["plancache"] = run_plancache_path(orders, cust, prod, data, device)
+    out["serving"] = run_serving_path(orders, data, device, workdir, seed, **(serve or {}))
     return out
 
 
@@ -1329,6 +1350,312 @@ def run_plancache_path(orders, cust, prod, data: dict, device: str, label: str =
     return out
 
 
+# -- phase 9: point lookups and the serving tier ----------------------------
+
+N_SERVE_ROWS = 1_000_000  # BASELINE.json config 2: UniqueIndexOn(id) over 1M rows
+N_SERVE_FIND = 10_000
+N_SERVE_REQUESTS = 60_000
+N_SERVE_CLIENTS = 32
+N_SERVE_PLANS = 500  # cold, then as many warm
+N_PLAN_PRODUCTS = 50  # the plans' filter: Any(Like prod_id p1..p50)
+
+
+def _serve_csv(workdir: Path, n: int) -> "tuple[Path, np.ndarray]":
+    """``bench_serve.py``'s index layout as a CSV: ``cust_id = "c" +
+    str(i * 7 % 3n)`` (all distinct) and ``v = str(i)``."""
+    ids = np.arange(n, dtype=np.int64) * 7 % (3 * n)
+    path = workdir / "serve.csv"
+    with open(path, "wb") as f:
+        f.write(b"cust_id,v\n")
+        f.write(_lines([_lit(n, b"c"), _digits(ids), _lit(n, b","), _digits(np.arange(n)),
+                        _lit(n, b"\n")]))
+    return path, ids
+
+
+#: Seconds a server's stop may take to drain before the phase fails.
+STOP_TIMEOUT_S = 120.0
+
+
+@contextlib.contextmanager
+def _running(srv):
+    """Start *srv* and stop it on exit with a bounded drain, so a stalled
+    dispatcher fails the phase instead of running into the time limit."""
+    srv.start()
+    try:
+        yield srv
+    finally:
+        srv.stop(timeout=STOP_TIMEOUT_S)
+
+
+def _closed_loop(srv, probes, clients: int, timeout: float) -> "tuple[float, list]":
+    """*clients* closed-loop clients, one request in flight each, the next
+    submitted from the completion callback (on the dispatcher thread), as
+    ``bench_serve.py``'s headline scenario; returns (seconds, every
+    request's rows in probe order)."""
+    import threading
+
+    per = len(probes) // clients
+    results = [None] * (per * clients)
+    remaining = [per * clients]
+    errors = []
+    done = threading.Event()
+
+    def make_cb(slot: int, pos: int):
+        def cb(fut):
+            if fut.error is not None:
+                errors.append(fut.error)
+                done.set()
+                return
+            results[slot * per + pos] = fut.value
+            remaining[0] -= 1
+            if remaining[0] == 0:
+                done.set()
+            elif pos + 1 < per:
+                srv.submit(probes[slot * per + pos + 1], callback=make_cb(slot, pos + 1))
+        return cb
+
+    t0 = time.perf_counter()
+    for c in range(clients):
+        srv.submit(probes[c * per], callback=make_cb(c, 0))
+    if not done.wait(timeout):
+        raise AssertionError(f"closed loop: {remaining[0]} requests still open after {timeout}s")
+    secs = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"closed loop: a request failed: {errors[0]!r}")
+    return secs, results
+
+
+def _check_rows(got, want, what: str) -> None:
+    """Each request's rows against its oracle rows (dicts, in order)."""
+    for i, (rows, exp) in enumerate(zip(got, want)):
+        if [dict(r) for r in rows] != exp:
+            raise AssertionError(f"{what}: request {i}: {[dict(r) for r in rows][:3]} != "
+                                 f"{exp[:3]}")
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} answers for {len(want)} requests")
+
+
+def _check_server_clean(srv, what: str) -> dict:
+    """The recovery ladder never engaged: no retry, no degraded lookup,
+    no failure, the breaker closed and never opened."""
+    snap = srv.snapshot()
+    br = srv.breaker.snapshot()
+    if snap["degraded"] or snap["retried"] or snap["failed"] or snap["expired"]:
+        raise AssertionError(f"{what}: degraded {snap['degraded']}, retried {snap['retried']}, "
+                             f"failed {snap['failed']}, expired {snap['expired']}")
+    if br["state"] != "closed" or br["opened_total"] != 0:
+        raise AssertionError(f"{what}: breaker {br}")
+    return {"latency": snap["latency"], "batch": snap["batch"], "breaker": br,
+            "degraded": snap["degraded"], "retried": snap["retried"],
+            "completed": snap["completed"]}
+
+
+def _served(srv, probes, want, clients: int, what: str) -> dict:
+    secs, got = _closed_loop(srv, probes, clients, timeout=600.0)
+    _check_rows(got, want[: len(got)], what)
+    snap = _check_server_clean(srv, what)
+    out = {"requests": len(got), "seconds": secs, "lookups_per_s": len(got) / secs, **snap}
+    lat, batch = snap["latency"], snap["batch"]
+    log(f"{what}: {len(got):,} requests from {clients} closed-loop clients in {secs:.3f}s "
+        f"({len(got) / secs:,.0f} lookups/s), p50 {lat['p50_ms']} ms, p99 {lat['p99_ms']} ms, "
+        f"mean batch {batch['mean']}; == oracle; degraded 0, retried 0, breaker "
+        f"{snap['breaker']['state']} (opened {snap['breaker']['opened_total']})")
+    return out
+
+
+def _no_mirrors(idx, what: str) -> None:
+    dev = idx._impl.dev
+    built = [name for name, col in dev.table.columns.items()
+             if getattr(col, "_codes_host", None) is not None
+             or getattr(col, "_values_host", None) is not None]
+    if getattr(dev, "_packed_host", None) is not None or built or not idx._impl.is_lazy:
+        raise AssertionError(f"{what}: a host mirror was built (keys or columns {built})")
+
+
+def run_serving_path(orders, data: dict, device: str, workdir: Path, seed: int,
+                     n_rows: int = N_SERVE_ROWS, n_find: int = N_SERVE_FIND,
+                     n_requests: int = N_SERVE_REQUESTS, n_plans: int = N_SERVE_PLANS,
+                     clients: int = N_SERVE_CLIENTS, cap: "int | None" = None) -> dict:
+    """Phase 9: point lookups and the serving tier.
+
+    (s1) BASELINE config 2: a unique index on ``cust_id`` over *n_rows*
+    rows from a CSV, under the mirror cap (host mirrors); *n_find*
+    uniform probes through a loop of single ``find`` calls and through
+    ``find_many``, then *n_requests* through ``LookupServer`` from
+    *clients* closed-loop clients.  (s2) phase 5's *orders* table, over
+    the cap: ``unique_index_on("order_id")`` and ``index_on("cust_id")``
+    (bounds from the device search, rows from one gather per batch, no
+    host mirror); *n_requests* ``order_id`` probes (1 % absent) through
+    the server; 2 x *n_plans* plans ``cust_idx.find(c).filter(Any(Like
+    prod_id p1..p50))`` through ``submit_plan``, cold then warm.  Every
+    answer equals a numpy oracle; the recovery ladder must never engage;
+    the mask kernel launches in the plans and replays bitwise.  *cap*
+    patches ``DeviceIndex.POINT_MIRROR_MAX_KEYS`` for (s2) only (the CPU
+    rehearsal's small tables)."""
+    import torch
+
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.ops.join import DeviceIndex
+    from csvplus_tpu_torch.serve import LookupServer
+
+    cuda = device == "cuda"
+    rng = np.random.default_rng(seed + 9)
+    out = {}
+    t_phase = time.perf_counter()
+
+    # (s1) BASELINE config 2 at its published size: the mirror tier
+    path, ids = _serve_csv(workdir, n_rows)
+    src = T.from_file(str(path)).on_device(device)
+    t0 = time.perf_counter()
+    idx = src.unique_index_on("cust_id").sync()
+    t_build = time.perf_counter() - t0
+    table = idx._impl.dev.table
+    if table.nrows * len(table.columns) > DeviceIndex.POINT_MIRROR_MAX_KEYS:
+        raise AssertionError("(s1) is over the mirror cap")
+
+    def want_s1(sel):
+        return [[{"cust_id": f"c{ids[i]}", "v": str(i)}] for i in sel]
+
+    def fresh_lru():
+        table._mirror_lru = None  # each timed pass decodes from the mirrors
+
+    warm = rng.integers(0, n_rows, 100)
+    T.to_rows_many(idx.find_many([f"c{ids[i]}" for i in warm]))  # the one-time mirror downloads
+    sel = rng.integers(0, n_rows, n_find)
+    probes = [f"c{ids[i]}" for i in sel]
+    want = want_s1(sel)
+    fresh_lru()
+    t0 = time.perf_counter()
+    seq = [idx.find(p).to_rows() for p in probes]
+    t_seq = time.perf_counter() - t0
+    _check_rows(seq, want, "(s1) sequential find")
+    fresh_lru()
+    t0 = time.perf_counter()
+    many = T.to_rows_many(idx.find_many(probes))
+    t_many = time.perf_counter() - t0
+    _check_rows(many, want, "(s1) find_many")
+    s1 = {"rows": n_rows, "build_s": t_build, "find_lookups_per_s": n_find / t_seq,
+          "find_many_lookups_per_s": n_find / t_many}
+    log(f"(s1) {n_rows:,}-row unique index on cust_id built in {t_build:.3f}s; "
+        f"{n_find:,} probes: sequential find {n_find / t_seq:,.0f} lookups/s, find_many "
+        f"{n_find / t_many:,.0f} lookups/s; both == oracle")
+    sel = rng.integers(0, n_rows, n_requests)
+    fresh_lru()
+    with _running(LookupServer(idx)) as srv:
+        s1["server"] = _served(srv, [f"c{ids[i]}" for i in sel], want_s1(sel), clients,
+                               "(s1) server")
+    out["s1"] = s1
+    del src, idx, table, seq, many
+    gc.collect()
+
+    # (s2) over the cap, on phase 5's table
+    old_cap = DeviceIndex.POINT_MIRROR_MAX_KEYS
+    if cap is not None:
+        DeviceIndex.POINT_MIRROR_MAX_KEYS = cap
+    try:
+        n = data["n"]
+        if n <= DeviceIndex.POINT_MIRROR_MAX_KEYS:
+            raise AssertionError(f"(s2) {n} keys are not over the mirror cap")
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() if cuda else None
+        t0 = time.perf_counter()
+        order_idx = orders.unique_index_on("order_id").sync()
+        t_order = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cust_idx = orders.index_on("cust_id").sync()
+        t_cust = time.perf_counter() - t0
+        log(f"(s2) {n:,}-order indexes: unique_index_on(order_id) {t_order:.3f}s, "
+            f"index_on(cust_id) {t_cust:.3f}s")
+        cust, prod, qty = data["cust"], data["prod"], data["qty"]
+
+        def order_row(i):
+            return {"order_id": f"o{i}", "cust_id": f"c{cust[i]}", "prod_id": f"p{prod[i]}",
+                    "qty": str(qty[i])}
+
+        sel = rng.integers(0, n, n_requests)
+        absent = np.arange(0, n_requests, 100)  # 1 % of the probes miss
+        probes = [f"o{i}" for i in sel]
+        want = [[order_row(i)] for i in sel]
+        for j, k in enumerate(absent):
+            probes[k] = f"o{n + j}"
+            want[k] = []
+        with _running(LookupServer(order_idx)) as srv:
+            s2 = {"build_order_id_s": t_order, "build_cust_id_s": t_cust,
+                  "server": _served(srv, probes, want, clients, "(s2) order_id server")}
+
+        # plans: a Lookup leaf under a mask-kernel filter, cold then warm
+        chosen = rng.integers(0, N_CUST, 2 * n_plans)
+        pred = T.Any(*[T.Like({"prod_id": f"p{i}"}) for i in range(1, N_PLAN_PRODUCTS + 1)])
+        rows = np.flatnonzero(np.isin(cust, chosen))
+        rows = rows[np.argsort(cust[rows], kind="stable")]  # the index's stable key order
+        lo = np.searchsorted(cust[rows], chosen, side="left")
+        hi = np.searchsorted(cust[rows], chosen, side="right")
+        want = []
+        for a, b in zip(lo, hi):
+            r = rows[a:b]
+            r = r[(prod[r] >= 1) & (prod[r] <= N_PLAN_PRODUCTS)]
+            want.append([order_row(i) for i in r])
+        t0 = time.perf_counter()
+        plans = [cust_idx.find(f"c{c}").filter(pred).plan for c in chosen]
+        t_find = time.perf_counter() - t0
+        if not all(type(p.child).__name__ == "Lookup" for p in plans):
+            raise AssertionError("(s2) a find result carries no Lookup leaf")
+        passes = {}
+        with recorded_mask_calls() as calls:
+            with _running(LookupServer(cust_idx)) as srv:
+                M.launches = 0  # the plans' run starts here
+                for name, chunk in (("cold", plans[:n_plans]), ("warm", plans[n_plans:])):
+                    before = srv.plancache.stats()
+                    t0 = time.perf_counter()
+                    futs = [srv.submit_plan(p) for p in chunk]
+                    tables = [f.result(timeout=600.0) for f in futs]
+                    secs = time.perf_counter() - t0
+                    after = srv.plancache.stats()
+                    passes[name] = {"plans": len(chunk), "seconds": secs,
+                                    "plans_per_s": len(chunk) / secs,
+                                    "hits": after["hits"] - before["hits"],
+                                    "lowered": after["lowered"] - before["lowered"]}
+                    for t in tables:
+                        for c in t.columns.values():
+                            if c.storage.device.type != device:
+                                raise AssertionError(f"(s2) {name} plan result on "
+                                                     f"{c.storage.device}")
+                    lo_ = 0 if name == "cold" else n_plans
+                    _check_rows([t.to_rows() for t in tables], want[lo_:lo_ + len(chunk)],
+                                f"(s2) {name} plans")
+                    del tables, futs
+                launches = M.launches  # ... and ends here
+                plans_snap = _check_server_clean(srv, "(s2) plans")
+        if passes["warm"]["hits"] != n_plans or passes["warm"]["lowered"] != 0:
+            raise AssertionError(f"(s2) the warm plan pass was not all hits: {passes['warm']}")
+        if launches <= 0 and cuda:
+            raise AssertionError("(s2) the plans never launched the mask kernel")
+        peak = torch.cuda.max_memory_allocated() - base if cuda else None
+        _no_mirrors(order_idx, "(s2) unique index on order_id")
+        _no_mirrors(cust_idx, "(s2) index on cust_id")
+        s2.update({"plan_find_s": t_find, "plans": passes, "plan_server": plans_snap,
+                   "launches": launches, "peak_device_bytes_over_inputs": peak,
+                   "input_device_bytes": base})
+        log(f"(s2) {2 * n_plans} plans find(c).filter(Any(Like prod_id p1..p{N_PLAN_PRODUCTS})) "
+            f"(finds {t_find:.2f}s): cold {passes['cold']['plans_per_s']:,.0f} plans/s, warm "
+            f"{passes['warm']['plans_per_s']:,.0f} plans/s (all hits, lowered flat); mask "
+            f"kernel launches {launches}; == oracle; results on {device}; no host mirror; "
+            f"peak device memory {peak} bytes over the inputs' {base}")
+        out["s2"] = s2
+        del order_idx, cust_idx, plans
+        gc.collect()
+    finally:
+        DeviceIndex.POINT_MIRROR_MAX_KEYS = old_cap
+    out["mask_check"] = check_path_masks(calls, "serving plans")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 9 (serving) {out['seconds']:.1f}s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20160914)
@@ -1379,8 +1706,9 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     plancache = streamed.pop("plancache")
+    serving = streamed.pop("serving")
     paths = {"10M native-encoded": main_path, "50M streamed": streamed,
-             "50M plan cache": plancache,
+             "50M plan cache": plancache, "serving": serving,
              "14M lane dictionary": lane, "13M host dictionary": host_dict}
     path_cases = sum(p["mask_check"]["cases"] for p in paths.values())
     log(f"mask kernel == plain version, bitwise, in {mask['cases']} matrix cases and "
@@ -1392,9 +1720,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "csvplus_tpu_torch/csrc/mask.cu",
         "replaces": "csvplus_tpu/ops/pallas_mask.py:41",
-        # the slice's main path: the 50M-order pipelines through the
-        # plan cache with its defaults (the fused leg)
-        "launches": plancache["launches"],
+        # the slice's main path: the serving phase's plans, a Lookup
+        # leaf under a mask-kernel filter through LookupServer.submit_plan
+        "launches": serving["launches"],
         "launches_by_path": {
             **{name: p["launches"] for name, p in paths.items()},
             **{f"50M plan cache {leg}": v["launches"] for leg, v in plancache["legs"].items()},
@@ -1411,6 +1739,7 @@ def main(argv=None) -> int:
     log("main path phases " + json.dumps(main_path))
     log("streamed path phases " + json.dumps(streamed))
     log("plan cache path phases " + json.dumps(plancache))
+    log("serving path phases " + json.dumps(serving))
     log("lane path phases " + json.dumps(lane))
     log("host dictionary path phases " + json.dumps(host_dict))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")

@@ -18,6 +18,9 @@ Device entry points run on ``"cuda"`` unless the caller asks for
     prod = csvplus.from_file("products.csv").on_device().unique_index_on("prod_id")
     rows = orders.filter(csvplus.Like({"qty": "1"})) \
         .join(cust, "cust_id").join(prod).to_rows()
+
+Point lookups batch through ``Index.find_many``, and concurrent callers
+share batches through ``csvplus_tpu_torch.serve.LookupServer``.
 """
 
 from .errors import CsvPlusError, DataSourceError, StopPipeline
@@ -25,6 +28,7 @@ from .row import ConversionError, MissingColumnError, Row, merge_rows
 from .source import DataSource, RowFunc, take, take_rows
 from .reader import Reader, from_file, from_read_closer, from_reader
 from .index import Index, create_index, create_unique_index
+from .sinks import to_rows_many
 from .predicates import All, Any_, Like, Not, Predicate
 from .exprs import Rename, SetValue, Update
 
@@ -35,6 +39,7 @@ FromFile = from_file
 FromReader = from_reader
 FromReadCloser = from_read_closer
 Any = Any_
+ToRowsMany = to_rows_many
 
 __all__ = [
     "Row",
@@ -54,6 +59,7 @@ __all__ = [
     "from_read_closer",
     "create_index",
     "create_unique_index",
+    "to_rows_many",
     "Predicate",
     "All",
     "Any",
@@ -69,4 +75,5 @@ __all__ = [
     "FromFile",
     "FromReader",
     "FromReadCloser",
+    "ToRowsMany",
 ]

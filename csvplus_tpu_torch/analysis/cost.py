@@ -238,6 +238,8 @@ def estimate_plan(
             bucket[name] = _placement_bucket(col)
     else:
         rows = DEFAULT_ROWS
+    if isinstance(leaf, P.Lookup):
+        rows = float(max(0, leaf.upper - leaf.lower))
     replicated = 0.0
 
     def snapshot(pos: int, sel: Optional[float], note: str) -> CostEstimate:
@@ -661,10 +663,14 @@ def choose_fusion(
         except TypeError:
             stored = nrows
     padded_leaf = table is not None and stored != nrows
+    partial_lookup = isinstance(leaf, P.Lookup) and (
+        leaf.lower != 0 or leaf.upper != nrows
+    )
     narrowed_before = any(
         facts[p].multiplicity == PV.NARROW for p in range(1, start)
     )
-    if not ("filter" in ops or padded_leaf or narrowed_before):
+    if not ("filter" in ops or padded_leaf or partial_lookup
+            or narrowed_before):
         out.update({"chosen": "staged",
                     "note": "identity stream: staged materialize is free"})
         return out

@@ -130,7 +130,7 @@ def stage_facts(pos: int, node: P.PlanNode) -> StageFacts:
     """Provenance facts for chain position *pos* (structural only)."""
     label = P.stage_label(pos, node)
     op = type(node).__name__
-    if isinstance(node, P.Scan):
+    if isinstance(node, (P.Scan, P.Lookup)):
         return StageFacts(label, op, _EMPTY)
     if isinstance(node, P.Filter):
         return StageFacts(label, op, _pred_reads(node.pred),

@@ -686,8 +686,14 @@ class _Verifier:
     def run(self, root: P.PlanNode) -> PlanReport:
         chain = P.linearize(root)
         scan = chain[0]
-        assert isinstance(scan, P.Scan)
+        assert isinstance(scan, (P.Scan, P.Lookup))
         state = scan_state(scan.table)
+        if isinstance(scan, P.Lookup):
+            # the leaf is a statically-known [lower, upper) row range of
+            # the index table: its cardinality is exact, not the table's
+            state = state.with_card(
+                Card.NONEMPTY if scan.upper > scan.lower else Card.EMPTY
+            )
         self.report.states.append(state)
         n_stages = len(chain) - 1
         for pos, node in enumerate(chain[1:], start=1):

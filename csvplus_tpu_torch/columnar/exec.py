@@ -2,7 +2,9 @@
 
 Port of ``csvplus_tpu/columnar/exec.py``.  It walks a plan chain
 (:mod:`csvplus_tpu_torch.plan`) rooted at a ``Scan`` of a
-:class:`~csvplus_tpu_torch.columnar.table.DeviceTable`:
+:class:`~csvplus_tpu_torch.columnar.table.DeviceTable`, or at a
+``Lookup`` (one contiguous row range of an index's sorted table, the
+leaf of ``Index.find``/``find_many`` results):
 
 * ``Filter`` -> boolean mask (:mod:`..ops.filter`, through the fused mask
   kernel) and a compaction of the selection vector;
@@ -39,6 +41,7 @@ import torch
 
 from .. import plan as P
 from ..errors import CsvPlusError, DataSourceError
+from ..resilience import faults
 from ..row import MissingColumnError, Row
 from .table import DeviceTable, StringColumn, merge_with_fallback
 
@@ -134,7 +137,26 @@ def execute_plan_view(root: P.PlanNode, preverified: bool = False) -> _View:
             raise UnsupportedPlan("Validate is device-lowered only as last stage")
     leaf = stages[0]
     table: DeviceTable = leaf.table
-    view = _scan_view(table, scan_base=table.row_base)
+    if isinstance(leaf, P.Lookup):
+        # a Scan restricted to a statically-known contiguous row range:
+        # the selection starts as arange(lower, upper) over the index's
+        # sorted table; every downstream stage lowers unchanged
+        view = _View(
+            dict(table.columns),
+            torch.arange(leaf.lower, leaf.upper, dtype=torch.int64, device=table.device),
+            table.device,
+            table.nrows,
+            # host parity: streaming a find result numbers rows 0-based
+            # within the matched slice, so shift the base by -lower
+            scan_base=table.row_base - leaf.lower,
+            identity=leaf.lower == 0 and leaf.upper == table.nrows,
+        )
+    else:
+        view = _scan_view(table, scan_base=table.row_base)
+    # fault site: a transient raise here fails the whole execution before
+    # any stage runs; the serving tier's retry re-executes the cached
+    # executable
+    faults.inject("exec:device")
     for node in stages[1:]:
         view = _exec_stage(view, node)
     return view
@@ -167,8 +189,12 @@ def _exec_stage(view: _View, node: P.PlanNode) -> _View:
     elif isinstance(node, P.Validate):
         bad = ~_sel_mask(view, node.pred)
         # one scalar transfer on the happy path: the first failing
-        # position, or -1
-        first = int(torch.where(bad.any(), torch.argmax(bad.to(torch.uint8)), -1).item())
+        # position, or -1 (an empty selection has nothing to check, and
+        # torch's argmax refuses an empty tensor)
+        first = (
+            int(torch.where(bad.any(), torch.argmax(bad.to(torch.uint8)), -1).item())
+            if view.sel.shape[0] else -1
+        )
         if first >= 0:
             rowno = view.scan_base + int(view.sel[first].item())
             # deferred: it fires only if streaming reaches row `first`

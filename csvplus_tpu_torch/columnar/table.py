@@ -30,12 +30,14 @@ back to the CPU quietly.
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional, Sequence
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..row import Row
+from ..utils.env import env_int
 
 ABSENT = -1
 
@@ -167,6 +169,7 @@ class StringColumn:
         self._dictionary = dictionary
         self._has_absent = _has_absent  # lazy cache: any absent cell?
         self._str_dict: "np.ndarray | None" = None  # lazy cache: decoded dict
+        self._codes_host: "np.ndarray | None" = None  # lazy cache: host codes
         if _lane_state is not None:
             self._lane_state = _lane_state
         elif dev_dictionary is not None:
@@ -318,6 +321,15 @@ class StringColumn:
             torch.zeros(n, dtype=torch.int32, device=device),
             _has_absent=False,
         )
+
+    def codes_host(self) -> np.ndarray:
+        """Host mirror of the code array (one download, cached).  Point
+        lookups on a device-lazy index decode matched ranges from it in
+        numpy: one O(n) transfer buys lookups with no device round trip."""
+        if self._codes_host is None:
+            self._ensure_sorted_lanes()  # the mirror must be post-remap
+            self._codes_host = self.codes.cpu().numpy()
+        return self._codes_host
 
     def dictionary_str(self) -> np.ndarray:
         """The dictionary as python-str values (decoded lazily, cached)."""
@@ -491,6 +503,9 @@ class DeviceTable:
         # the streamed tier's accounting: {"scan_wait": s, "place": s,
         # "chunks": n, "workers": K}; None for the other tiers
         self.ingest_seconds = None
+        # serializes the mirror-decode LRU (rows_from_mirror_many): even
+        # a cache hit reorders the OrderedDict, so every access holds it
+        self._mirror_lock = threading.Lock()
 
     @classmethod
     def from_pylists(
@@ -549,6 +564,13 @@ class DeviceTable:
     def short_desc(self) -> str:
         return f"{self.nrows}x{len(self.columns)}[{','.join(self.columns)}]"
 
+    def sync(self) -> "DeviceTable":
+        """Wait until the card has finished the work queued for this
+        table's device (a no-op on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
     def gather(self, sel: torch.Tensor) -> "DeviceTable":
         cols = {n: c.gather(sel) for n, c in self.columns.items()}
         return DeviceTable(cols, int(sel.shape[0]), self.device)
@@ -575,6 +597,91 @@ class DeviceTable:
                     row[name] = v
             out.append(row)
         return out
+
+    def rows_from_mirror(self, lower: int, upper: int) -> List[Row]:
+        """Decode the row range [lower, upper) from host mirrors of the
+        columns (``codes_host`` / ``values_host``): after one download
+        per column, every find is numpy work with no device call."""
+        return self.rows_from_mirror_many([(lower, upper)])[0]
+
+    # Decoded mirror blocks are cached per (lower, upper) range up to this
+    # many rows; repeated probes of hot keys then skip the decode.  Read
+    # per call (``CSVPLUS_MIRROR_LRU_ROWS``).
+    MIRROR_LRU_ROWS_DEFAULT = 65536
+
+    def _mirror_lru_cap(self) -> int:
+        return env_int("CSVPLUS_MIRROR_LRU_ROWS", self.MIRROR_LRU_ROWS_DEFAULT)
+
+    def rows_from_mirror_many(
+        self, bounds: Sequence[Tuple[int, int]]
+    ) -> List[List[Row]]:
+        """Batched :meth:`rows_from_mirror`: ONE gather + decode per
+        column over the union of all requested ranges, split back into
+        per-range row blocks, with a bounded LRU over decoded blocks.
+
+        Returned blocks share Row objects with the cache (and across
+        duplicate ranges), as the host tier's ``rows[lower:upper]``
+        slices do; every delivery path clones.  Thread-safe: the whole
+        call holds ``_mirror_lock``, so concurrent callers get decodes
+        equal to the serial order."""
+        with self._mirror_lock:
+            return self._rows_from_mirror_many_locked(bounds)
+
+    def _rows_from_mirror_many_locked(
+        self, bounds: Sequence[Tuple[int, int]]
+    ) -> List[List[Row]]:
+        lru = getattr(self, "_mirror_lru", None)
+        if lru is None:
+            lru = self._mirror_lru = OrderedDict()
+            self._mirror_lru_rows = 0
+        out: List[Optional[List[Row]]] = [None] * len(bounds)
+        misses: Dict[Tuple[int, int], List[int]] = {}
+        for i, (lo, hi) in enumerate(bounds):
+            lo, hi = int(lo), int(hi)
+            if hi <= lo:
+                out[i] = []
+                continue
+            got = lru.get((lo, hi))
+            if got is not None:
+                lru.move_to_end((lo, hi))
+                out[i] = got
+            else:
+                misses.setdefault((lo, hi), []).append(i)
+        if misses:
+            ranges = list(misses)
+            starts = np.array([r[0] for r in ranges], dtype=np.int64)
+            sizes = np.array([r[1] - r[0] for r in ranges], dtype=np.int64)
+            # one arange re-based per range (an arange + concatenate per
+            # range is pure overhead when most matches are single rows)
+            offsets = np.concatenate(([0], np.cumsum(sizes)[:-1]))
+            idx = np.arange(int(sizes.sum()), dtype=np.int64) + np.repeat(starts - offsets, sizes)
+            decoded = {}
+            for name, col in self.columns.items():
+                if col.kind == "int":
+                    decoded[name] = col.decode_take(idx)
+                else:
+                    decoded[name] = col.decode_codes(col.codes_host()[idx])
+            names = list(decoded)
+            off = 0
+            for r in ranges:
+                size = r[1] - r[0]
+                block = [Row() for _ in range(size)]
+                for name in names:
+                    vals = decoded[name]
+                    for j in range(size):
+                        v = vals[off + j]
+                        if v is not None:
+                            block[j][name] = v
+                off += size
+                for i in misses[r]:
+                    out[i] = block
+                lru[r] = block
+                self._mirror_lru_rows += size
+            cap = self._mirror_lru_cap()
+            while self._mirror_lru_rows > cap and len(lru) > 1:
+                _, evicted = lru.popitem(last=False)
+                self._mirror_lru_rows -= len(evicted)
+        return out  # type: ignore[return-value]
 
     def iterate(self, fn) -> None:
         """Stream decoded rows (the escape hatch for opaque callbacks)."""

@@ -118,6 +118,22 @@ class IntColumn:
         d = self.formatted_host()
         return (np.char.decode(d, "utf-8") if d.size else np.empty(0, np.str_)).tolist()
 
+    def values_host(self) -> np.ndarray:
+        """Host mirror of the value lanes (one download, cached): the
+        point-lookup decodes then make no device call, like
+        ``StringColumn.codes_host``."""
+        got = getattr(self, "_values_host", None)
+        if got is None:
+            got = self._values_host = self.values.cpu().numpy()
+        return got
+
+    def decode_take(self, idx: np.ndarray) -> List[Optional[str]]:
+        """Rows at *idx* decoded off the host mirror (the batched lookup
+        engine's gather-then-decode path)."""
+        digits = self.values_host()[idx].astype(np.str_)
+        p = self.prefix.decode("utf-8")
+        return (np.char.add(p, digits) if p else digits).tolist()
+
     def equality_term(self, value: str):
         """The int32 target *value* equals on this column, or None when no
         cell can ever equal it (wrong prefix or a non-canonical suffix:
@@ -199,6 +215,12 @@ class IntColumn:
 
     def with_codes(self, codes: torch.Tensor):
         return self._demote().with_codes(codes)
+
+    def codes_host(self) -> np.ndarray:
+        return self._demote().codes_host()
+
+    def decode_codes(self, codes: np.ndarray) -> List[Optional[str]]:
+        return self._demote().decode_codes(codes)
 
     # A dense translation table is built when the build side's value range
     # is at most this multiple of its distinct count: one O(range) int32

@@ -1,9 +1,9 @@
 """Index: a sorted, materialized collection of Rows with O(log n) search.
 
-Port of the slice's part of ``csvplus_tpu/index.py`` (the reference's
-index, csvplus.go:610-920): building, the unique check, ``find``,
-``resolve_duplicates`` and ``on_device``.  Persistence, ``find_many`` and
-``sub_index`` are not ported yet.
+Port of ``csvplus_tpu/index.py`` (the reference's index,
+csvplus.go:610-920): building, the unique check, ``find``, the batched
+``find_many``, ``sub_index``, ``resolve_duplicates`` and ``on_device``.
+Persistence (``write_to``, ``load_index``) is not ported yet.
 
 Semantics kept: building an index materializes the source and checks
 every row has all key columns, with the reference's message; ``find``
@@ -13,13 +13,25 @@ columns (byte order, which Python's str order equals for UTF-8).
 An index built from a device-planned source is **device-resident and
 lazy**: the sort runs over dictionary codes on the device
 (:mod:`.ops.sort`), the unique check is one adjacent-equality reduction,
-``find`` searches the packed keys and decodes only the matching range,
-and host rows are decoded only when a host-only operation needs them.
+``find``/``find_many`` search the packed keys and decode only the
+matching ranges, and host rows are decoded only when a host-only
+operation needs them.
+
+Lookups run through ONE engine: ``find`` is ``find_many`` of one probe,
+and ``find_many`` is :meth:`IndexImpl.bounds_many` (one vectorized
+search per key tier, :meth:`~.ops.join.DeviceIndex.point_bounds_many`)
+then :meth:`IndexImpl.rows_for_bounds` (one decode over the union of the
+matched ranges: from host mirrors of the columns while the table holds
+at most ``POINT_MIRROR_MAX_KEYS`` cells, else one device gather per
+batch).  On a device index every result carries a
+:class:`~.plan.Lookup` plan, so a stage applied to it lowers to the
+device.
 """
 
 from __future__ import annotations
 
 import bisect
+import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -43,6 +55,12 @@ class IndexImpl:
         self._keys: Optional[List[Tuple[str, ...]]] = None
         self._probe_map: Optional[Dict[Tuple[str, ...], Tuple[int, int]]] = None
         self.dev = dev  # ops.join.DeviceIndex over the sorted columnar copy
+        # serializes the lazy builds (rows, key cache, probe map) under
+        # concurrent readers: the serving tier's threads would each pay
+        # the O(n) build.  Reentrant because keys -> rows nest.  Reads
+        # are safe concurrently; a writer mutating the index (rows
+        # setter, sort, dedup) under readers is a caller error.
+        self._lock = threading.RLock()
 
     @property
     def is_lazy(self) -> bool:
@@ -51,7 +69,9 @@ class IndexImpl:
     @property
     def rows(self) -> List[Row]:
         if self._rows is None:
-            self._rows = self.dev.table.to_rows()
+            with self._lock:
+                if self._rows is None:
+                    self._rows = self.dev.table.to_rows()
         return self._rows
 
     @rows.setter
@@ -67,10 +87,12 @@ class IndexImpl:
 
     @property
     def keys(self) -> List[Tuple[str, ...]]:
-        """Per-row key tuples, built lazily."""
+        """Per-row key tuples, built lazily (once, under the lock)."""
         if self._keys is None:
-            cols = self.columns
-            self._keys = [tuple(r[c] for c in cols) for r in self.rows]
+            with self._lock:
+                if self._keys is None:
+                    cols = self.columns
+                    self._keys = [tuple(r[c] for c in cols) for r in self.rows]
         return self._keys
 
     def sort(self) -> None:
@@ -96,29 +118,107 @@ class IndexImpl:
         return lower, upper
 
     def _ensure_probe_map(self) -> Dict[Tuple[str, ...], Tuple[int, int]]:
-        """Full-width key tuple -> [lower, upper), one O(n) sweep."""
-        if self._probe_map is None:
-            pm = {}
+        """Full-width key tuple -> [lower, upper), one O(n) sweep (once,
+        under the lock)."""
+        pm = self._probe_map
+        if pm is None:
+            with self._lock:
+                pm = self._probe_map
+                if pm is None:
+                    pm = {}
+                    keys = self.keys
+                    i, n = 0, len(keys)
+                    while i < n:
+                        j = i + 1
+                        while j < n and keys[j] == keys[i]:
+                            j += 1
+                        pm[keys[i]] = (i, j)
+                        i = j
+                    self._probe_map = pm
+        return pm
+
+    def bounds_many(self, probes: Sequence[Sequence[str]]) -> List[Tuple[int, int]]:
+        """Batched :meth:`bounds` — the search half of the lookup engine.
+
+        A device-lazy index takes ONE vectorized pass over the packed
+        keys (``DeviceIndex.point_bounds_many``).  A host index answers
+        full-width probes from the probe map and sweeps each prefix
+        width in sorted probe order, so the bisect window only narrows.
+        """
+        for p in probes:
+            if len(p) > len(self.columns):
+                raise ValueError("too many columns in Index.find()")
+        if self._rows is None and self.dev is not None and self.dev.supported:
+            return self.dev.point_bounds_many(probes)
+        n = len(self.rows)
+        full = len(self.columns)
+        out: List[Optional[Tuple[int, int]]] = [None] * len(probes)
+        by_k: Dict[int, List[int]] = {}
+        for i, p in enumerate(probes):
+            k = len(p)
+            if k == 0:
+                out[i] = (0, n)
+            elif k == full:
+                out[i] = self._ensure_probe_map().get(tuple(p), (0, 0))
+            else:
+                by_k.setdefault(k, []).append(i)
+        if by_k:
             keys = self.keys
-            i, n = 0, len(keys)
-            while i < n:
-                j = i + 1
-                while j < n and keys[j] == keys[i]:
-                    j += 1
-                pm[keys[i]] = (i, j)
-                i = j
-            self._probe_map = pm
-        return self._probe_map
+            for k, idxs in by_k.items():
+                idxs.sort(key=lambda i: tuple(probes[i]))
+                lo = 0
+                prev: Optional[Tuple[str, ...]] = None
+                prev_bounds = (0, 0)
+                for i in idxs:
+                    v = tuple(probes[i])
+                    if v == prev:
+                        out[i] = prev_bounds  # a duplicate probe
+                        continue
+                    lower = bisect.bisect_left(keys, v, lo=lo, key=lambda kt: kt[:k])
+                    upper = bisect.bisect_right(keys, v, lo=lower, key=lambda kt: kt[:k])
+                    out[i] = prev_bounds = (lower, upper)
+                    prev, lo = v, lower
+        return out  # type: ignore[return-value]
 
     def find_rows(self, values: Sequence[str]) -> List[Row]:
-        """Row range matching the key prefix (csvplus.go:870-891); a
-        device-lazy index decodes only that range."""
-        lower, upper = self.bounds(values)
+        """Row range matching the key prefix (csvplus.go:870-891), through
+        the batched engine; a device-lazy index decodes only that range."""
+        return self.find_rows_many([values])[0]
+
+    def find_rows_many(self, probes: Sequence[Sequence[str]]) -> List[List[Row]]:
+        """Batched :meth:`find_rows`: every bound in one pass
+        (:meth:`bounds_many`), then one decode over the union of the
+        matched ranges (:meth:`rows_for_bounds`)."""
+        return self.rows_for_bounds(self.bounds_many(probes))
+
+    def rows_for_bounds(self, bounds: Sequence[Tuple[int, int]]) -> List[List[Row]]:
+        """One row block per [lower, upper) range.
+
+        A device-lazy index decodes the matched ranges together: from
+        host mirrors of its columns (LRU-cached,
+        ``DeviceTable.rows_from_mirror_many``) while the table holds at
+        most ``POINT_MIRROR_MAX_KEYS`` cells, else with ONE device gather
+        and decode for the whole batch."""
         if self._rows is None and self.dev is not None:
-            if upper <= lower:
-                return []
-            return self.dev.table.to_rows(np.arange(lower, upper, dtype=np.int64))
-        return self.rows[lower:upper]
+            from .ops.join import DeviceIndex
+
+            table = self.dev.table
+            # gate on CELLS, not rows: the mirror downloads every column
+            cells = table.nrows * max(len(table.columns), 1)
+            if cells <= DeviceIndex.POINT_MIRROR_MAX_KEYS:
+                return table.rows_from_mirror_many(bounds)
+            out: List[List[Row]] = [[] for _ in bounds]
+            hit = [(i, int(lo), int(hi)) for i, (lo, hi) in enumerate(bounds) if hi > lo]
+            if hit:
+                idx = np.concatenate([np.arange(lo, hi, dtype=np.int64) for _, lo, hi in hit])
+                rows = table.to_rows(idx)
+                off = 0
+                for i, lo, hi in hit:
+                    out[i] = rows[off : off + (hi - lo)]
+                    off += hi - lo
+            return out
+        rows = self.rows
+        return [rows[lo:hi] for lo, hi in bounds]
 
     def has(self, values: Sequence[str]) -> bool:
         """True when any row matches the key prefix (csvplus.go:899-905)."""
@@ -162,6 +262,14 @@ class Index:
         _ = self._impl.rows
         return self
 
+    def sync(self) -> "Index":
+        """Wait until the device build (sort and gathers) has run; a
+        no-op for host indexes.  Without it the build's time lands in
+        whatever first touches the index."""
+        if self._impl.dev is not None:
+            self._impl.dev.table.sync()
+        return self
+
     def iterate(self, fn: RowFunc) -> None:
         """Iterate rows in key order, cloning each (csvplus.go:618-620)."""
         iterate(self._impl.rows, fn)
@@ -177,8 +285,52 @@ class Index:
 
     def find(self, *values: str) -> DataSource:
         """Source over the rows matching the key-value prefix
-        (csvplus.go:625-627)."""
-        return take_rows(self._impl.find_rows(values))
+        (csvplus.go:625-627); on a device index only the matching range
+        is decoded.  It is :meth:`find_many` of one probe."""
+        return self.find_many([values])[0]
+
+    def find_many(self, probes: Sequence) -> List[DataSource]:
+        """Batched :meth:`find`: one DataSource per key-prefix probe (a
+        bare string is a one-column prefix).  The batch runs through one
+        vectorized bounds search and one decode, and each result equals
+        the matching single ``find``.  On a supported device index every
+        result also carries a :class:`~.plan.Lookup` plan, so stages
+        applied to it keep lowering to the device."""
+        impl = self._impl
+        norm = [(p,) if isinstance(p, str) else tuple(p) for p in probes]
+        bounds = impl.bounds_many(norm)
+        groups = impl.rows_for_bounds(bounds)
+        if impl._rows is None and impl.dev is not None and impl.dev.supported:
+            from .plan import Lookup
+
+            dev_table = impl.dev.table
+            out = []
+            # the decoded blocks may be shared with the mirror LRU: every
+            # delivery path clones (iterate, the sinks' _rows_hint)
+            for rows, (lo, hi) in zip(groups, bounds):
+                src = DataSource(lambda fn, _rows=rows: iterate(_rows, fn))
+                src._rows_hint = rows
+                src.plan = Lookup(dev_table, lo, hi)
+                out.append(src)
+            return out
+        return [take_rows(rows) for rows in groups]
+
+    def sub_index(self, *values: str) -> "Index":
+        """Index of the rows matching the key prefix, keyed on the
+        remaining columns (csvplus.go:632-641); a device index gathers
+        the range on the device."""
+        impl = self._impl
+        if len(values) >= len(impl.columns):
+            raise ValueError("too many values in SubIndex()")
+        rest = impl.columns[len(values):]
+        if impl.is_lazy and impl.dev is not None and impl.dev.supported:
+            from .ops.join import DeviceIndex
+
+            lower, upper = impl.dev.point_bounds(list(values))
+            table = impl.dev.table
+            sel = torch.arange(lower, upper, dtype=torch.int64, device=table.device)
+            return Index(IndexImpl(None, rest, dev=DeviceIndex.build(table.gather(sel), rest)))
+        return Index(IndexImpl(impl.find_rows(values), rest))
 
     def resolve_duplicates(self, resolve: Resolver) -> None:
         """Resolve groups of rows with duplicate keys (csvplus.go:643-653).
@@ -230,6 +382,8 @@ class Index:
 
     OnDevice = on_device
     Find = find
+    FindMany = find_many
+    SubIndex = sub_index
     ResolveDuplicates = resolve_duplicates
 
 

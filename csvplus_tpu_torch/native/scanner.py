@@ -37,6 +37,7 @@ import numpy as np
 
 from ..csvio import ERR_BARE_QUOTE, ERR_FIELD_COUNT, ERR_QUOTE
 from ..errors import DataSourceError, map_error
+from ..obs.recompile import register_kernel
 from ..utils.env import env_int
 
 SOURCE = Path(__file__).resolve().parent / "scanner.cpp"
@@ -103,6 +104,22 @@ _SIGNATURES = {
 }
 
 
+@register_kernel("scanner.cpp")
+def _open_library():
+    """Build ``scanner.cpp`` if needed and load it (counted in
+    :mod:`..obs.recompile`)."""
+    path = build()
+    try:
+        lib = ctypes.CDLL(str(path))
+    except OSError as e:
+        raise RuntimeError(f"native scanner {path.name} cannot be loaded: {e}") from e
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
 def _load():
     """The loaded scanner library (built on first use).  Raises
     ``RuntimeError`` when it cannot be built or loaded."""
@@ -110,19 +127,9 @@ def _load():
     if _lib is not None:
         return _lib
     with _lock:
-        if _lib is not None:
-            return _lib
-        path = build()
-        try:
-            lib = ctypes.CDLL(str(path))
-        except OSError as e:
-            raise RuntimeError(f"native scanner {path.name} cannot be loaded: {e}") from e
-        for name, (restype, argtypes) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype = restype
-            fn.argtypes = argtypes
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = _open_library()
+        return _lib
 
 
 def scan_bytes(

@@ -1,0 +1,182 @@
+"""Crash flight recorder: a bounded in-memory ring of recent events,
+dumped atomically as a post-mortem artifact.  Copy of
+``csvplus_tpu/obs/flight.py``.
+
+The serving tier's terminal failure paths — ``_on_dispatcher_crash``,
+fatal fault classification in the retry ladder, a ``views:refresh``
+crash — each get one ``dump()`` call: the last N dispatch-cycle
+summaries, fault firings, compaction/WAL events, plus whatever the
+attached context providers report at dump time (metric registry
+samples, the server snapshot), written tmp → fsync → ``os.replace`` so
+a dump is either complete and parseable or absent (the IO001 rule).
+
+The ring is process-global by default (:data:`recorder`): storage seal
+/compaction events, armed fault firings, and serve cycle summaries all
+land in ONE timeline, so a dump answers "what was the process doing in
+the seconds before it died" without cross-referencing.
+
+Thread model: a monitor — ``note`` is a deque append under the
+instance lock (cheap enough for per-dispatch-cycle and per-delta-seal
+call sites).  ``dump`` snapshots the ring under the lock, then calls
+providers and writes the file OUTSIDE it; a provider that raises is
+recorded in the dump, never propagated — a flight recorder must not
+take the crashing process down a second way.
+
+Dump directory resolution: explicit ``dir`` argument, else
+``CSVPLUS_FLIGHT_DIR``, else the system temp dir.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import tempfile
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional, Tuple
+
+from ..utils.env import env_str
+
+__all__ = ["FlightRecorder", "recorder", "note", "attach", "dump"]
+
+#: Ring capacity: enough to cover several seconds of dispatch cycles
+#: plus the storage events between them, small enough that a dump stays
+#: a few-hundred-KB artifact.
+DEFAULT_CAPACITY = 512
+
+#: Dump schema version, bumped on shape changes (same contract as the
+#: serving-metrics snapshot).
+DUMP_SCHEMA_VERSION = 1
+
+
+def _default_dir() -> str:
+    return env_str("CSVPLUS_FLIGHT_DIR") or tempfile.gettempdir()
+
+
+class FlightRecorder:
+    """Bounded event ring + attached context providers + atomic dump."""
+
+    def __init__(self, capacity: int = DEFAULT_CAPACITY):
+        self.capacity = int(capacity)
+        self._lock = threading.Lock()
+        self._ring: deque = deque(maxlen=self.capacity)
+        self._seq = 0
+        self._dumps = 0
+        self._providers: Tuple[Tuple[str, Callable[[], object]], ...] = ()
+
+    # -- ingest ------------------------------------------------------------
+
+    def note(self, kind: str, **fields: object) -> None:
+        """Append one event to the ring: ``kind`` plus JSON-safe
+        fields, stamped with a sequence number and wall/monotonic
+        clocks.  One lock round, O(1)."""
+        t_wall = time.time()
+        t_mono = time.monotonic()
+        with self._lock:
+            self._seq += 1
+            self._ring.append((self._seq, t_wall, t_mono, kind, fields))
+
+    def attach(self, name: str, provider: Callable[[], object]) -> None:
+        """Register a zero-arg *provider* polled at dump time; its
+        return value lands under ``context[name]``.  Re-attaching a
+        name replaces the previous provider."""
+        with self._lock:
+            kept = tuple(p for p in self._providers if p[0] != name)
+            self._providers = kept + ((name, provider),)
+
+    # -- export ------------------------------------------------------------
+
+    def events(self) -> List[Dict[str, object]]:
+        """The ring as JSON-safe dicts, oldest first."""
+        with self._lock:
+            items = list(self._ring)
+        return [
+            {"seq": seq, "ts": ts, "mono": mono, "kind": kind, **fields}
+            for seq, ts, mono, kind, fields in items
+        ]
+
+    def snapshot(self) -> Dict[str, object]:
+        with self._lock:
+            return {
+                "capacity": self.capacity,
+                "events": len(self._ring),
+                "seq": self._seq,
+                "dumps": self._dumps,
+            }
+
+    def dump(
+        self,
+        reason: str,
+        error: Optional[BaseException] = None,
+        *,
+        dir: Optional[str] = None,
+    ) -> str:
+        """Write the post-mortem artifact atomically and return its
+        path.  The payload carries the ring, the dump reason/error, and
+        every attached provider's context (a failing provider becomes a
+        ``{"error": ...}`` stub in place of its context)."""
+        with self._lock:
+            self._dumps += 1
+            n = self._dumps
+            items = list(self._ring)
+            providers = self._providers
+        context: Dict[str, object] = {}
+        for name, provider in providers:
+            try:
+                context[name] = provider()
+            except Exception as perr:
+                context[name] = {
+                    "error": f"{type(perr).__name__}: {perr}"
+                }
+        payload = {
+            "schema_version": DUMP_SCHEMA_VERSION,
+            "reason": reason,
+            "error": (
+                {"type": type(error).__name__, "message": str(error)}
+                if error is not None
+                else None
+            ),
+            "ts": time.time(),
+            "pid": os.getpid(),
+            "events": [
+                {"seq": seq, "ts": ts, "mono": mono, "kind": kind, **fields}
+                for seq, ts, mono, kind, fields in items
+            ],
+            "context": context,
+        }
+        out_dir = dir if dir is not None else _default_dir()
+        path = os.path.join(
+            out_dir, f"csvplus_flight.{os.getpid()}.{n}.json"
+        )
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(payload, f, default=str)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        return path
+
+
+#: The process-global recorder every built-in call site notes into.
+recorder = FlightRecorder()
+
+
+def note(kind: str, **fields: object) -> None:
+    """Append one event to the process-global ring."""
+    recorder.note(kind, **fields)
+
+
+def attach(name: str, provider: Callable[[], object]) -> None:
+    """Attach a dump-time context provider to the global recorder."""
+    recorder.attach(name, provider)
+
+
+def dump(
+    reason: str,
+    error: Optional[BaseException] = None,
+    *,
+    dir: Optional[str] = None,
+) -> str:
+    """Dump the process-global ring; returns the artifact path."""
+    return recorder.dump(reason, error, dir=dir)

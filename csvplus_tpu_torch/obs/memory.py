@@ -1,0 +1,209 @@
+"""Memory watermark sampling and host facts.
+
+Copy of ``csvplus_tpu/obs/memory.py``, with the device side read from
+``torch.cuda`` instead of jax's device stats:
+
+* :func:`rss_mb` — CURRENT resident set (``/proc/self/statm``), the
+  sampler's input;
+* :func:`peak_rss_mb` — process-lifetime high watermark (``VmHWM``,
+  falling back to ``ru_maxrss``);
+* :func:`device_memory_stats` — per-card ``bytes_in_use`` /
+  ``peak_bytes_in_use`` (``torch.cuda.memory_allocated`` /
+  ``max_memory_allocated``) plus the caching allocator's
+  ``torch.cuda.memory_stats`` counters; ``{}`` with no card;
+* :func:`device_peak_bytes` — one card's allocator peak, ``None`` on the
+  CPU (nothing measured there);
+* :func:`watch_memory` — a background sampler attachable to any span:
+  it polls current RSS (and device peaks) while the body runs and
+  writes the observed watermark into the span's attrs on exit;
+* :func:`host_header` — the (host_cpus, device_count, platform) facts.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import threading
+import time
+from typing import Any, Dict, Iterator, Optional
+
+_PAGE_SIZE = os.sysconf("SC_PAGE_SIZE") if hasattr(os, "sysconf") else 4096
+
+
+def rss_mb() -> float:
+    """Current resident set size in MB (0.0 when unreadable)."""
+    try:
+        with open("/proc/self/statm") as f:
+            pages = int(f.read().split()[1])
+        return pages * _PAGE_SIZE / 1e6
+    except (OSError, ValueError, IndexError):
+        return 0.0
+
+
+def peak_rss_mb() -> float:
+    """Process-lifetime peak RSS in MB: ``VmHWM`` when procfs is
+    available, else ``ru_maxrss`` (which Linux reports in KB)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmHWM:"):
+                    return int(line.split()[1]) / 1e3
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        import resource
+
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e3
+    except Exception:
+        return 0.0
+
+
+def device_memory_stats() -> Dict[str, Dict[str, int]]:
+    """``{device: {bytes_in_use, peak_bytes_in_use, ...}}`` for every CUDA
+    card torch sees; ``{}`` with no card and on any failure — callers
+    must treat device stats as optional."""
+    out: Dict[str, Dict[str, int]] = {}
+    try:
+        import torch
+
+        if not torch.cuda.is_available():
+            return {}
+        for i in range(torch.cuda.device_count()):
+            stats = {
+                k: int(v)
+                for k, v in torch.cuda.memory_stats(i).items()
+                if isinstance(v, (int, float))
+            }
+            stats["bytes_in_use"] = int(torch.cuda.memory_allocated(i))
+            stats["peak_bytes_in_use"] = int(torch.cuda.max_memory_allocated(i))
+            out[f"cuda:{i}"] = stats
+    except Exception:
+        return {}
+    return out
+
+
+def device_peak_bytes(device=None) -> Optional[int]:
+    """The caching allocator's peak bytes on *device* (a CUDA device or
+    its name; the current card when omitted), or ``None`` for the CPU
+    and when no card is present."""
+    import torch
+
+    if device is not None and torch.device(device).type != "cuda":
+        return None
+    if not torch.cuda.is_available():
+        return None
+    return int(torch.cuda.max_memory_allocated(device))
+
+
+def host_header() -> Dict[str, Any]:
+    """The host facts a measurement carries: CPU count, CUDA card count
+    and platform."""
+    try:
+        import torch
+
+        devices = torch.cuda.device_count()
+        platform = "cuda" if devices else "cpu"
+    except Exception:
+        devices, platform = None, None
+    return {
+        "host_cpus": os.cpu_count() or 1,
+        "device_count": devices,
+        "platform": platform,
+    }
+
+
+class MemoryWatermark:
+    """Background RSS/device-memory sampler.
+
+    One daemon thread polls :func:`rss_mb` (and, when requested, the
+    device allocator peaks) every *interval_s*; the observed maxima are
+    readable at any time and summarized by :meth:`attrs`.  The sampler
+    is a monitor: the sampling loop and readers share ``self._lock``.
+    """
+
+    def __init__(self, interval_s: float = 0.05, devices: bool = False):
+        self.interval_s = max(0.001, float(interval_s))
+        self.devices = devices
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._rss_start = rss_mb()
+        self._rss_peak = self._rss_start
+        self._samples = 0
+        self._device_peak_bytes = 0
+
+    def _sample_once(self) -> None:
+        cur = rss_mb()
+        dev = 0
+        if self.devices:
+            for stats in device_memory_stats().values():
+                dev += stats.get("peak_bytes_in_use", stats.get("bytes_in_use", 0))
+        with self._lock:
+            self._samples += 1
+            if cur > self._rss_peak:
+                self._rss_peak = cur
+            if dev > self._device_peak_bytes:
+                self._device_peak_bytes = dev
+
+    def _sample_loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self._sample_once()
+
+    def start(self) -> "MemoryWatermark":
+        if self._thread is None:
+            self._stop.clear()
+            t = threading.Thread(
+                target=self._sample_loop,
+                name="csvplus-obs-memwatch",
+                daemon=True,
+            )
+            self._thread = t
+            t.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        self._sample_once()  # final sample so short regions see an update
+
+    @property
+    def rss_peak_mb(self) -> float:
+        with self._lock:
+            return self._rss_peak
+
+    def attrs(self) -> Dict[str, Any]:
+        """JSON-safe summary for span/stage attrs."""
+        with self._lock:
+            out: Dict[str, Any] = {
+                "rss_start_mb": round(self._rss_start, 1),
+                "rss_peak_mb": round(self._rss_peak, 1),
+                "rss_samples": self._samples,
+            }
+            if self.devices and self._device_peak_bytes:
+                out["device_peak_mb"] = round(self._device_peak_bytes / 1e6, 1)
+        return out
+
+
+@contextlib.contextmanager
+def watch_memory(
+    attrs: Optional[Dict[str, Any]] = None,
+    *,
+    interval_s: float = 0.05,
+    devices: bool = False,
+) -> Iterator[MemoryWatermark]:
+    """Sample memory while the body runs; on exit, write the watermark
+    summary into *attrs* (pass the dict a ``tracer.span(...)`` or
+    ``telemetry.stage(...)`` yielded, and the RSS column lands on that
+    span/stage).  Yields the live :class:`MemoryWatermark`."""
+    wm = MemoryWatermark(interval_s=interval_s, devices=devices).start()
+    t0 = time.perf_counter()
+    try:
+        yield wm
+    finally:
+        wm.stop()
+        summary = wm.attrs()
+        summary["watched_s"] = round(time.perf_counter() - t0, 4)
+        if attrs is not None:
+            attrs.update(summary)

@@ -1,0 +1,1017 @@
+"""Production telemetry plane: typed metric registry, Prometheus
+exposition, JSONL time-series pump, tail-sampled request tracing, and
+the :class:`TelemetryPlane` bundle the serving tier wires in.
+
+Copy of ``csvplus_tpu/obs/metrics.py``; the plane's join samples read
+the port's :mod:`.joinskew`, and the compile-count series reads
+:mod:`.recompile`'s build/load counts of the port's hand-built binaries.
+
+Layers, bottom up:
+
+* Instruments — :class:`Counter`, :class:`Gauge`, :class:`Histogram`
+  (exponential buckets).  Each is a tiny monitor; the serve-side call
+  sites batch their updates so the dispatcher pays a CONSTANT number of
+  lock rounds per cycle, never one per request (as ``ServingMetrics``
+  does).
+* :class:`MetricRegistry` — owns instruments by name plus pull-time
+  COLLECTORS (zero-arg callables yielding :class:`Sample` rows).  The
+  existing observability surfaces — ``ServingMetrics.snapshot()``, WAL
+  stats, ``ReadAmpTracker``, ``RecompileWatch``'s build/load counts,
+  ``rss_mb`` — publish through collectors, so scrape cost is paid by
+  the scraper, not the serving hot path.
+* Exposition — :meth:`MetricRegistry.render` (Prometheus text format),
+  :class:`PromHttpEndpoint` (stdlib ``http.server``, OFF by default),
+  and :class:`MetricsPump` (periodic JSONL rows into a ``log_dir``).
+  The pump also samples the ``rss_mb`` watermark
+  gauge so long-running serve sessions see memory growth.
+* :class:`TailSampler` — always-on tail-sampled tracing: every request
+  is offered (one lock round per dispatch cycle), but full records are
+  RETAINED only for errors, deadline misses, and latency above a
+  rolling p99 threshold, in a bounded ring.
+* :class:`TelemetryPlane` — the bundle :class:`LookupServer` owns:
+  registry + tail sampler + per-index probe/build-key
+  :class:`~csvplus_tpu_torch.obs.sketch.SpaceSaving` sketches + the global
+  :mod:`~csvplus_tpu_torch.obs.flight` recorder, with ``attach_server()``
+  wiring every serve/storage/view series into one scrape surface.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import threading
+import time
+from typing import (
+    Callable,
+    Dict,
+    Iterable,
+    List,
+    NamedTuple,
+    Optional,
+    Sequence,
+    Tuple,
+)
+
+from . import flight as _flight
+from .memory import peak_rss_mb, rss_mb
+from .recompile import compile_counts
+from .sketch import SpaceSaving
+
+__all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricRegistry",
+    "MetricsPump",
+    "PromHttpEndpoint",
+    "Sample",
+    "TailSampler",
+    "TelemetryPlane",
+]
+
+
+class Sample(NamedTuple):
+    """One exposition row: series name, instrument kind (``counter`` /
+    ``gauge`` — histograms expand into their component series before
+    reaching samples), sorted label pairs, numeric value."""
+
+    name: str
+    kind: str
+    labels: Tuple[Tuple[str, str], ...]
+    value: float
+
+
+def _esc(v: object) -> str:
+    return (
+        str(v)
+        .replace("\\", "\\\\")
+        .replace('"', '\\"')
+        .replace("\n", "\\n")
+    )
+
+
+def series_id(name: str, labels: Tuple[Tuple[str, str], ...]) -> str:
+    """Canonical ``name{k="v",...}`` series identifier (also the JSONL
+    pump's key format)."""
+    if not labels:
+        return name
+    inner = ",".join(f'{k}="{_esc(v)}"' for k, v in labels)
+    return f"{name}{{{inner}}}"
+
+
+def _num(v: object) -> str:
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    if isinstance(v, int):
+        return str(v)
+    return repr(float(v))
+
+
+# -- instruments -----------------------------------------------------------
+
+
+class Counter:
+    """Monotonic counter (a monitor; ``inc`` is one lock round)."""
+
+    __slots__ = ("name", "help", "_lock", "_value")
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self._lock = threading.Lock()
+        self._value = 0
+
+    def inc(self, n: int = 1) -> None:
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def samples(self) -> List[Sample]:
+        return [Sample(self.name, "counter", (), self.value)]
+
+
+class Gauge:
+    """Point-in-time value; ``set`` replaces, ``add`` adjusts."""
+
+    __slots__ = ("name", "help", "_lock", "_value")
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self._lock = threading.Lock()
+        self._value = 0.0
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._value = float(v)
+
+    def add(self, v: float) -> None:
+        with self._lock:
+            self._value += float(v)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
+    def samples(self) -> List[Sample]:
+        return [Sample(self.name, "gauge", (), self.value)]
+
+
+class Histogram:
+    """Exponential-bucket histogram: upper bounds ``start * factor**i``
+    for *count* buckets plus +Inf, rendered in the Prometheus
+    cumulative ``_bucket``/``_sum``/``_count`` shape.
+    ``observe_many`` is one lock round for a whole batch."""
+
+    __slots__ = ("name", "help", "bounds", "_lock", "_counts", "_sum", "_n")
+
+    def __init__(
+        self,
+        name: str,
+        help: str = "",
+        *,
+        start: float = 1e-4,
+        factor: float = 2.0,
+        count: int = 16,
+    ):
+        if start <= 0 or factor <= 1 or count < 1:
+            raise ValueError("need start > 0, factor > 1, count >= 1")
+        self.name = name
+        self.help = help
+        self.bounds = tuple(start * factor**i for i in range(count))
+        self._lock = threading.Lock()
+        self._counts = [0] * (count + 1)  # last slot = +Inf overflow
+        self._sum = 0.0
+        self._n = 0
+
+    def _slot(self, v: float) -> int:
+        for i, b in enumerate(self.bounds):
+            if v <= b:
+                return i
+        return len(self.bounds)
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            self._counts[self._slot(v)] += 1
+            self._sum += v
+            self._n += 1
+
+    def observe_many(self, values: Iterable[float]) -> None:
+        with self._lock:
+            for v in values:
+                self._counts[self._slot(v)] += 1
+                self._sum += v
+                self._n += 1
+
+    def snapshot(self) -> Dict[str, object]:
+        with self._lock:
+            counts = list(self._counts)
+            total, n = self._sum, self._n
+        return {"bounds": list(self.bounds), "counts": counts,
+                "sum": round(total, 9), "count": n}
+
+    def samples(self) -> List[Sample]:
+        snap = self.snapshot()
+        out: List[Sample] = []
+        acc = 0
+        for b, c in zip(snap["bounds"], snap["counts"]):
+            acc += c
+            out.append(
+                Sample(self.name + "_bucket", "histogram",
+                       (("le", repr(float(b))),), acc)
+            )
+        acc += snap["counts"][-1]
+        out.append(
+            Sample(self.name + "_bucket", "histogram", (("le", "+Inf"),), acc)
+        )
+        out.append(Sample(self.name + "_sum", "histogram", (), snap["sum"]))
+        out.append(Sample(self.name + "_count", "histogram", (), snap["count"]))
+        return out
+
+
+# -- registry --------------------------------------------------------------
+
+
+class MetricRegistry:
+    """Named instruments + pull-time collectors, one scrape surface.
+
+    Instrument constructors are idempotent per name (re-requesting an
+    existing name returns the existing instrument; a kind mismatch
+    raises).  A collector is a zero-arg callable returning an iterable
+    of :class:`Sample`; a collector that raises is skipped for that
+    scrape and counted in ``csvplus_registry_collector_errors_total``
+    — a broken publisher must not take the whole surface down.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._instruments: Dict[str, object] = {}
+        self._collectors: List[Tuple[str, Callable[[], Iterable[Sample]]]] = []
+        self._collector_errors = 0
+
+    def _instrument(self, cls, name: str, help: str, **kw):
+        with self._lock:
+            inst = self._instruments.get(name)
+            if inst is not None:
+                if not isinstance(inst, cls):
+                    raise ValueError(
+                        f"metric {name!r} already registered as "
+                        f"{type(inst).__name__}, not {cls.__name__}"
+                    )
+                return inst
+            inst = cls(name, help, **kw)
+            self._instruments[name] = inst
+            return inst
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._instrument(Counter, name, help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._instrument(Gauge, name, help)
+
+    def histogram(self, name: str, help: str = "", **kw) -> Histogram:
+        return self._instrument(Histogram, name, help, **kw)
+
+    def register_collector(
+        self, fn: Callable[[], Iterable[Sample]], name: str = ""
+    ) -> None:
+        with self._lock:
+            self._collectors.append((name or getattr(fn, "__name__", "?"), fn))
+
+    # -- scrape ------------------------------------------------------------
+
+    def collect(self) -> List[Sample]:
+        """All current samples: instruments first, then collectors."""
+        with self._lock:
+            instruments = list(self._instruments.values())
+            collectors = list(self._collectors)
+            errors = self._collector_errors
+        out: List[Sample] = []
+        for inst in instruments:
+            out.extend(inst.samples())
+        for cname, fn in collectors:
+            try:
+                out.extend(fn())
+            except Exception as err:
+                errors += 1
+                with self._lock:
+                    self._collector_errors += 1
+                sys.stderr.write(
+                    f"csvplus-metrics: collector {cname!r} failed "
+                    f"({type(err).__name__}: {err}) — skipped this scrape\n"
+                )
+        out.append(
+            Sample("csvplus_registry_collector_errors_total", "counter",
+                   (), errors)
+        )
+        return out
+
+    def render(self) -> str:
+        """Prometheus text exposition (version 0.0.4): ``# HELP`` /
+        ``# TYPE`` once per metric family, samples grouped under it."""
+        helps: Dict[str, str] = {}
+        with self._lock:
+            for inst in self._instruments.values():
+                helps[inst.name] = inst.help
+        samples = self.collect()
+        by_family: Dict[str, Tuple[str, List[Sample]]] = {}
+        order: List[str] = []
+        for s in samples:
+            family = s.name
+            if s.kind == "histogram":
+                for suffix in ("_bucket", "_sum", "_count"):
+                    if family.endswith(suffix):
+                        family = family[: -len(suffix)]
+                        break
+            if family not in by_family:
+                by_family[family] = (s.kind, [])
+                order.append(family)
+            by_family[family][1].append(s)
+        lines: List[str] = []
+        for family in sorted(order):
+            kind, rows = by_family[family]
+            h = helps.get(family, "")
+            if h:
+                lines.append(f"# HELP {family} {_esc(h)}")
+            lines.append(f"# TYPE {family} {kind}")
+            for s in rows:
+                lines.append(f"{series_id(s.name, s.labels)} {_num(s.value)}")
+        return "\n".join(lines) + "\n"
+
+    def sample_dict(self) -> Dict[str, float]:
+        """Flat ``{series_id: value}`` dict — the JSONL pump's row
+        payload and the flight recorder's metric-delta context."""
+        return {series_id(s.name, s.labels): s.value for s in self.collect()}
+
+
+# -- serve/storage/view collectors ----------------------------------------
+
+#: by_index cell keys that are point-in-time values, not monotonic.
+_INDEX_GAUGE_KEYS = frozenset({"deltas_live", "last_compact_ms"})
+_VIEW_GAUGE_KEYS = frozenset({"epoch"})
+
+
+def _scalar_samples(
+    prefix: str, kind: str, d: Dict[str, object],
+    labels: Tuple[Tuple[str, str], ...] = (),
+    gauge_keys: frozenset = frozenset(),
+) -> Iterable[Sample]:
+    for key, v in d.items():
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            continue
+        k = "gauge" if (kind == "gauge" or key in gauge_keys) else "counter"
+        yield Sample(f"{prefix}_{key}", k, labels, v)
+
+
+def serve_samples(
+    snapshot: Dict[str, object],
+    readamp: Optional[Dict[str, Dict[str, object]]] = None,
+) -> List[Sample]:
+    """Map one ``ServingMetrics.snapshot()`` dict (plus an optional
+    per-index ``ReadAmpTracker`` snapshot map) onto exposition samples:
+    top-level serve counters, latency/queue-wait quantile gauges,
+    per-index cells labelled ``index=...``, per-view cells labelled
+    ``view=...``, plan-cache stats, and read-amp series."""
+    out: List[Sample] = []
+    counter_keys = (
+        "ticks", "enqueued", "completed", "shed", "expired", "failed",
+        "retried", "degraded", "callback_errors",
+    )
+    for key in counter_keys:
+        v = snapshot.get(key)
+        if isinstance(v, (int, float)):
+            out.append(Sample(f"csvplus_serve_{key}_total", "counter", (), v))
+    for key in ("queue_depth_last", "queue_depth_max"):
+        v = snapshot.get(key)
+        if isinstance(v, (int, float)):
+            out.append(Sample(f"csvplus_serve_{key}", "gauge", (), v))
+    for which in ("latency", "queue_wait"):
+        res = snapshot.get(which)
+        if isinstance(res, dict):
+            for q in ("p50_ms", "p90_ms", "p99_ms", "max_ms"):
+                v = res.get(q)
+                if isinstance(v, (int, float)):
+                    out.append(
+                        Sample(f"csvplus_serve_{which}_ms", "gauge",
+                               (("quantile", q[:-3]),), v)
+                    )
+    for name, cell in (snapshot.get("by_index") or {}).items():
+        out.extend(
+            _scalar_samples("csvplus_index", "counter", cell,
+                            (("index", str(name)),), _INDEX_GAUGE_KEYS)
+        )
+    for name, cell in (snapshot.get("by_view") or {}).items():
+        out.extend(
+            _scalar_samples("csvplus_view", "counter", cell,
+                            (("view", str(name)),), _VIEW_GAUGE_KEYS)
+        )
+    pc = snapshot.get("plancache")
+    if isinstance(pc, dict):
+        out.extend(_scalar_samples("csvplus_plancache", "gauge", pc))
+    for name, ra in (readamp or {}).items():
+        out.extend(
+            _scalar_samples("csvplus_readamp", "gauge", ra,
+                            (("index", str(name)),))
+        )
+    return out
+
+
+def process_samples() -> List[Sample]:
+    """Process-level series: peak RSS watermark and, per hand-built
+    binary, how many times it was built or loaded in this process (the
+    counts ``RecompileWatch`` reads; one that GROWS between scrapes was
+    loaded again)."""
+    out = [Sample("csvplus_process_peak_rss_mb", "gauge", (), peak_rss_mb())]
+    for binary, n in compile_counts().items():
+        if n is not None:
+            out.append(
+                Sample("csvplus_binary_loads", "gauge",
+                       (("binary", str(binary)),), n)
+            )
+    return out
+
+
+# -- tail-sampled tracing --------------------------------------------------
+
+
+class TailSampler:
+    """Always-on tail sampling over per-request completion records.
+
+    Every dispatch cycle offers its whole sample batch in ONE lock
+    round; a record is RETAINED (into a bounded ring) only when its
+    outcome is not ``ok`` (errors, deadline misses) or its latency
+    clears a rolling p99 threshold computed over a bounded window of
+    recent latencies.  Threshold recomputation is amortized (every
+    *recompute* offers), so the per-record cost is a few comparisons.
+
+    Records are the extended serve sample tuples
+    ``(latency_s, wait_s, outcome, kind, index, error)`` — trailing
+    fields optional."""
+
+    def __init__(
+        self,
+        capacity: int = 256,
+        window: int = 512,
+        recompute: int = 128,
+        min_latency_s: float = 0.0,
+    ):
+        self.capacity = int(capacity)
+        self._lock = threading.Lock()
+        self._window: List[float] = []
+        self._window_cap = int(window)
+        self._window_i = 0
+        self._recompute = int(recompute)
+        self._since_recompute = 0
+        self._threshold_s = float("inf")
+        self._min_latency_s = float(min_latency_s)
+        self._retained: List[Dict[str, object]] = []
+        self._offered = 0
+        self._kept_error = 0
+        self._kept_expired = 0
+        self._kept_slow = 0
+
+    def offer_batch(self, samples: Sequence[tuple]) -> None:
+        """One lock round for a whole cycle's completion records.  The
+        common case (ok outcome, under-threshold latency) is a handful
+        of local-variable ops per record — attribute state is hoisted
+        once per batch, written back once (this path rides EVERY
+        dispatch cycle)."""
+        t = time.time()
+        with self._lock:
+            window = self._window
+            window_cap = self._window_cap
+            wi = self._window_i
+            since = self._since_recompute
+            thr = self._threshold_s
+            offered = self._offered
+            recompute = self._recompute
+            n_win = len(window)
+            for s in samples:
+                latency_s = s[0]
+                outcome = s[2]
+                offered += 1
+                if n_win < window_cap:
+                    window.append(latency_s)
+                    n_win += 1
+                else:
+                    window[wi] = latency_s
+                    wi = (wi + 1) % window_cap
+                since += 1
+                if since >= recompute:
+                    since = 0
+                    w = sorted(window)
+                    rank = min(len(w) - 1, int(0.99 * len(w)))
+                    thr = max(w[rank], self._min_latency_s)
+                slow = latency_s > thr
+                if outcome == "ok" and not slow:
+                    continue
+                if outcome == "expired":
+                    self._kept_expired += 1
+                elif outcome != "ok":
+                    self._kept_error += 1
+                else:
+                    self._kept_slow += 1
+                rec: Dict[str, object] = {
+                    "ts": t,
+                    "latency_ms": round(latency_s * 1e3, 4),
+                    "wait_ms": round(s[1] * 1e3, 4),
+                    "outcome": outcome,
+                }
+                if len(s) > 3 and s[3]:
+                    rec["kind"] = s[3]
+                if len(s) > 4 and s[4]:
+                    rec["index"] = s[4]
+                if len(s) > 5 and s[5]:
+                    rec["error"] = s[5]
+                if slow:
+                    rec["slow"] = True
+                self._retained.append(rec)
+                if len(self._retained) > self.capacity:
+                    del self._retained[: len(self._retained) - self.capacity]
+            self._offered = offered
+            self._window_i = wi
+            self._since_recompute = since
+            self._threshold_s = thr
+
+    def snapshot(self) -> Dict[str, object]:
+        with self._lock:
+            thr = self._threshold_s
+            return {
+                "offered": self._offered,
+                "retained": len(self._retained),
+                "kept_error": self._kept_error,
+                "kept_expired": self._kept_expired,
+                "kept_slow": self._kept_slow,
+                "p99_threshold_ms": (
+                    None if thr == float("inf") else round(thr * 1e3, 4)
+                ),
+                "records": list(self._retained),
+            }
+
+    def samples(self) -> List[Sample]:
+        with self._lock:
+            rows = [
+                ("csvplus_tail_offered_total", "counter", self._offered),
+                ("csvplus_tail_retained", "gauge", len(self._retained)),
+                ("csvplus_tail_kept_error_total", "counter", self._kept_error),
+                ("csvplus_tail_kept_expired_total", "counter",
+                 self._kept_expired),
+                ("csvplus_tail_kept_slow_total", "counter", self._kept_slow),
+            ]
+        return [Sample(n, k, (), v) for n, k, v in rows]
+
+
+# -- exposition transports -------------------------------------------------
+
+
+class PromHttpEndpoint:
+    """Optional stdlib scrape endpoint (OFF by default — nothing in the
+    tree starts one unless asked).  ``start()`` binds ``addr:port``
+    (port 0 picks a free port), serves ``GET /metrics`` from a daemon
+    thread, and returns the bound port."""
+
+    def __init__(self, registry: MetricRegistry, *,
+                 addr: str = "127.0.0.1", port: int = 0):
+        self.registry = registry
+        self.addr = addr
+        self.port = int(port)
+        self._httpd = None
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> int:
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        registry = self.registry
+
+        class _Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 (stdlib handler API)
+                if self.path.split("?", 1)[0] not in ("/", "/metrics"):
+                    self.send_error(404)
+                    return
+                body = registry.render().encode("utf-8")
+                self.send_response(200)
+                self.send_header(
+                    "Content-Type", "text/plain; version=0.0.4"
+                )
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):  # scrapes must not spam stderr
+                pass
+
+        self._httpd = ThreadingHTTPServer((self.addr, self.port), _Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="csvplus-prom",
+            daemon=True,
+        )
+        self._thread.start()
+        return self.port
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+
+class MetricsPump:
+    """Periodic JSONL time-series sink into *log_dir*: one
+    ``csvplus_metrics.<pid>.jsonl`` file (truncated on open), one
+    ``{"ts": ..., "series": {...}}`` row per tick.  Each tick also
+    samples the current ``rss_mb`` into the plane's RSS gauge, so the
+    exported series carries the memory watermark between bench
+    boundaries.  ``tick()`` is public for deterministic tests."""
+
+    def __init__(
+        self,
+        registry: MetricRegistry,
+        log_dir: str,
+        *,
+        interval_s: float = 1.0,
+        on_tick: Optional[Callable[[], None]] = None,
+    ):
+        os.makedirs(log_dir, exist_ok=True)
+        self.path = os.path.join(
+            log_dir, f"csvplus_metrics.{os.getpid()}.jsonl"
+        )
+        self.registry = registry
+        self.interval_s = float(interval_s)
+        self._on_tick = on_tick
+        self._lock = threading.Lock()
+        self._file = open(self.path, "w")
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.ticks = 0
+
+    def tick(self) -> None:
+        """Sample every series and append one JSONL row."""
+        if self._on_tick is not None:
+            self._on_tick()
+        row = {"ts": time.time(), "series": self.registry.sample_dict()}
+        line = json.dumps(row, default=str)
+        with self._lock:
+            if self._file.closed:
+                return
+            self._file.write(line + "\n")
+            self._file.flush()
+            self.ticks += 1
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            try:
+                self.tick()
+            except Exception as err:
+                sys.stderr.write(
+                    f"csvplus-metrics: pump tick failed "
+                    f"({type(err).__name__}: {err})\n"
+                )
+
+    def start(self) -> "MetricsPump":
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._run, name="csvplus-metrics-pump", daemon=True
+            )
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        with self._lock:
+            if not self._file.closed:
+                self._file.close()
+
+
+def _joinskew():
+    """The process-global join-skew registry (lazy import: the plane
+    must stay constructible before any join module is loaded)."""
+    from .joinskew import joinskew
+
+    return joinskew
+
+
+# -- the bundle ------------------------------------------------------------
+
+
+class TelemetryPlane:
+    """The always-on telemetry bundle one :class:`LookupServer` owns.
+
+    Construction is cheap (no threads, no sockets, no files): the
+    registry, tail sampler, and sketches are in-memory; exposition
+    transports (:meth:`serve_http`, :meth:`start_pump`) are explicit
+    opt-ins.  The flight recorder defaults to the PROCESS-GLOBAL ring
+    (:data:`csvplus_tpu_torch.obs.flight.recorder`) so storage seal/compact
+    events and armed fault firings interleave with serve cycle
+    summaries in one post-mortem timeline.
+    """
+
+    def __init__(
+        self,
+        *,
+        registry: Optional[MetricRegistry] = None,
+        flight_recorder: Optional[_flight.FlightRecorder] = None,
+        sketch_k: int = 32,
+        tail: Optional[TailSampler] = None,
+    ):
+        self.registry = registry if registry is not None else MetricRegistry()
+        self.flight = (
+            flight_recorder if flight_recorder is not None
+            else _flight.recorder
+        )
+        self.tail = tail if tail is not None else TailSampler()
+        self.sketch_k = int(sketch_k)
+        self._lock = threading.Lock()
+        self._probe_sketches: Dict[str, SpaceSaving] = {}
+        self._build_sketches: Dict[str, SpaceSaving] = {}
+        self._pump: Optional[MetricsPump] = None
+        self._http: Optional[PromHttpEndpoint] = None
+        self.cycles = self.registry.counter(
+            "csvplus_serve_cycles_total", "dispatch cycles executed"
+        )
+        self.cycle_seconds = self.registry.histogram(
+            "csvplus_serve_cycle_seconds", "dispatch cycle wall time",
+            start=1e-4, factor=2.0, count=16,
+        )
+        self.rss_gauge = self.registry.gauge(
+            "csvplus_process_rss_mb",
+            "resident set size (MiB), sampled by the metrics pump",
+        )
+        self.registry.register_collector(process_samples, "process")
+        self.registry.register_collector(self.tail.samples, "tail")
+        self.registry.register_collector(self._sketch_samples, "skew")
+        self.registry.register_collector(self._flight_samples, "flight")
+        self.registry.register_collector(self._join_samples, "join")
+        # sketches ride every flight dump, so `obs skew <dump>` answers
+        # "what was hot when it died" without a scraper
+        self.flight.attach("skew", self.skew_snapshot)
+
+    # -- sketches ----------------------------------------------------------
+
+    def probe_sketch(self, index_name: str) -> SpaceSaving:
+        with self._lock:
+            sk = self._probe_sketches.get(index_name)
+            if sk is None:
+                sk = self._probe_sketches[index_name] = SpaceSaving(
+                    self.sketch_k
+                )
+            return sk
+
+    def build_sketch(self, index_name: str) -> SpaceSaving:
+        with self._lock:
+            sk = self._build_sketches.get(index_name)
+            if sk is None:
+                sk = self._build_sketches[index_name] = SpaceSaving(
+                    self.sketch_k
+                )
+            return sk
+
+    def offer_probes(self, index_name: str, probes: Sequence[object]) -> None:
+        """One coalesced sub-batch's probe keys into that index's
+        sketch — one lock round.  Composite probes arrive as lists or
+        tuples (lists normalized so every key hashes); single-column
+        probes unwrap to their scalar so the skew surface reads
+        ``c5``, not ``('c5',)``."""
+        self.probe_sketch(index_name).offer_many([
+            (p[0] if len(p) == 1 else tuple(p))
+            if isinstance(p, (list, tuple)) else p
+            for p in probes
+        ])
+
+    def skew_snapshot(self, n: Optional[int] = None) -> Dict[str, object]:
+        with self._lock:
+            probe = dict(self._probe_sketches)
+            build = dict(self._build_sketches)
+        for name, sk in _joinskew().build_sketches().items():
+            build.setdefault(name, sk)
+        return {
+            "probe": {name: sk.snapshot(n) for name, sk in probe.items()},
+            "build": {name: sk.snapshot(n) for name, sk in build.items()},
+        }
+
+    def _sketch_samples(self) -> List[Sample]:
+        out: List[Sample] = []
+        with self._lock:
+            probe = list(self._probe_sketches.items())
+            build = dict(self._build_sketches)
+        # the partitioned join's build-side samples live in the
+        # process-global registry (joins run on pipelines that never
+        # attach a plane); merge them into the build side, plane-local
+        # sketches winning a label collision
+        for name, sk in _joinskew().build_sketches().items():
+            build.setdefault(name, sk)
+        sides = (("probe", probe), ("build", sorted(build.items())))
+        for side, sketches in sides:
+            for name, sk in sketches:
+                out.append(
+                    Sample("csvplus_skew_observed_total", "counter",
+                           (("index", name), ("side", side)), sk.observed)
+                )
+                for rank, (key, count, _err) in enumerate(sk.topk(10)):
+                    out.append(
+                        Sample(
+                            "csvplus_skew_topk", "gauge",
+                            (("index", name), ("key", str(key)),
+                             ("rank", str(rank)), ("side", side)),
+                            count,
+                        )
+                    )
+        return out
+
+    def _join_samples(self) -> List[Sample]:
+        """The partitioned join's skew-routing split as counter
+        families — how many heavy keys each index's planner detected
+        and how the probe rows divided between the replicated broadcast
+        tier and the hash-repartition exchange — plus the single-pass
+        multiway join's engagement counters (``csvplus_join_multiway_*``:
+        executions, fact rows in/out, and the cascade intermediate rows
+        the fusion avoided) and the fused probe pass's
+        (``csvplus_plan_fusion_*``).  Reads the
+        process-global registry, so
+        pipeline joins that never touch a server still show up on the
+        scrape.  A label may carry either counter family or both
+        (routing counters land per partitioned probe, multiway counters
+        per fused execution), so each family reads with absent-key
+        defaults."""
+        out: List[Sample] = []
+        for label, c in sorted(_joinskew().counters_snapshot().items()):
+            tags = (("index", label),)
+            if "hot_keys_detected" in c:
+                out.append(
+                    Sample("csvplus_join_hot_keys_detected_total", "counter",
+                           tags, c["hot_keys_detected"])
+                )
+                out.append(
+                    Sample("csvplus_join_rows_broadcast_total", "counter",
+                           tags, c["rows_broadcast"])
+                )
+                out.append(
+                    Sample("csvplus_join_rows_repartitioned_total", "counter",
+                           tags, c["rows_repartitioned"])
+                )
+            if "multiway_joins" in c:
+                out.append(
+                    Sample("csvplus_join_multiway_total", "counter",
+                           tags, c["multiway_joins"])
+                )
+                out.append(
+                    Sample("csvplus_join_multiway_rows_in_total", "counter",
+                           tags, c.get("multiway_rows_in", 0))
+                )
+                out.append(
+                    Sample("csvplus_join_multiway_rows_out_total", "counter",
+                           tags, c.get("multiway_rows_out", 0))
+                )
+                out.append(
+                    Sample(
+                        "csvplus_join_multiway_intermediate_rows_avoided_total",
+                        "counter", tags,
+                        c.get("multiway_intermediate_rows_avoided", 0),
+                    )
+                )
+            if "fused_probes" in c:
+                # the fused probe pass's engagement evidence:
+                # executions, fact rows entering vs surviving the
+                # absorbed filters (the rows the fan-out never saw), and
+                # rows emitted
+                out.append(
+                    Sample("csvplus_plan_fusion_total", "counter",
+                           tags, c["fused_probes"])
+                )
+                out.append(
+                    Sample("csvplus_plan_fusion_rows_full_total", "counter",
+                           tags, c.get("fused_rows_full", 0))
+                )
+                out.append(
+                    Sample("csvplus_plan_fusion_rows_selected_total",
+                           "counter", tags, c.get("fused_rows_selected", 0))
+                )
+                out.append(
+                    Sample("csvplus_plan_fusion_rows_out_total", "counter",
+                           tags, c.get("fused_rows_out", 0))
+                )
+        return out
+
+    def _flight_samples(self) -> List[Sample]:
+        snap = self.flight.snapshot()
+        return [
+            Sample("csvplus_flight_events", "gauge", (), snap["events"]),
+            Sample("csvplus_flight_dumps_total", "counter", (),
+                   snap["dumps"]),
+        ]
+
+    # -- serve wiring ------------------------------------------------------
+
+    def attach_server(self, server) -> None:
+        """Wire one server's surfaces into the scrape plane: its
+        metrics snapshot (serve counters, per-index WAL cells, per-view
+        cells, plan cache) plus per-index read-amp trackers as a
+        collector; its snapshot as flight-dump context alongside the
+        registry's own metric deltas; and a build-key sketch onto every
+        registered mutable index (fed at delta-seal)."""
+
+        def _readamp() -> Dict[str, Dict[str, object]]:
+            out: Dict[str, Dict[str, object]] = {}
+            for name, impl in server.registered().items():
+                ra = getattr(impl, "readamp", None)
+                if ra is not None:
+                    out[name] = ra.snapshot()
+            return out
+
+        self.registry.register_collector(
+            lambda: serve_samples(server.snapshot(), _readamp()), "serve"
+        )
+        self.flight.attach("metrics", self.registry.sample_dict)
+        self.flight.attach("serve", server.snapshot)
+        self.flight.attach("tail", self.tail.snapshot)
+        for name, impl in server.registered().items():
+            if hasattr(impl, "key_sketch"):
+                impl.key_sketch = self.build_sketch(name)
+
+    def on_cycle(self, batch_n: int, seconds: float,
+                 samples: Sequence[tuple]) -> None:
+        """One dispatch cycle lands here once, after completion: a
+        constant number of lock rounds regardless of batch size (cycle
+        counter, cycle histogram, one tail-sampler round, one flight
+        note)."""
+        self.cycles.inc()
+        self.cycle_seconds.observe(seconds)
+        self.tail.offer_batch(samples)
+        ok = failed = expired = 0
+        for s in samples:
+            o = s[2]
+            if o == "ok":
+                ok += 1
+            elif o == "expired":
+                expired += 1
+            else:
+                failed += 1
+        self.flight.note(
+            "serve:cycle", batch=batch_n, seconds=round(seconds, 6),
+            ok=ok, failed=failed, expired=expired,
+        )
+
+    def flight_dump(
+        self, reason: str, error: Optional[BaseException] = None
+    ) -> Optional[str]:
+        """Dump the flight ring; NEVER raises (a post-mortem writer
+        must not add a second failure mode to a crash path).  Returns
+        the artifact path, or None if the dump itself failed."""
+        try:
+            return self.flight.dump(reason, error)
+        except Exception as err:
+            sys.stderr.write(
+                f"csvplus-flight: dump failed "
+                f"({type(err).__name__}: {err})\n"
+            )
+            return None
+
+    # -- transports --------------------------------------------------------
+
+    def serve_http(self, *, addr: str = "127.0.0.1", port: int = 0) -> int:
+        """Start the optional scrape endpoint; returns the bound port."""
+        with self._lock:
+            if self._http is None:
+                self._http = PromHttpEndpoint(
+                    self.registry, addr=addr, port=port
+                )
+                return self._http.start()
+            return self._http.port
+
+    def start_pump(
+        self, log_dir: str, *, interval_s: float = 1.0
+    ) -> MetricsPump:
+        """Start (or return) the periodic JSONL pump for *log_dir*."""
+
+        def _sample_rss() -> None:
+            self.rss_gauge.set(rss_mb())
+
+        with self._lock:
+            if self._pump is None:
+                self._pump = MetricsPump(
+                    self.registry, log_dir,
+                    interval_s=interval_s, on_tick=_sample_rss,
+                ).start()
+            return self._pump
+
+    def close(self) -> None:
+        with self._lock:
+            pump, self._pump = self._pump, None
+            http, self._http = self._http, None
+        if pump is not None:
+            pump.stop()
+        if http is not None:
+            http.stop()

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..columnar.table import DeviceTable, StringColumn, merge_with_fallback
+from ..utils.env import env_int
 
 _MASK31 = (1 << 31) - 1
 
@@ -253,6 +254,12 @@ class DeviceIndex:
     # Build-side key sample offered to the cost model's sketch, at most.
     BUILD_SAMPLE: ClassVar[int] = 4096
 
+    # Point lookups (find/sub_index/has) search a host int32 mirror of the
+    # sorted keys up to this many keys (64 MB), made once, instead of
+    # paying a device round trip per lookup; above it they search on the
+    # device.
+    POINT_MIRROR_MAX_KEYS: ClassVar[int] = env_int("CSVPLUS_POINT_MIRROR_MAX_KEYS", 16_000_000)
+
     @classmethod
     def build(cls, table: DeviceTable, key_columns: Sequence[str]) -> "DeviceIndex":
         key_columns = list(key_columns)
@@ -344,24 +351,67 @@ class DeviceIndex:
             cum = self._direct_cum = _build_direct_cum(self.packed_i32, self.direct_bits)
         return cum
 
-    def _packed_host(self) -> np.ndarray:
-        """Host int64 mirror of the sorted packed keys (point lookups)."""
-        host = getattr(self, "_host_keys", None)
+    def _packed_host_mirror(self) -> np.ndarray:
+        """Host int32 mirror of the sorted packed keys (the point-lookup
+        tier up to ``POINT_MIRROR_MAX_KEYS``), built once under the
+        lock."""
+        host = getattr(self, "_packed_host", None)
         if host is None:
-            if self.packed_i32 is not None:
-                host = self.packed_i32.cpu().numpy().astype(np.int64)
-            else:
-                hi = self.packed_hi.cpu().numpy().astype(np.int64)
-                host = (hi << 31) | self.packed_lo.cpu().numpy().astype(np.int64)
-            self._host_keys = host
+            with self._aux_lock:
+                host = getattr(self, "_packed_host", None)
+                if host is None:
+                    host = self._packed_host = self.packed_i32.cpu().numpy()
         return host
 
+    def _packed_i64_host(self) -> np.ndarray:
+        """Host int64 keys of the two-lane tier, ``(hi << 31) | lo``,
+        built once under the lock.  The reference keeps this array on
+        the host from the build on; its point lookups search it there."""
+        host = getattr(self, "_packed_i64", None)
+        if host is None:
+            with self._aux_lock:
+                host = getattr(self, "_packed_i64", None)
+                if host is None:
+                    hi = self.packed_hi.cpu().numpy().astype(np.int64)
+                    host = (hi << 31) | self.packed_lo.cpu().numpy().astype(np.int64)
+                    self._packed_i64 = host
+        return host
+
+    def _search_packed(self, qk: np.ndarray, top: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Bounds of the packed key ranges ``[qk, top)`` (int64 arrays), in
+        the tier the index's size picks: an int32 host mirror up to
+        ``POINT_MIRROR_MAX_KEYS`` keys (one O(n) download, then numpy
+        searches), ``torch.searchsorted`` on the table's device above it
+        (the lowers and uppers go up in one upload and come back in one
+        transfer), or the two-lane tier's int64 host keys."""
+        if self.packed_i32 is None:
+            keys = self._packed_i64_host()
+            return (np.searchsorted(keys, qk, side="left"),
+                    np.searchsorted(keys, top, side="left"))
+        n = int(self.packed_i32.shape[0])
+        over = top > _MASK31  # one past the top of a 31-bit universe: the upper is n
+        # int32 probes against the int32 keys: a wider probe would make
+        # numpy or torch widen a copy of all n keys per call
+        q = np.concatenate([qk, np.where(over, 0, top)]).astype(np.int32)
+        if n <= self.POINT_MIRROR_MAX_KEYS:
+            res = self._packed_host_mirror().searchsorted(q, side="left")
+        else:
+            qt = torch.from_numpy(q).to(self.packed_i32.device)
+            res = torch.searchsorted(self.packed_i32, qt).cpu().numpy()
+        m = qk.shape[0]
+        return res[:m], np.where(over, n, res[m:])
+
     def point_bounds(self, values: List[str]) -> Tuple[int, int]:
-        """[lower, upper) range for one key-prefix probe (the reference's
-        two binary searches, csvplus.go:881-887), on a host mirror of the
-        sorted packed keys."""
+        """[lower, upper) range for one key-prefix probe — the device form
+        of the reference's two binary searches (csvplus.go:881-887).
+
+        Values translate to codes through the dictionaries, then the
+        packed keys are searched in the index's tier
+        (:meth:`_search_packed`).
+        """
         if len(values) > len(self.key_columns):
             raise ValueError("too many columns in Index.find()")
+        assert self.supported
         if not values:
             return 0, self.table.nrows
         qk = 0
@@ -370,11 +420,50 @@ class DeviceIndex:
             if code < 0:
                 return 0, 0  # value not in the index at all
             qk |= code << s
-        range_size = 1 << self.shifts[len(values) - 1]
-        host = self._packed_host()
-        lower = int(np.searchsorted(host, np.int64(qk), side="left"))
-        upper = int(np.searchsorted(host, np.int64(qk + range_size), side="left"))
-        return lower, upper
+        top = qk + (1 << self.shifts[len(values) - 1])
+        lower, upper = self._search_packed(np.array([qk], np.int64), np.array([top], np.int64))
+        return int(lower[0]), int(upper[0])
+
+    def point_bounds_many(
+        self, probes: Sequence[Sequence[str]]
+    ) -> List[Tuple[int, int]]:
+        """Batched :meth:`point_bounds`: one vectorized code translation
+        per key column (``find_codes``) and ONE search over all probes
+        (:meth:`_search_packed`).  Semantics equal a loop of single
+        ``point_bounds`` calls."""
+        assert self.supported
+        self.offer_build_sample()
+        m = len(probes)
+        if m == 0:
+            return []
+        n = int(self.table.nrows)
+        karr = np.array([len(p) for p in probes], dtype=np.int64)
+        if int(karr.max()) > len(self.key_columns):
+            raise ValueError("too many columns in Index.find()")
+        qk = np.zeros(m, dtype=np.int64)
+        ok = np.ones(m, dtype=bool)
+        for j, (name, s) in enumerate(zip(self.key_columns, self.shifts)):
+            col = self.table.columns[name]
+            if int(karr.min()) > j:  # every probe has column j
+                codes = col.find_codes([p[j] for p in probes])
+                ok &= codes >= 0
+                qk |= np.where(codes >= 0, codes, 0) << s
+                continue
+            sel = np.flatnonzero(karr > j)
+            if sel.size == 0:
+                break
+            codes = col.find_codes([probes[i][j] for i in sel])
+            ok[sel] &= codes >= 0
+            qk[sel] |= np.where(codes >= 0, codes, 0) << s
+        shifts = np.array(self.shifts, dtype=np.int64)
+        range_size = np.where(karr > 0, 1 << shifts[np.maximum(karr, 1) - 1], 0)
+        lower, upper = self._search_packed(qk, qk + range_size)
+        lower = np.where(ok, lower, 0).astype(np.int64)
+        upper = np.where(ok, upper, 0).astype(np.int64)
+        empty = karr == 0  # an empty prefix bounds the whole table
+        lower = np.where(empty, 0, lower)
+        upper = np.where(empty, n, upper)
+        return list(zip(lower.tolist(), upper.tolist()))
 
     def probe(
         self, probe_cols: List[StringColumn], nrows: int

@@ -36,6 +36,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from ..obs.recompile import register_kernel
+
 MAX_COLS = 8
 
 #: Kernel launches made through :func:`fused_equality_mask` — one per
@@ -85,25 +87,32 @@ def build() -> Path:
     return out
 
 
+@register_kernel("mask.cu")
+def _open_library():
+    """Build ``csrc/mask.cu`` if needed and load it (counted in
+    :mod:`..obs.recompile`)."""
+    lib = ctypes.CDLL(str(build()))
+    fn = lib.csvplus_fused_mask
+    fn.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p),  # column pointers
+        ctypes.c_int,  # k
+        ctypes.c_void_p,  # offsets + targets table
+        ctypes.c_int,  # number of targets
+        ctypes.c_longlong,  # rows
+        ctypes.c_int,  # 1 = "all", 0 = "any"
+        ctypes.c_void_p,  # out
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _load():
     global _lib
     if _lib is None:
         with _lib_lock:
             if _lib is None:
-                lib = ctypes.CDLL(str(build()))
-                fn = lib.csvplus_fused_mask
-                fn.argtypes = [
-                    ctypes.POINTER(ctypes.c_void_p),  # column pointers
-                    ctypes.c_int,  # k
-                    ctypes.c_void_p,  # offsets + targets table
-                    ctypes.c_int,  # number of targets
-                    ctypes.c_longlong,  # rows
-                    ctypes.c_int,  # 1 = "all", 0 = "any"
-                    ctypes.c_void_p,  # out
-                    ctypes.c_void_p,  # stream
-                ]
-                fn.restype = ctypes.c_int
-                _lib = lib
+                _lib = _open_library()
     return _lib
 
 

@@ -41,7 +41,7 @@ def linearize(root: "PlanNode") -> "List[PlanNode]":
     """
     chain: List[PlanNode] = []
     node = root
-    while not isinstance(node, Scan):
+    while not isinstance(node, (Scan, Lookup)):
         chain.append(node)
         node = node.child  # type: ignore[attr-defined]
     chain.append(node)
@@ -70,6 +70,22 @@ class Scan(PlanNode):
 
     def __repr__(self) -> str:
         return f"Scan({self.table.short_desc()})"
+
+
+@dataclass(frozen=True)
+class Lookup(PlanNode):
+    """Origin: one contiguous row range [lower, upper) of a sorted
+    device index table — the leaf behind ``Index.find``/``find_many``
+    results (index matches are always contiguous in key order).  A
+    Scan restricted to a statically-known range; downstream symbolic
+    stages lower exactly as they would over a full Scan."""
+
+    table: Any  # columnar.table.DeviceTable (the index's sorted copy)
+    lower: int
+    upper: int
+
+    def __repr__(self) -> str:
+        return f"Lookup([{self.lower},{self.upper}) of {self.table.short_desc()})"
 
 
 @dataclass(frozen=True)

@@ -84,7 +84,9 @@ def _node_sig(node: P.PlanNode) -> Tuple:
     equal predicates collide and any constant change misses.
     """
     t = type(node).__name__
-    if isinstance(node, P.Scan):
+    if isinstance(node, (P.Scan, P.Lookup)):
+        # Lookup bounds are data (which rows matched), not structure:
+        # every point lookup of one index shares one entry
         return (t, _schema_sig(node.table))
     if isinstance(node, (P.Filter, P.TakeWhile, P.DropWhile)):
         return (t, repr(node.pred))

@@ -118,9 +118,25 @@ def to_json_file(src, name: str) -> None:
 
 
 def to_rows(src) -> List[Row]:
-    """Materialize the source into a list of Rows (csvplus.go:483-490)."""
+    """Materialize the source into a list of Rows (csvplus.go:483-490).
+    A ``take_rows`` or ``find`` result clones straight off its backing
+    rows, which is what streaming it would deliver."""
+    hint = getattr(src, "_rows_hint", None)
+    if hint is not None:
+        return [Row(r) for r in hint]
     out: List[Row] = []
     src(out.append)
+    return out
+
+
+def to_rows_many(sources) -> List[List[Row]]:
+    """Materialize a batch of sources, one Row list per source in order:
+    the sink for :meth:`Index.find_many` results, whose search and decode
+    the batched engine already amortized."""
+    out = []
+    for src in sources:
+        hint = getattr(src, "_rows_hint", None)
+        out.append([Row(r) for r in hint] if hint is not None else to_rows(src))
     return out
 
 

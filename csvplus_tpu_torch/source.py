@@ -58,13 +58,16 @@ def iterate(rows: Sequence[Row], fn: RowFunc, clone: bool = True) -> None:
 class DataSource:
     """A lazy stream of Rows; call it with a row callback to execute."""
 
-    __slots__ = ("_run", "plan", "_plan_unsupported", "plan_note")
+    __slots__ = ("_run", "plan", "_plan_unsupported", "plan_note", "_rows_hint")
 
     def __init__(self, run: Callable[[RowFunc], None], plan: Any = None):
         self._run = run
         self.plan = plan  # symbolic plan node, or None (host-only chain)
         self._plan_unsupported = False  # memo: device plan cannot lower
         self.plan_note = None  # why device execution stopped, if it did
+        # the backing row list of a take_rows / find result: the sinks
+        # clone straight off it (what iterate() would deliver)
+        self._rows_hint = None
 
     def explain(self) -> str:
         """The execution plan: the device plan when the chain is symbolic,
@@ -471,7 +474,9 @@ def take_rows(rows: Iterable[Row]) -> DataSource:
     def run(fn: RowFunc) -> None:
         iterate(rows, fn)
 
-    return DataSource(run)
+    ds = DataSource(run)
+    ds._rows_hint = rows
+    return ds
 
 
 def take(src: Any) -> DataSource:

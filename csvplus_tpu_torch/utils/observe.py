@@ -1,0 +1,266 @@
+"""Observability: per-stage telemetry over :mod:`csvplus_tpu_torch.obs`.
+
+Copy of ``csvplus_tpu/utils/observe.py`` with ``torch.profiler`` in
+place of ``jax.profiler``: per-stage wall times and row counts, named
+counters, host-sync accounting — and, whenever a span trace is active in
+the calling context, every stage recorded here ALSO opens a span in that
+trace:
+
+* :data:`telemetry` — opt-in collector of per-stage statistics (a few
+  host ops per stage, never per row).  Mutation is lock-guarded: the
+  serve dispatcher records stages concurrently with readers.  The
+  serving tier writes its ``serve:dispatch`` stage here
+  (``serve/metrics.ServingMetrics.observe_dispatch``); the executor's
+  and ingest's stages are not hooked in the port yet;
+* ``torch.profiler.record_function`` pass-through, so stages show up as
+  named ranges inside profiler traces.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Dict, Iterator, List
+
+from ..obs.span import tracer
+
+# count-shaped stage extras that SUM when records of one stage name
+# merge (next to the ``_s``-suffix per-worker second tallies); the skew
+# trio lets a multi-join pipeline's ``join:skew`` rows report total
+# routed rows, not the last join's
+_SUMMED_EXTRAS = frozenset(
+    {"chunks", "hot_keys", "rows_broadcast", "rows_repartitioned"}
+)
+
+
+@dataclass
+class StageRecord:
+    """One executed pipeline stage."""
+
+    stage: str  # e.g. "Filter", "Join", "ingest:native-encoded"
+    rows_in: int
+    rows_out: int
+    seconds: float
+    # any other keys the stage body set (e.g. the sharded-ingest
+    # assembly's n_shards / max_shard_rows placement evidence)
+    extra: dict = field(default_factory=dict)
+
+    def __str__(self) -> str:
+        return (
+            f"{self.stage:<24} {self.rows_in:>12} -> {self.rows_out:<12}"
+            f" {self.seconds * 1e3:9.2f} ms"
+        )
+
+
+@dataclass
+class Telemetry:
+    """Opt-in pipeline statistics collector (process-global singleton)."""
+
+    enabled: bool = False
+    records: List[StageRecord] = field(default_factory=list)
+    # elements explicitly synced device->host by the partitioned join's
+    # device orchestration (hot-key samples + overflow scalars): the
+    # evidence that the multi-chip probe path crosses O(1)-ish data per
+    # stage, not O(n) (VERDICT round-2 weak #3's done criterion)
+    host_sync_elements: int = 0
+    # generic named counters for subsystems whose evidence is a tally,
+    # not a stage timing — e.g. the plan verifier's diagnostics-per-rule
+    # counts ("verify.resolution", "verify.divergence-risk", ...)
+    counters: Dict[str, int] = field(default_factory=dict)
+    # mutation guard: ingest workers and the serve dispatcher call
+    # count()/add_stage() concurrently with collecting readers
+    _lock: threading.Lock = field(
+        default_factory=threading.Lock, repr=False, compare=False
+    )
+
+    def reset(self) -> None:
+        with self._lock:
+            self.records.clear()
+            self.host_sync_elements = 0
+            self.counters.clear()
+
+    def count_sync(self, n: int) -> None:
+        if self.enabled:
+            with self._lock:
+                self.host_sync_elements += int(n)
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Bump a named counter (no-op unless collection is enabled)."""
+        if self.enabled:
+            with self._lock:
+                self.counters[name] = self.counters.get(name, 0) + int(n)
+
+    @contextlib.contextmanager
+    def collect(self) -> Iterator[List[StageRecord]]:
+        """Enable collection within a scope; yields the record list."""
+        prev = self.enabled
+        self.enabled = True
+        self.reset()
+        try:
+            yield self.records
+        finally:
+            self.enabled = prev
+
+    @contextlib.contextmanager
+    def stage(self, name: str, rows_in: int) -> Iterator[dict]:
+        """Record one stage; the body may set ``out['rows_out']``, or set
+        ``out['discard'] = True`` to drop the record (e.g. a fast-path
+        tier that declined and handed off to another tier).
+
+        Span shim: when a trace is active in the calling context
+        (:data:`csvplus_tpu_torch.obs.span.tracer`), the stage also opens a
+        child span there — the hierarchical view needs no new call
+        sites.  The span keeps even discarded/failed stages (annotated),
+        because a trace records what HAPPENED, while the table records
+        what counted."""
+        handle = tracer.open_span(name, rows_in=int(rows_in))
+        if not self.enabled and handle is None:
+            yield {}
+            return
+        out: dict = {}
+        t0 = time.perf_counter()
+        try:
+            with _trace_annotation(f"csvplus:{name}"):
+                yield out
+        except BaseException:
+            if handle is not None:
+                tracer.close_span(handle, error=True, **out)
+                handle = None
+            raise
+        finally:
+            if handle is not None:
+                tracer.close_span(handle, **out)
+        if out.get("discard") or not self.enabled:
+            return
+        with self._lock:
+            self.records.append(
+                StageRecord(
+                    stage=name,
+                    rows_in=rows_in,
+                    rows_out=int(out.get("rows_out", rows_in)),
+                    seconds=time.perf_counter() - t0,
+                    extra={
+                        k: v
+                        for k, v in out.items()
+                        if k not in ("rows_out", "discard")
+                    },
+                )
+            )
+
+    def add_stage(
+        self, name: str, rows_in: int, rows_out: int, seconds: float, **extra
+    ) -> None:
+        """Record a PRE-MEASURED stage — for work accumulated across many
+        small slices (e.g. per-chunk producer waits or per-shard seals in
+        the streaming ingest) where a contextmanager per slice would
+        drown the measurement in bookkeeping.  One record per call; also
+        mirrored as a pre-measured span when a trace is active."""
+        tracer.add_span(name, float(seconds), rows_in=int(rows_in), **extra)
+        if not self.enabled:
+            return
+        with self._lock:
+            self.records.append(
+                StageRecord(
+                    stage=name,
+                    rows_in=int(rows_in),
+                    rows_out=int(rows_out),
+                    seconds=float(seconds),
+                    extra=extra,
+                )
+            )
+
+    def merged_stages(self) -> List[StageRecord]:
+        """Records merged by stage name (first-seen order): seconds and
+        row counts summed; ACCUMULABLE extras (keys ending in ``_s`` —
+        per-worker second tallies like the staged ingest's ``scan_s`` /
+        ``encode_s`` — plus the count-shaped ``chunks`` and the skew
+        router's ``hot_keys`` / ``rows_broadcast`` /
+        ``rows_repartitioned``) sum too, all other extras taken
+        from the last record of the name (configuration-shaped values
+        like ``workers`` or ``max_shard_rows`` must not add across
+        records): one line per stage kind."""
+        with self._lock:
+            records = list(self.records)
+        order: List[str] = []
+        merged: Dict[str, StageRecord] = {}
+        for r in records:
+            got = merged.get(r.stage)
+            if got is None:
+                order.append(r.stage)
+                merged[r.stage] = StageRecord(
+                    r.stage, r.rows_in, r.rows_out, r.seconds, dict(r.extra)
+                )
+            else:
+                got.rows_in += r.rows_in
+                got.rows_out += r.rows_out
+                got.seconds += r.seconds
+                for k, v in r.extra.items():
+                    old = got.extra.get(k)
+                    if (
+                        (k.endswith("_s") or k in _SUMMED_EXTRAS)
+                        and isinstance(v, (int, float))
+                        and isinstance(old, (int, float))
+                    ):
+                        got.extra[k] = old + v
+                    else:
+                        got.extra[k] = v
+        return [merged[name] for name in order]
+
+    def to_json(self) -> dict:
+        """JSON-safe snapshot: the merged stage table plus counters and
+        host-sync accounting."""
+        merged = self.merged_stages()
+        with self._lock:
+            counters = dict(self.counters)
+            host_sync = self.host_sync_elements
+        return {
+            "stage_table": [
+                {
+                    "stage": r.stage,
+                    "rows_in": r.rows_in,
+                    "rows_out": r.rows_out,
+                    "seconds": round(r.seconds, 4),
+                    **r.extra,
+                }
+                for r in merged
+            ],
+            "counters": counters,
+            "host_sync_elements": host_sync,
+        }
+
+    def report(self) -> str:
+        head = f"{'stage':<24} {'rows in':>12}    {'rows out':<12} {'time':>9}"
+        with self._lock:
+            records = list(self.records)
+            counters = dict(self.counters)
+            host_sync = self.host_sync_elements
+        lines = [head] + [str(r) for r in records]
+        if counters:
+            lines.append("counters:")
+            lines.extend(
+                f"  {name:<38} {counters[name]:>12}"
+                for name in sorted(counters)
+            )
+        lines.append(f"host_sync_elements: {host_sync}")
+        return "\n".join(lines)
+
+
+telemetry = Telemetry()
+
+
+@contextlib.contextmanager
+def _trace_annotation(name: str):
+    # best-effort: only the annotation SETUP may be swallowed — exceptions
+    # from the body must propagate unchanged (a yield inside the except
+    # would turn them into "generator didn't stop after throw()")
+    try:
+        import torch.profiler
+
+        cm = torch.profiler.record_function(name)
+    except Exception:
+        cm = contextlib.nullcontext()
+    with cm:
+        yield
+

@@ -159,6 +159,10 @@ def _shapes(k):
                            ("select", ("id", "f")), ("drop", ("f",))),
             ((dim, ("id",)),)),
         "real-fused-bad-op": P.FusedProbe(P.Scan(fact), (("teleport", None),), ((dim, ("id",)),)),
+        # a Lookup leaf: a range of the index's sorted table, its
+        # cardinality exact (non-empty, or empty for an empty range)
+        "real-lookup": P.Filter(P.Lookup(dim.device_table.table, 1, 6), L({"region": "r1"})),
+        "real-lookup-empty-join": P.Join(P.Lookup(dim.device_table.table, 4, 4), dim, ("id",)),
     }
     models = {"placeholder-no-empty-masks": (placeholder, k.V.ExecutorModel(empty_selection_masks=False)),
               "sharded-stale-broadcast": (out["sharded-small-index"],

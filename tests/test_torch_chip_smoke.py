@@ -1,4 +1,4 @@
-"""``chip_smoke.py``'s phases 4-8 rehearsed on the CPU at a small size.
+"""``chip_smoke.py``'s phases 4-9 rehearsed on the CPU at a small size.
 
 Each phase drives the port's public API on ``device="cpu"`` and holds it
 against the script's own numpy oracles (row counts, positional
@@ -6,8 +6,10 @@ checksums, dictionaries, CSV and JSON bytes); the mask kernel's wrapper
 runs its plain version here, so the launch counts are not checked.  The
 streamed phases lower ``CSVPLUS_STREAM_MIN_BYTES`` to 1 and the chunk size
 to 64 KiB, so their small files stream in many chunks.  Phase 8 (the
-plan cache, cascaded and fused) runs at the end of phase 5 on its
-streamed tables, and alone here on whole-file tables."""
+plan cache, cascaded and fused) and phase 9 (point lookups and the
+serving tier) run at the end of phase 5 on its streamed tables, and
+alone here on whole-file tables; phase 9's over-the-cap half runs with
+the mirror cap patched below its small table."""
 
 import importlib.util
 from pathlib import Path
@@ -26,12 +28,16 @@ def _chip_smoke():
 
 PHASES = {
     "4-main": (False, lambda C, d: C.run_main_path(20_000, 1, "cpu", d)),
-    "5-streamed": (True, lambda C, d: C.run_streamed_path(20_000, 1, "cpu", d)),
+    "5-streamed": (True, lambda C, d: C.run_streamed_path(20_000, 1, "cpu", d, serve=SERVE)),
     "6-lane": (True, lambda C, d: C.run_lane_path(20_000, 2_000, 1, "cpu", d,
                                                   lane_threshold=5_000)),
     "7-host-dict": (True, lambda C, d: C.run_host_dict_path(30_000, 1, "cpu", d)),
     "8-plancache": (False, lambda C, d: _plancache(C, d)),
+    "9-serving": (False, lambda C, d: _serving(C, d)),
 }
+
+# phase 9 at a rehearsal size: (s1) 20,000 rows, (s2) over a cap of 1,000
+SERVE = dict(n_rows=20_000, n_find=300, n_requests=640, n_plans=20, cap=1_000)
 
 
 def _plancache(C, workdir):
@@ -52,6 +58,23 @@ def _plancache(C, workdir):
     return out
 
 
+def _serving(C, workdir):
+    import csvplus_tpu_torch as T
+
+    data = C.generate(workdir, 20_000, 1)
+    orders = T.from_file(str(data["paths"]["orders"])).on_device("cpu")
+    out = C.run_serving_path(orders, data, "cpu", workdir, 1, **SERVE)
+    for part in ("s1", "s2"):
+        snap = out[part]["server"]
+        assert snap["completed"] == 640 and snap["degraded"] == 0 and snap["retried"] == 0
+        assert snap["breaker"] == {"state": "closed", "consecutive_failures": 0,
+                                   "opened_total": 0}
+    plans = out["s2"]["plans"]
+    assert plans["warm"]["hits"] == 20 and plans["warm"]["lowered"] == 0
+    assert plans["cold"]["lowered"] == 1
+    return out
+
+
 @pytest.mark.parametrize("phase", sorted(PHASES))
 def test_chip_smoke_phase_rehearses_on_the_cpu(phase, tmp_path, monkeypatch):
     streamed, run = PHASES[phase]
@@ -65,3 +88,4 @@ def test_chip_smoke_phase_rehearses_on_the_cpu(phase, tmp_path, monkeypatch):
     assert out["mask_check"]["cases"] > 0 and out["mask_check"]["max_abs_err"] == 0
     if phase == "5-streamed":
         assert out["plancache"]["mask_check"]["max_abs_err"] == 0
+        assert out["serving"]["mask_check"]["cases"] > 0

@@ -2,7 +2,8 @@
 import neither ``jax`` nor any module of ``csvplus_tpu`` (on the
 whole-file and on the streamed ingest tier, with lane dictionaries and
 the vectorized CSV/JSON sinks, and through the plan cache with every
-module the plan-analysis slice added), its ingest loads its own build of the
+module the plan-analysis slice added, and through the serving tier with
+every module the serving slice added), its ingest loads its own build of the
 native scanner and never the JAX package's, its device entry points
 refuse ``"cuda"`` where no card is present instead of running on the CPU
 (the streamed tier and the JSON sink's source too), and ``chip_smoke.py``
@@ -137,6 +138,43 @@ def test_plancache_path_loads_no_jax_and_no_reference_module(tmp_path):
     assert out["foreign"] == []
     assert out["rows"] > 0 and out["stats"]["optimize_failed"] == 0
     assert out["stats"]["fused"] == 1
+
+
+SERVING_PATH = r"""
+import json, sys
+import csvplus_tpu_torch as T
+import csvplus_tpu_torch.obs.flight, csvplus_tpu_torch.obs.memory, csvplus_tpu_torch.obs.metrics
+import csvplus_tpu_torch.obs.recompile, csvplus_tpu_torch.obs.span, csvplus_tpu_torch.resilience
+import csvplus_tpu_torch.utils.observe
+from csvplus_tpu_torch.serve import LookupServer
+
+idx = T.take_rows([T.Row({"k": f"c{i}", "v": str(i)}) for i in range(300)]) \
+    .on_device("cpu").unique_index_on("k")
+rows = T.to_rows_many(idx.find_many(["c7", "nope", ("c9",)]))
+with LookupServer(idx) as srv:
+    got = [srv.submit(f"c{i}").result(timeout=30) for i in range(20)]
+    plan = srv.submit_plan(idx.find("c3").filter(T.Like({"v": "3"})).plan).result(timeout=30)
+    snap = srv.snapshot()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+             or m == "csvplus_tpu" or m.startswith("csvplus_tpu."))
+print(json.dumps({"rows": [len(r) for r in rows], "served": sum(len(g) for g in got),
+                  "plan_rows": plan.nrows, "completed": snap["completed"], "foreign": bad}))
+"""
+
+
+def test_serving_path_loads_no_jax_and_no_reference_module(tmp_path):
+    """The serving slice's entry points (``find_many``, ``LookupServer``
+    lookups and a ``Lookup`` plan), with every module it added imported."""
+    res = subprocess.run(
+        [sys.executable, "-c", SERVING_PATH], cwd=tmp_path, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["foreign"] == []
+    assert out["rows"] == [1, 0, 1] and out["served"] == 20
+    assert out["plan_rows"] == 1 and out["completed"] == 21
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -30,9 +30,11 @@ from test_torch_rewrite import (  # the shared table and plan factories
     SHAPES,
     Opaque,
     _same_tables,
+    dim,
     fact,
     fused_shape,
     fresh_sketches,  # noqa: F401  (autouse fixture)
+    region_dim,
     served_shape,
 )
 
@@ -51,6 +53,14 @@ SEQUENCE = [
     ("zero-selection", SHAPES["probe-fuse-zero-selection"][0]),
     ("windows", SHAPES["windows"][0]),
     ("served-again", lambda k: served_shape(k, fact(k, n=128))),
+    # a Lookup leaf (what Index.find_many results carry): its bounds are
+    # data, so another range of the same index hits the same entry
+    ("lookup", lambda k: k.P.Filter(k.P.Lookup(dim(k).device_table.table, 3, 17),
+                                    k.pkg.Like({"region": "r1"}))),
+    ("lookup-other-bounds", lambda k: k.P.Filter(k.P.Lookup(dim(k).device_table.table, 20, 41),
+                                                 k.pkg.Like({"region": "r1"}))),
+    ("lookup-join", lambda k: k.P.Join(k.P.Lookup(dim(k).device_table.table, 0, 25),
+                                       region_dim(k), ("region",))),
 ]
 
 REJECTED = {
@@ -83,7 +93,7 @@ def test_plan_sequence_stats_and_results_match_reference(hatch, monkeypatch):
         assert caches["port"].stats() == caches["ref"].stats(), name
     st = caches["port"].stats()
     assert st["optimize_failed"] == 0 and st["rejected"] == 0
-    assert st["hits"] == 3 and st["lowered"] == len(SEQUENCE) - 3
+    assert st["hits"] == 4 and st["lowered"] == len(SEQUENCE) - 4
     if not hatch:
         assert st["fused"] >= 2 and st["fused_chains"] >= 2
         assert st["reordered"] == 1 and st["fusion_refused"] >= 1
