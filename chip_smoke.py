@@ -99,19 +99,50 @@ Phases; any failure raises, exits non-zero and prints no result line:
    kernel, and their results lie on the card.  Prints the index build
    seconds, lookups/s of each route, p50/p99 and the mean batch, plans/s
    and the peak device memory over the inputs.
-10. A ``{"kernels": [...]}`` line, then the last line
+10. BASELINE config 4 at its published size ("IndexOn(non-unique
+   key).ResolveDuplicates — group/dedup over 50M rows with 10% dup
+   rate"): ``order_id,cust_id,qty,ts`` x 50,000,000 (~1.5 GB, the
+   streamed tier), 45,000,000 distinct ``order_id = o%08d`` (a
+   lane-dictionary column) and 5,000,000 rows re-using a seeded draw of
+   them, ``cust_id`` over 100,000 customers, ``qty`` 1-100, ``ts`` the
+   row number.  (i) ``index_on("order_id")`` then
+   ``resolve_duplicates("first")``, and on a fresh index ``"last"``;
+   (ii) on a fresh index the callback keeping each order's latest
+   version (max ``ts``); (iii) ``write_to`` of (ii)'s index and
+   ``load_index`` on the card.  Each result equals a numpy oracle (row
+   count, positional checksums of every column, index order = the key's
+   byte order); the index stays device-lazy on the card after each
+   dedup; the callback runs once per duplicate group; the reload equals
+   the written index, keeps ``order_id`` as lanes (no host dictionary)
+   and answers 10,000 ``find_many`` probes (1 % absent) as the oracle.
+   Prints seconds and rows/s per step and the index file's size.
+11. BASELINE config 1 on the card: ``from_file(people).on_device()
+   .filter(Like{name: Amelia}).map(SetValue(name, Julia))
+   .to_csv_file(out, "name", "surname")`` over 10,000,000 people in the
+   test corpus's layout; the file byte-equal (size, sha256) to numpy's.
+12. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Phases 4-9 also hold the mask kernel's wrapper against its plain version,
-bitwise, on the inputs of every call their filters made (recorded during
-the path's run and replayed after its launch count was read).
+Phases 4-9 and 11 also hold the mask kernel's wrapper against its plain
+version, bitwise, on the inputs of every call their filters made
+(recorded during the path's run and replayed after its launch count was
+read).
+
+Stage tables (``telemetry.collect()``; stage, records, rows in and out,
+milliseconds, share of the window, counters, host-sync elements) are
+printed for one warm pipeline (a) at 10M (phase 4, which also prints
+warm (a) with telemetry off and on, medians of seven, and checks that
+the run synchronizes nowhere with it off), the 50M streamed ingest at
+the automatic K (phase 5), one served batch of 32 lookups (phase 9,
+(s2)) and phase 10's callback dedup.
 
 Writes its CSVs under ``.chip_smoke_data/`` beside this file and removes
 them at the end.  Needs one card; imports nothing of JAX or csvplus_tpu.
-Phases 4-9 run on the CPU too, at a small size, as a rehearsal:
+Phases 4-11 run on the CPU too, at a small size, as a rehearsal:
 ``run_main_path``, ``run_streamed_path`` (with phases 8 and 9 at its
-end), ``run_lane_path``, ``run_host_dict_path``, ``run_plancache_path``
-and ``run_serving_path`` with ``device="cpu"``.
+end), ``run_lane_path``, ``run_host_dict_path``, ``run_plancache_path``,
+``run_serving_path``, ``run_dedup_path`` and ``run_config1_path`` with
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -379,21 +410,30 @@ def _sbytes(prefix: bytes, ints: np.ndarray) -> np.ndarray:
 def _digits(v: np.ndarray, width: int = 0) -> np.ndarray:
     """(n, w) uint8 decimal digits of the nonnegative ints *v*, left
     aligned and NUL padded; ``width`` > 0 gives exactly that many digits,
-    zero filled (``%0*d``)."""
+    zero filled (``%0*d``).  Rows of each digit count are filled
+    together, least significant digit first (one divmod a digit)."""
     v = np.asarray(v, dtype=np.int64)
     w = width or max(len(str(int(v.max()))) if v.size else 1, 1)
     if v.size and int(v.max()) >= 10**w:
         raise ValueError("value too wide")
-    nd = np.full(v.shape, w, np.int64)
-    if not width:
-        nd = np.ones(v.shape, np.int64)
-        for k in range(1, w):
-            nd += v >= 10**k
-    pow10 = 10 ** np.arange(w, dtype=np.int64)
+
+    def fixed(x: np.ndarray, d: int) -> np.ndarray:
+        out = np.empty((x.size, d), np.uint8)
+        for k in range(d - 1, -1, -1):
+            x, r = np.divmod(x, 10)
+            out[:, k] = r + 48
+        return out
+
+    if width:
+        return fixed(v, w)
     out = np.zeros((v.size, w), np.uint8)
-    for k in range(w):
-        p = nd - 1 - k
-        out[:, k] = np.where(p >= 0, (v // pow10[np.maximum(p, 0)]) % 10 + 48, 0)
+    nd = np.ones(v.shape, np.int64)
+    for k in range(1, w):
+        nd += v >= 10**k
+    for d in range(1, w + 1):
+        rows = np.flatnonzero(nd == d)
+        if rows.size:
+            out[rows, :d] = fixed(v[rows], d)
     return out
 
 
@@ -686,6 +726,10 @@ def run_main_path(
     log(f"demotions (prefix, rows): index builds {out['demotions']['index_build']}, "
         f"main path {out['demotions']['main_path']}")
     out["verifier"] = verifier_cost(run["srcs"]["a"], device)
+    src_a = run["srcs"]["a"]
+    _, out["stage_table"] = stage_table(f"warm pipeline (a) at {n_orders:,} orders",
+                                        lambda: (src_a.to_device_table(), _sync(device)))
+    out["telemetry_cost"] = telemetry_cost(src_a, device)
     if profile:
         profile_pipelines(run["srcs"])
     return out
@@ -830,7 +874,12 @@ def run_streamed_path(n_orders: int, seed: int, device: str, workdir: Path,
     for workers in ("1", None):
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        src, secs = _ingest_streamed(str(path), device, workers)
+        if workers is None:
+            (src, secs), out["stage_table_ingest"] = stage_table(
+                f"streamed ingest of {n_orders:,} orders at K = auto",
+                lambda: _ingest_streamed(str(path), device, None))
+        else:
+            src, secs = _ingest_streamed(str(path), device, workers)
         table = src.plan.table
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
         kinds = {c: table.columns[c].kind for c in ORDERS_COLS}
@@ -1585,6 +1634,14 @@ def run_serving_path(orders, data: dict, device: str, workdir: Path, seed: int,
         with _running(LookupServer(order_idx)) as srv:
             s2 = {"build_order_id_s": t_order, "build_cust_id_s": t_cust,
                   "server": _served(srv, probes, want, clients, "(s2) order_id server")}
+        # one served batch, stage by stage: the watermark closes it at 32
+        with _running(LookupServer(order_idx, tick_us=1_000_000, max_batch=32)) as srv:
+            batch, s2["stage_table_batch"] = stage_table(
+                "one served batch of 32 (s2) order_id lookups",
+                lambda: [f.result(timeout=600.0) for f in [srv.submit(p) for p in probes[:32]]])
+            _check_rows(batch, want[:32], "(s2) one served batch")
+            if srv.snapshot()["batch"]["batches"] != 1:
+                raise AssertionError(f"(s2) the 32 lookups ran in {srv.snapshot()['batch']}")
 
         # plans: a Lookup leaf under a mask-kernel filter, cold then warm
         chosen = rng.integers(0, N_CUST, 2 * n_plans)
@@ -1656,6 +1713,382 @@ def run_serving_path(orders, data: dict, device: str, workdir: Path, seed: int,
     return out
 
 
+# -- the stage tables ---------------------------------------------------------
+
+
+def stage_table(title: str, fn) -> "tuple[object, dict]":
+    """Run *fn()* under ``telemetry.collect()`` and print the merged stage
+    table: each stage's rows in and out, seconds and share of the window
+    (nested stages overlap: a ``Join`` row holds its ``join:*`` rows), then
+    the counters and the host-sync elements.  Returns (fn's result, the
+    table as a dict)."""
+    from csvplus_tpu_torch.utils.observe import telemetry
+
+    with telemetry.collect():
+        t0 = time.perf_counter()
+        result = fn()
+        window = time.perf_counter() - t0
+        merged = telemetry.merged_stages()
+        counts = [r.stage for r in telemetry.records]
+        counters = dict(telemetry.counters)
+        syncs = telemetry.host_sync_elements
+    stages = [{"stage": r.stage, "records": counts.count(r.stage), "rows_in": r.rows_in,
+               "rows_out": r.rows_out, "seconds": r.seconds, "share": r.seconds / window,
+               **{k: v for k, v in r.extra.items() if k.endswith("_s") and k != "per_worker_busy_s"}}
+              for r in merged]
+    log(f"stage table: {title}; window {window * 1e3:.3f} ms")
+    log(f"  {'stage':<26} {'records':>7} {'rows in':>12} {'rows out':>12} {'ms':>11} {'share':>7}")
+    for s in stages:
+        extra = {k: v for k, v in s.items() if k.endswith("_s")}
+        log(f"  {s['stage']:<26} {s['records']:>7} {s['rows_in']:>12,} {s['rows_out']:>12,} "
+            f"{s['seconds'] * 1e3:11.3f} {100 * s['share']:6.1f}%"
+            + (f"  {extra}" if extra else ""))
+    log(f"  counters {counters}; host-sync elements {syncs}")
+    return result, {"title": title, "window_s": window, "stages": stages,
+                    "counters": counters, "host_sync_elements": syncs}
+
+
+def telemetry_cost(src, device: str, reps: int = 7) -> dict:
+    """Warm *src* with telemetry off and on, alternating, *reps* each:
+    the medians, and the number of ``torch.cuda.synchronize`` calls the
+    run itself made (off: none, there is no barrier; on: the stages'
+    barriers).  Run after the path's launch count was read."""
+    import torch
+
+    from csvplus_tpu_torch.utils.observe import telemetry
+
+    times = {"off": [], "on": []}
+    syncs = {"off": 0, "on": 0}
+    real_sync = torch.cuda.synchronize
+
+    def counting_sync(*a, **k):
+        syncs[mode] += 1
+        return real_sync(*a, **k)
+
+    for _ in range(reps):
+        for mode in ("off", "on"):
+            with telemetry.collect() if mode == "on" else contextlib.nullcontext():
+                torch.cuda.synchronize = counting_sync
+                try:
+                    t0 = time.perf_counter()
+                    src.to_device_table()
+                finally:
+                    torch.cuda.synchronize = real_sync
+                _sync(device)
+                times[mode].append(time.perf_counter() - t0)
+    if syncs["off"]:
+        raise AssertionError(f"telemetry off: the run synchronized {syncs['off']} times")
+    if device == "cuda" and not syncs["on"]:
+        raise AssertionError("telemetry on: no stage barrier synchronized")
+    out = {"off_s": float(np.median(times["off"])), "on_s": float(np.median(times["on"])),
+           "synchronizes": syncs, "runs_s": times}
+    log(f"telemetry cost: warm (a) median {out['off_s'] * 1e3:.3f} ms off, "
+        f"{out['on_s'] * 1e3:.3f} ms on (collecting, with barriers), {reps} runs each, "
+        f"alternating; synchronize calls off {syncs['off']}, on {syncs['on']}")
+    return out
+
+
+# -- phase 10: BASELINE config 4, duplicate resolution -----------------------
+
+N_DEDUP_ROWS = 50_000_000  # BASELINE.json config 4: 50M rows, 10 % duplicates
+N_DEDUP_DISTINCT = 45_000_000
+N_DEDUP_FIND = 10_000
+
+
+def _dedup_data(workdir: Path, n: int, n_distinct: int, seed: int) -> dict:
+    """``order_id,cust_id,qty,ts`` x *n*: *n_distinct* ids once each and
+    ``n - n_distinct`` rows re-using a seeded draw of them, in a seeded
+    row order; ``order_id = o%08d`` (zero-padded: a string column, whose
+    byte order is the numeric order), ``cust_id = c<i>`` over 100,000
+    customers, ``qty`` 1-100, ``ts`` the row number."""
+    rng = np.random.default_rng(seed + 10)
+    ids = rng.permutation(np.concatenate([
+        np.arange(n_distinct), rng.integers(0, n_distinct, n - n_distinct)]))
+    cust = rng.integers(0, N_CUST, n)
+    qty = rng.integers(1, 101, n)
+    path = workdir / "dedup.csv"
+    with open(path, "wb") as f:
+        f.write(b"order_id,cust_id,qty,ts\n")
+        for lo in range(0, n, 2_000_000):
+            hi = min(lo + 2_000_000, n)
+            m = hi - lo
+            f.write(_lines([_lit(m, b"o"), _digits(ids[lo:hi], 8), _lit(m, b",c"),
+                            _digits(cust[lo:hi]), _lit(m, b","), _digits(qty[lo:hi]),
+                            _lit(m, b","), _digits(np.arange(lo, hi)), _lit(m, b"\n")]))
+    return {"path": path, "ids": ids, "cust": cust, "qty": qty, "n": n,
+            "n_distinct": n_distinct}
+
+
+def _dedup_oracle(d: dict) -> dict:
+    """Index order (the key's byte order, stable), the run boundaries, and
+    per-column row hashes, all from numpy."""
+    ids, n = d["ids"], d["n"]
+    order = np.argsort(ids, kind="stable")
+    sid = ids[order]
+    neq = sid[1:] != sid[:-1]
+    starts = np.concatenate([[True], neq])
+    ends = np.concatenate([neq, [True]])
+    nd = d["n_distinct"]
+    hashes = {
+        "order_id": (_fnv32_mat(np.hstack([_lit(nd, b"o"), _digits(np.arange(nd), 8)])), ids),
+        "cust_id": (_fnv_affix(b"c", np.arange(N_CUST)), d["cust"]),
+        "qty": (_fnv32(np.arange(101).astype("S")), d["qty"]),
+        "ts": (_fnv_affix(b"", np.arange(n)), None),
+    }
+    return {"order": order, "first": order[starts], "last": order[ends],
+            "groups": int((starts & ~ends).sum()), "hashes": hashes}
+
+
+def _dedup_sums(oracle: dict, rows: np.ndarray) -> dict:
+    """Positional checksums of the index whose rows, in index order, are
+    the file rows *rows*."""
+    out = {}
+    for c, (h, key) in oracle["hashes"].items():
+        out[c] = _positional_sum(h[rows] if key is None else h[key[rows]])
+    return out
+
+
+def _check_index(idx, oracle: dict, rows: np.ndarray, device: str, what: str) -> dict:
+    """The index equals the oracle (row count, positional checksums) and
+    lies on the card: device-lazy, every column's tensors on *device*."""
+    from csvplus_tpu_torch.utils.checksum import checksum_device_table
+
+    impl = idx._impl
+    if impl.dev is None or not impl.is_lazy:
+        raise AssertionError(f"{what}: the index left the device (dev {impl.dev is not None}, "
+                             f"lazy {impl.is_lazy})")
+    table = impl.dev.table
+    for name, c in table.columns.items():
+        if c.storage.device.type != device:
+            raise AssertionError(f"{what}: column {name} on {c.storage.device}")
+    want = _dedup_sums(oracle, rows)
+    got = checksum_device_table(table, list(want), positional=True)
+    if table.nrows != rows.size or got != want:
+        raise AssertionError(f"{what}: {table.nrows} rows, checksums {got}; oracle "
+                             f"{rows.size} rows, {want}")
+    return got
+
+
+def run_dedup_path(n_rows: int, n_distinct: int, seed: int, device: str, workdir: Path,
+                   n_find: int = N_DEDUP_FIND, lane_threshold: "int | None" = None) -> dict:
+    """Phase 10: BASELINE config 4 through the public API.  The streamed
+    ingest of *n_rows* with *n_distinct* distinct ``order_id`` values (a
+    lane-dictionary column); (i) ``index_on("order_id")`` then
+    ``resolve_duplicates("first")``, and on a fresh index ``"last"``;
+    (ii) on a fresh index the member-returning callback that keeps each
+    order's latest version (max ``ts``), under ``telemetry.collect()``;
+    (iii) ``write_to`` of (ii)'s index and ``load_index`` on *device*.
+    Every result equals the numpy oracle, each dedup leaves the index on
+    the card, the callback runs once per duplicate group, and the reload
+    builds no host dictionary and answers *n_find* ``find_many`` probes
+    (1 % absent) as the oracle does.  The path runs no filter: the mask
+    kernel's count is set to 0 before the ingest and read after the
+    ``find_many``, and must stay 0 on the card; any recorded mask call is
+    replayed against the plain version.  *lane_threshold* sets
+    ``CSVPLUS_DICT_DEVICE_MIN_DISTINCT`` for a small rehearsal."""
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.ops import mask as M
+
+    t0 = time.perf_counter()
+    d = _dedup_data(workdir, n_rows, n_distinct, seed)
+    path = d["path"]
+    size = path.stat().st_size
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    oracle = _dedup_oracle(d)
+    t_oracle = time.perf_counter() - t0
+    log(f"phase 10: generated {n_rows:,} rows ({size:,} bytes, {n_distinct:,} distinct ids, "
+        f"{oracle['groups']:,} duplicate groups) in {t_gen:.1f}s; numpy oracle {t_oracle:.1f}s")
+    if size < STREAM_MIN_BYTES and device == "cuda":
+        raise AssertionError(f"{size} bytes is under the streamed tier's {STREAM_MIN_BYTES}")
+    out = {"rows": n_rows, "bytes": size, "distinct": n_distinct, "groups": oracle["groups"]}
+
+    with recorded_mask_calls() as mask_calls:
+        M.launches = 0  # the path's run starts here
+        with _env_set({} if lane_threshold is None
+                      else {"CSVPLUS_DICT_DEVICE_MIN_DISTINCT": str(lane_threshold)}):
+            t0 = time.perf_counter()
+            src = T.from_file(str(path)).on_device(device)
+            _sync(device)
+            t_ingest = time.perf_counter() - t0
+        path.unlink()  # on the card now
+        table = src.plan.table
+        kinds = {c: table.columns[c].kind for c in table.columns}
+        lane = table.columns["order_id"]
+        if table.ingest_tier != "streamed" or kinds != {"order_id": "str", "cust_id": "int",
+                                                         "qty": "int", "ts": "int"}:
+            raise AssertionError(f"tier {table.ingest_tier}, kinds {kinds}")
+        if lane.dev_dictionary is None or lane._dictionary is not None:
+            raise AssertionError("order_id is not a lane-dictionary column")
+        out["ingest"] = {"seconds": t_ingest, "rows_per_s": n_rows / t_ingest}
+        log(f"phase 10 ingest {t_ingest:.2f}s ({n_rows / t_ingest:,.0f} rows/s) on the "
+            f"{table.ingest_tier} tier, kinds {kinds}, order_id a lane column "
+            f"({len(lane.dev_dictionary)} lanes)")
+
+        def build(what: str):
+            t0 = time.perf_counter()
+            idx = src.index_on("order_id").sync()
+            secs = time.perf_counter() - t0
+            _check_index(idx, oracle, oracle["order"], device, f"{what} index_on")
+            out[f"index_on_{what}"] = {"seconds": secs, "rows_per_s": n_rows / secs}
+            log(f"phase 10 index_on(order_id) for {what}: {secs:.2f}s ({n_rows / secs:,.0f} rows/s)"
+                f"; == oracle; on {device}")
+            return idx
+
+        def dedup(idx, how, what: str, want: np.ndarray, title: "str | None" = None) -> float:
+            def run():
+                idx.resolve_duplicates(how)
+                idx.sync()
+
+            t0 = time.perf_counter()
+            if title is None:
+                run()
+            else:
+                _, out[f"stage_table {what}"] = stage_table(title, run)
+            secs = time.perf_counter() - t0
+            _check_index(idx, oracle, want, device, what)
+            out[what] = {"seconds": secs, "rows_per_s": n_rows / secs, "rows_out": int(want.size)}
+            log(f"phase 10 {what}: {secs:.2f}s ({n_rows / secs:,.0f} rows/s) -> {want.size:,} rows"
+                f" == oracle; the index still on {device} (device-lazy)")
+            return secs
+
+        for policy in ("first", "last"):  # (i)
+            idx = build(policy)
+            dedup(idx, policy, f"resolve_duplicates({policy!r})", oracle[policy])
+            del idx
+            gc.collect()
+
+        idx = build("callback")  # (ii)
+        calls = [0]
+
+        def latest(group):
+            calls[0] += 1
+            return max(group, key=lambda r: int(r["ts"]))
+
+        dedup(idx, latest, "callback dedup", oracle["last"],
+              title="phase 10 callback dedup, resolve_duplicates(latest ts)")
+        if calls[0] != oracle["groups"]:
+            raise AssertionError(f"the callback ran {calls[0]} times for {oracle['groups']} groups")
+        out["callback dedup"]["calls"] = calls[0]
+        log(f"phase 10 callback: {calls[0]:,} calls == {oracle['groups']:,} duplicate groups")
+        written = _check_index(idx, oracle, oracle["last"], device, "before write_to")
+
+        idx_path = workdir / "dedup.idx"  # (iii)
+        t0 = time.perf_counter()
+        idx.write_to(str(idx_path))
+        t_write = time.perf_counter() - t0
+        file_bytes = idx_path.stat().st_size
+        del idx, src, table, lane
+        gc.collect()
+        t0 = time.perf_counter()
+        loaded = T.load_index(str(idx_path), device=device).sync()
+        t_load = time.perf_counter() - t0
+        idx_path.unlink()
+        got = _check_index(loaded, oracle, oracle["last"], device, "load_index")
+        lcol = loaded._impl.dev.table.columns["order_id"]
+        if got != written or lcol.dev_dictionary is None or lcol._dictionary is not None:
+            raise AssertionError("the reloaded index differs or rebuilt the host dictionary")
+        rng = np.random.default_rng(seed + 11)
+        pick = rng.integers(0, n_distinct, n_find)
+        absent = np.arange(0, n_find, 100)
+        pick[absent] = n_distinct + absent  # 1 % of the probes miss
+        last = oracle["last"]  # the kept row of id x is last[x]: every id occurs
+        want = [[] if x >= n_distinct else [{
+            "order_id": f"o{x:08d}", "cust_id": f"c{d['cust'][last[x]]}",
+            "qty": str(d["qty"][last[x]]), "ts": str(last[x])}] for x in pick.tolist()]
+        t0 = time.perf_counter()
+        found = T.to_rows_many(loaded.find_many([f"o{x:08d}" for x in pick.tolist()]))
+        t_find = time.perf_counter() - t0
+        _check_rows(found, want, "phase 10 find_many on the reloaded index")
+        launches = M.launches  # ... and ends here
+    if launches and device == "cuda":
+        raise AssertionError(f"config 4's dedup launched the mask kernel {launches} times")
+    out["launches"] = launches
+    log(f"config 4 dedup: mask kernel launches {launches}")
+    out["mask_check"] = check_path_masks(mask_calls, "config 4 dedup")
+    out["write"] = {"seconds": t_write, "bytes": file_bytes, "rows_per_s": last.size / t_write}
+    out["load"] = {"seconds": t_load, "rows_per_s": last.size / t_load}
+    out["find_many"] = {"probes": n_find, "seconds": t_find, "lookups_per_s": n_find / t_find}
+    log(f"phase 10 write_to {t_write:.2f}s ({file_bytes:,} bytes, {last.size / t_write:,.0f} "
+        f"rows/s); load_index {t_load:.2f}s ({last.size / t_load:,.0f} rows/s) == the written "
+        f"index, order_id still lanes (no host dictionary); find_many of {n_find:,} probes "
+        f"{t_find:.3f}s == oracle")
+    del loaded
+    gc.collect()
+    return out
+
+
+# -- phase 11: BASELINE config 1, Filter -> Map -> to_csv_file --------------
+
+N_PEOPLE = 10_000_000
+PEOPLE_NAMES = np.array([b"Amelia", b"Olivia", b"Emily", b"Ava", b"Isla",
+                         b"Oliver", b"Jack", b"Harry", b"Jacob", b"Charlie"])
+PEOPLE_SURNAMES = np.array([b"Smith", b"Jones", b"Taylor", b"Williams", b"Brown", b"Davies",
+                            b"Evans", b"Wilson", b"Thomas", b"Roberts", b"Johnson", b"Lewis"])
+
+
+def run_config1_path(n_rows: int, seed: int, device: str, workdir: Path) -> dict:
+    """Phase 11: ``from_file(people).on_device().filter(Like{name: Amelia})
+    .map(SetValue(name, Julia)).to_csv_file(out, "name", "surname")`` over
+    *n_rows* people in the test corpus's layout (``id,name,surname,born``,
+    the corpus's 10 names and 12 surnames drawn from the seed), byte-equal
+    to the file numpy builds; the filter's mask calls replayed against the
+    plain version."""
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.ops import mask as M
+
+    rng = np.random.default_rng(seed + 12)
+    name = rng.integers(0, PEOPLE_NAMES.size, n_rows)
+    surname = rng.integers(0, PEOPLE_SURNAMES.size, n_rows)
+    born = 1916 + rng.integers(0, 90, n_rows)
+    path = workdir / "people.csv"
+    t0 = time.perf_counter()
+    names_m, surnames_m = _smat(PEOPLE_NAMES), _smat(PEOPLE_SURNAMES)
+    with open(path, "wb") as f:
+        f.write(b"id,name,surname,born\n")
+        for lo in range(0, n_rows, 2_000_000):
+            hi = min(lo + 2_000_000, n_rows)
+            m = hi - lo
+            f.write(_lines([_digits(np.arange(lo, hi)), _lit(m, b","), names_m[name[lo:hi]],
+                            _lit(m, b","), surnames_m[surname[lo:hi]], _lit(m, b","),
+                            _digits(born[lo:hi]), _lit(m, b"\n")]))
+    size = path.stat().st_size
+    keep = name == 0  # Amelia
+    m = int(keep.sum())
+    want = b"name,surname\n" + _lines([_lit(m, b"Julia,"), surnames_m[surname[keep]],
+                                       _lit(m, b"\n")])
+    log(f"phase 11: generated {n_rows:,} people ({size:,} bytes) in "
+        f"{time.perf_counter() - t0:.1f}s")
+    out_path = workdir / "julia.csv"
+    with recorded_mask_calls() as calls:
+        M.launches = 0  # the path's run starts here
+        t0 = time.perf_counter()
+        src = T.from_file(str(path)).on_device(device)
+        _sync(device)
+        t_ingest = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        src.filter(T.Like({"name": "Amelia"})).map(T.SetValue("name", "Julia")).to_csv_file(
+            str(out_path), "name", "surname")
+        t_pipe = time.perf_counter() - t0
+        launches = M.launches  # ... and ends here
+    _same_file(out_path, want, "config 1 to_csv_file")
+    out_bytes = out_path.stat().st_size
+    tier = src.plan.table.ingest_tier
+    out_path.unlink()
+    path.unlink()
+    if launches <= 0 and device == "cuda":
+        raise AssertionError("config 1's filter never launched the mask kernel")
+    mask_check = check_path_masks(calls, "config 1")
+    log(f"phase 11 (config 1): ingest {t_ingest:.2f}s on the {tier} tier; filter -> map -> "
+        f"to_csv_file {t_pipe:.2f}s ({size / t_pipe / 1e6:.1f} MB/s of input, "
+        f"{m:,} rows, {out_bytes:,} bytes) == oracle bytes (size, sha256); mask kernel "
+        f"launches {launches}")
+    return {"rows": n_rows, "bytes": size, "ingest_s": t_ingest, "ingest_tier": tier,
+            "pipeline_s": t_pipe, "input_mb_per_s": size / t_pipe / 1e6,
+            "rows_out": m, "out_bytes": out_bytes, "launches": launches,
+            "mask_check": mask_check}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20160914)
@@ -1703,13 +2136,16 @@ def main(argv=None) -> int:
         streamed = run_streamed_path(N_ORDERS_STREAMED, args.seed, "cuda", workdir)
         lane = run_lane_path(N_LANE_ROWS, N_PROBE_REFS, args.seed, "cuda", workdir)
         host_dict = run_host_dict_path(N_HOST_DICT_ROWS, args.seed, "cuda", workdir)
+        dedup = run_dedup_path(N_DEDUP_ROWS, N_DEDUP_DISTINCT, args.seed, "cuda", workdir)
+        config1 = run_config1_path(N_PEOPLE, args.seed, "cuda", workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     plancache = streamed.pop("plancache")
     serving = streamed.pop("serving")
     paths = {"10M native-encoded": main_path, "50M streamed": streamed,
              "50M plan cache": plancache, "serving": serving,
-             "14M lane dictionary": lane, "13M host dictionary": host_dict}
+             "14M lane dictionary": lane, "13M host dictionary": host_dict,
+             "50M config 4 dedup": dedup, "10M config 1": config1}
     path_cases = sum(p["mask_check"]["cases"] for p in paths.values())
     log(f"mask kernel == plain version, bitwise, in {mask['cases']} matrix cases and "
         f"{path_cases} calls at the paths' own shapes")
@@ -1720,9 +2156,10 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "csvplus_tpu_torch/csrc/mask.cu",
         "replaces": "csvplus_tpu/ops/pallas_mask.py:41",
-        # the slice's main path: the serving phase's plans, a Lookup
-        # leaf under a mask-kernel filter through LookupServer.submit_plan
-        "launches": serving["launches"],
+        # the slice's paths: BASELINE config 4's dedup (phase 10, counted in
+        # launches_by_path) runs no filter, so the count is config 1's
+        # Filter -> Map -> CSV (phase 11)
+        "launches": config1["launches"],
         "launches_by_path": {
             **{name: p["launches"] for name, p in paths.items()},
             **{f"50M plan cache {leg}": v["launches"] for leg, v in plancache["legs"].items()},
@@ -1742,6 +2179,8 @@ def main(argv=None) -> int:
     log("serving path phases " + json.dumps(serving))
     log("lane path phases " + json.dumps(lane))
     log("host dictionary path phases " + json.dumps(host_dict))
+    log("config 4 dedup path phases " + json.dumps(dedup))
+    log("config 1 path phases " + json.dumps(config1))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -21,16 +21,23 @@ Device entry points run on ``"cuda"`` unless the caller asks for
 
 Point lookups batch through ``Index.find_many``, and concurrent callers
 share batches through ``csvplus_tpu_torch.serve.LookupServer``.
+``Index.write_to`` / ``load_index`` persist an index in the reference's
+file formats, and ``telemetry.collect()`` / ``profile_to`` observe a
+run stage by stage.
 """
 
 from .errors import CsvPlusError, DataSourceError, StopPipeline
 from .row import ConversionError, MissingColumnError, Row, merge_rows
 from .source import DataSource, RowFunc, take, take_rows
 from .reader import Reader, from_file, from_read_closer, from_reader
-from .index import Index, create_index, create_unique_index
+from .index import Index, create_index, create_unique_index, load_index
 from .sinks import to_rows_many
 from .predicates import All, Any_, Like, Not, Predicate
 from .exprs import Rename, SetValue, Update
+from . import obs
+from . import plan
+from . import serve
+from .utils import telemetry, profile_to
 
 # Go-style aliases (the reference API names)
 Take = take
@@ -38,6 +45,7 @@ TakeRows = take_rows
 FromFile = from_file
 FromReader = from_reader
 FromReadCloser = from_read_closer
+LoadIndex = load_index
 Any = Any_
 ToRowsMany = to_rows_many
 
@@ -57,6 +65,7 @@ __all__ = [
     "from_file",
     "from_reader",
     "from_read_closer",
+    "load_index",
     "create_index",
     "create_unique_index",
     "to_rows_many",
@@ -70,10 +79,18 @@ __all__ = [
     "SetValue",
     "Update",
     "merge_rows",
+    "obs",
+    "plan",
+    "serve",
+    "telemetry",
+    "profile_to",
     "Take",
     "TakeRows",
     "FromFile",
     "FromReader",
     "FromReadCloser",
+    "LoadIndex",
     "ToRowsMany",
 ]
+
+__version__ = "0.1.0"

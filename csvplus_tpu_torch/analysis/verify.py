@@ -32,9 +32,9 @@ runtime column error => a ``resolution`` diagnostic exists.
 ``verify_before_lower`` is the executor hook: unlowerable plans raise
 :class:`~csvplus_tpu_torch.columnar.exec.UnsupportedPlan` up front (the
 fallback the executor would take mid-plan, minus the wasted device
-work).  ``CSVPLUS_VERIFY=0`` disables the hook.  The reference also
-counts each diagnostic in its telemetry; that comes with the
-observability slice.
+work).  ``CSVPLUS_VERIFY=0`` disables the hook.  Every verified plan
+and each of its diagnostics is counted in the telemetry counters
+(``verify.plans``, ``verify.<rule>.<severity>``) while collecting.
 """
 
 from __future__ import annotations
@@ -702,6 +702,7 @@ class _Verifier:
             self.report.states.append(state)
         self._host_sandwich(chain)
         self._divergence_risk(chain)
+        self._publish_counters()
         return self.report
 
     def _host_sandwich(self, chain: List[P.PlanNode]) -> None:
@@ -747,6 +748,16 @@ class _Verifier:
                 f"stage {name} has no random differential coverage "
                 "(fixed-shape tests only)",
             )
+
+    def _publish_counters(self) -> None:
+        """Count the plan and each diagnostic by rule and severity in
+        the telemetry counters (``verify.plans``,
+        ``verify.<rule>.<severity>``); a no-op unless collecting."""
+        from ..utils.observe import telemetry
+
+        telemetry.count("verify.plans")
+        for d in self.report.diagnostics:
+            telemetry.count(f"verify.{d.rule}.{d.severity}")
 
 
 def verify_plan(

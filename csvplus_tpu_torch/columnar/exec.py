@@ -153,12 +153,21 @@ def execute_plan_view(root: P.PlanNode, preverified: bool = False) -> _View:
         )
     else:
         view = _scan_view(table, scan_base=table.row_base)
-    # fault site: a transient raise here fails the whole execution before
-    # any stage runs; the serving tier's retry re-executes the cached
-    # executable
-    faults.inject("exec:device")
-    for node in stages[1:]:
-        view = _exec_stage(view, node)
+    from ..obs.span import tracer
+    from ..utils.observe import telemetry
+
+    # grouping span: in a trace the per-node stages nest under one
+    # plan:execute region
+    with tracer.span("plan:execute", nodes=len(stages) - 1):
+        # fault site: a transient raise here fails the whole execution
+        # before any stage runs; the serving tier's retry re-executes the
+        # cached executable
+        faults.inject("exec:device")
+        for node in stages[1:]:
+            # row counts come from shapes: recording them syncs nothing
+            with telemetry.stage(type(node).__name__, int(view.sel.shape[0])) as _t:
+                view = _exec_stage(view, node)
+                _t["rows_out"] = int(view.sel.shape[0])
     return view
 
 

@@ -61,13 +61,21 @@ def _encoded_nrows(value) -> int:
 
 
 def _ingest(reader, device) -> DeviceTable:
-    """The first tier that accepts *reader*'s input, as a DeviceTable."""
+    """The first tier that accepts *reader*'s input, as a DeviceTable.
+    Each tier that ran records one telemetry stage (``ingest:streamed``,
+    ``ingest:native-encoded``, or ``ingest:python`` for both string
+    tiers, as the reference names them); a tier that declines records
+    nothing."""
+    from ..utils.observe import telemetry
+
     path = getattr(reader, "_path", None)
     if path is not None and _stream_ingest_wanted(path):
         from ..native.scanner import StreamFallback
 
         try:
-            table = _stream_to_table(reader, path, device)
+            with telemetry.stage("ingest:streamed", 0) as _t:
+                table = _stream_to_table(reader, path, device)
+                _t["rows_out"] = table.nrows
             table.ingest_tier = "streamed"
             return table
         except StreamFallback:
@@ -75,15 +83,22 @@ def _ingest(reader, device) -> DeviceTable:
     if path is not None:
         from ..native import scanner
 
-        enc = scanner.read_encoded_columns_native(reader, path)
+        with telemetry.stage("ingest:native-encoded", 0) as _t:
+            enc = scanner.read_encoded_columns_native(reader, path)
+            if enc is not None:
+                names, data = enc
+                nrows = _encoded_nrows(data[names[0]]) if names else 0
+                table = DeviceTable.from_encoded({n: data[n] for n in names}, nrows, device)
+                _t["rows_out"] = nrows
+            else:
+                _t["discard"] = True  # the tier declined: the next one records
         if enc is not None:
-            names, data = enc
-            nrows = _encoded_nrows(data[names[0]]) if names else 0
-            table = DeviceTable.from_encoded({n: data[n] for n in names}, nrows, device)
             table.ingest_tier = "native-encoded"
             return table
-    names, data, tier = _read_columns_fast(reader)
-    table = DeviceTable.from_pylists({n: data[n] for n in names}, device)
+    with telemetry.stage("ingest:python", 0) as _t:
+        names, data, tier = _read_columns_fast(reader)
+        table = DeviceTable.from_pylists({n: data[n] for n in names}, device)
+        _t["rows_out"] = table.nrows
     table.ingest_tier = tier
     return table
 
@@ -192,7 +207,24 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
     from .typed import IntColumn, format_affix
 
     dev = resolve_device(device)
-    upload = _uploader(dev)
+    _pc = time.perf_counter
+    # what "place" is made of (host seconds, the ingest:place stage's
+    # extras): pinned staging + copy enqueue, dtype narrowing, the running
+    # host dictionary union, and lane packing; the rest is bookkeeping
+    parts = {"upload_s": 0.0, "narrow_s": 0.0, "union_s": 0.0, "lanes_s": 0.0}
+    _upload = _uploader(dev)
+
+    def upload(arr: np.ndarray) -> torch.Tensor:
+        t0 = _pc()
+        out = _upload(arr)
+        parts["upload_s"] += _pc() - t0
+        return out
+
+    def narrowed(fn, *args) -> np.ndarray:
+        t0 = _pc()
+        out = fn(*args)
+        parts["narrow_s"] += _pc() - t0
+        return out
     prefetch_depth = env_int("CSVPLUS_STREAM_PREFETCH", 1)
     lane_thresh = env_int("CSVPLUS_DICT_DEVICE_MIN_DISTINCT", 4_000_000)
     names = None
@@ -212,7 +244,10 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
     nrows = 0
 
     def to_lanes(c, d: np.ndarray) -> tuple:
-        return tuple(upload(x) for x in pack_host(d, lanes_for_width(max_width[c])))
+        t0 = _pc()
+        packed = pack_host(d, lanes_for_width(max_width[c]))
+        parts["lanes_s"] += _pc() - t0
+        return tuple(upload(x) for x in packed)
 
     def add_dict_chunk(c, d, codes):
         """One chunk's (dictionary, codes) through the host-union /
@@ -229,9 +264,11 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
             if ru is None:
                 running_union[c] = d
             else:
+                t0 = _pc()
                 dt = np.dtype(f"S{max_width[c]}")
                 running_union[c] = np.union1d(ru.astype(dt), d.astype(dt))
-        chunk_codes[c].append(upload(_narrow_codes(codes, d.size)))
+                parts["union_s"] += _pc() - t0
+        chunk_codes[c].append(upload(narrowed(_narrow_codes, codes, d.size)))
         if chunk_lanes[c] or (
             not host_only[c]
             and running_union[c] is not None
@@ -267,7 +304,6 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
     # scan_wait: this thread blocked on the producer (the part the
     # prefetch did not hide); place: uploads + dictionary bookkeeping
     t_wait = t_place = 0.0
-    _pc = time.perf_counter
     it = iter(chunks)
     end = object()
     while True:
@@ -304,7 +340,7 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
                     add_dict_chunk(c, dd, cc.astype(np.int32))
                     continue
                 int_prefix[c] = prefix
-                int_vals[c].append(upload(_narrow_values(vals)))
+                int_vals[c].append(upload(narrowed(_narrow_values, vals)))
                 continue
             if int_vals[c]:
                 demote_typed(c)  # the column left typed mode with this chunk
@@ -312,6 +348,17 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
         t_place += _pc() - t0
     if names is None:  # an empty file: the whole-file tiers handle it
         raise StreamFallback("empty file")
+
+    from ..utils.observe import telemetry
+
+    # the same numbers as ingest_seconds: scan-wait is the producer time
+    # the prefetch did not hide (the generator's own ingest:cut / :encode
+    # / :reorder-stall records attribute it), place the consuming
+    # thread's uploads and bookkeeping
+    telemetry.add_stage("ingest:scan", nrows, nrows, t_wait, workers=workers,
+                        prefetch=prefetch_depth)
+    telemetry.add_stage("ingest:place", nrows, nrows, t_place,
+                        **{k: round(v, 4) for k, v in parts.items()})
 
     out = {}
     for c in names:

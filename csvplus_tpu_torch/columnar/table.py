@@ -242,13 +242,15 @@ class StringColumn:
             return
         if not st.sorted:
             from ..ops.lanes import union_device
+            from ..utils.observe import telemetry
 
-            lane_sorts.append(int(st.lanes[0].shape[0]))
-            union, (trans,) = union_device([st.lanes])
-            # st.sorted publishes: set it last, after trans and the lanes
-            st.trans = trans
-            st.lanes = union
-            st.sorted = True
+            with telemetry.stage("lane-dict:deferred-sort", int(st.lanes[0].shape[0])):
+                lane_sorts.append(int(st.lanes[0].shape[0]))
+                union, (trans,) = union_device([st.lanes])
+                # st.sorted publishes: set it last, after trans and the lanes
+                st.trans = trans
+                st.lanes = union
+                st.sorted = True
         self._codes_state = (apply_code_translation(self._codes_state[0], st.trans), True)
 
     @property
@@ -367,16 +369,28 @@ class StringColumn:
     def decode_codes(self, codes: np.ndarray) -> List[Optional[str]]:
         """Decode a host code slice; absent cells (negative codes) become
         None.  The codes must be read after :meth:`_ensure_sorted_lanes`.
-        A slice much smaller than the dictionary decodes only the entries
-        it selects, not the whole dictionary."""
-        if self.dict_size == 0:
+        A slice with fewer rows than the dictionary has entries (lookups,
+        a dedup's duplicate groups), while no decoded dictionary is
+        cached, decodes only the entries it selects: from the host
+        dictionary, or, for a lane column with none, from its lanes
+        gathered on the device, so no host dictionary is built.  A larger
+        slice decodes the whole dictionary once and caches it."""
+        if self.dict_size == 0 or codes.shape[0] == 0:
             return [None] * codes.shape[0]
-        if self._str_dict is None and codes.shape[0] * 16 < self.dict_size:
-            d = self.dictionary
-            out = [v.decode("utf-8") for v in d[np.clip(codes, 0, d.size - 1)].tolist()]
+        pos = np.clip(codes, 0, self.dict_size - 1)
+        if self._str_dict is None and codes.shape[0] < self.dict_size:
+            if self._dictionary is None:
+                from ..ops.lanes import unpack_host
+
+                lanes = self.dev_dictionary
+                sel = torch.from_numpy(pos.astype(np.int64)).to(lanes[0].device)
+                vals = unpack_host([torch.index_select(lane, 0, sel).cpu().numpy()
+                                    for lane in lanes])
+            else:
+                vals = self._dictionary[pos]
+            out = [v.decode("utf-8") for v in vals.tolist()]
         else:
-            d = self.dictionary_str()
-            out = d[np.clip(codes, 0, d.size - 1)].tolist()
+            out = self.dictionary_str()[pos].tolist()
         if (codes < 0).any():
             out = [None if c < 0 else v for c, v in zip(codes.tolist(), out)]
         return out

@@ -115,8 +115,7 @@ class IntColumn:
     def decode(self) -> List[Optional[str]]:
         """Materialize the values on the host as Python strings, through
         the C++ itoa."""
-        d = self.formatted_host()
-        return (np.char.decode(d, "utf-8") if d.size else np.empty(0, np.str_)).tolist()
+        return [v.decode("utf-8") for v in self.formatted_host().tolist()]
 
     def values_host(self) -> np.ndarray:
         """Host mirror of the value lanes (one download, cached): the
@@ -171,38 +170,40 @@ class IntColumn:
         with self._demote_lock:
             if self._demoted is not None:
                 return self._demoted
+            from ..utils.observe import telemetry
             from .table import StringColumn
 
-            demotions.append((self.prefix, int(self.values.shape[0])))
-            u = torch.unique(self.values, sorted=True)
-            uu = u.cpu().numpy()
-            # sharding pads (PAD_VALUE sorts first) never enter the
-            # dictionary; their rows code as -2 below
-            has_pad = bool(uu.size) and uu[0] == PAD_VALUE
-            if has_pad:
-                uu = uu[1:]
-                u = u[1:]
-            strs = format_affix(self.prefix, uu)
-            order = np.argsort(strs, kind="stable")  # numeric -> byte order
-            dictionary = strs[order]
-            if uu.size == 0:  # an empty (or all-pad) column
-                codes = torch.full(
-                    self.values.shape, -2 if has_pad else -1,
-                    dtype=torch.int32, device=self.values.device,
-                )
-            else:
-                code_of = np.empty(uu.shape[0], dtype=np.int32)
-                code_of[order] = np.arange(uu.shape[0], dtype=np.int32)
-                # numeric rank per row, then numeric slot -> byte-order code
-                pos = torch.searchsorted(u, self.values).clamp(max=int(uu.shape[0]) - 1)
-                codes = torch.index_select(
-                    torch.from_numpy(code_of).to(self.values.device), 0, pos
-                )
+            with telemetry.stage("typed:demote", int(self.values.shape[0])):
+                demotions.append((self.prefix, int(self.values.shape[0])))
+                u = torch.unique(self.values, sorted=True)
+                uu = u.cpu().numpy()
+                # sharding pads (PAD_VALUE sorts first) never enter the
+                # dictionary; their rows code as -2 below
+                has_pad = bool(uu.size) and uu[0] == PAD_VALUE
                 if has_pad:
-                    codes = torch.where(self.values == int(PAD_VALUE), -2, codes)
-            self._demoted = StringColumn(
-                dictionary, codes, _has_absent=False if not has_pad else None
-            )
+                    uu = uu[1:]
+                    u = u[1:]
+                strs = format_affix(self.prefix, uu)
+                order = np.argsort(strs, kind="stable")  # numeric -> byte order
+                dictionary = strs[order]
+                if uu.size == 0:  # an empty (or all-pad) column
+                    codes = torch.full(
+                        self.values.shape, -2 if has_pad else -1,
+                        dtype=torch.int32, device=self.values.device,
+                    )
+                else:
+                    code_of = np.empty(uu.shape[0], dtype=np.int32)
+                    code_of[order] = np.arange(uu.shape[0], dtype=np.int32)
+                    # numeric rank per row, then numeric slot -> byte-order code
+                    pos = torch.searchsorted(u, self.values).clamp(max=int(uu.shape[0]) - 1)
+                    codes = torch.index_select(
+                        torch.from_numpy(code_of).to(self.values.device), 0, pos
+                    )
+                    if has_pad:
+                        codes = torch.where(self.values == int(PAD_VALUE), -2, codes)
+                self._demoted = StringColumn(
+                    dictionary, codes, _has_absent=False if not has_pad else None
+                )
         return self._demoted
 
     @property

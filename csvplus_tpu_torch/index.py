@@ -2,8 +2,10 @@
 
 Port of ``csvplus_tpu/index.py`` (the reference's index,
 csvplus.go:610-920): building, the unique check, ``find``, the batched
-``find_many``, ``sub_index``, ``resolve_duplicates`` and ``on_device``.
-Persistence (``write_to``, ``load_index``) is not ported yet.
+``find_many``, ``sub_index``, ``resolve_duplicates``, ``on_device``,
+iteration and persistence (``write_to`` / ``load_index``, in the
+reference's file formats, so a file written by either package loads in
+the other).
 
 Semantics kept: building an index materializes the source and checks
 every row has all key columns, with the reference's message; ``find``
@@ -31,6 +33,7 @@ device.
 from __future__ import annotations
 
 import bisect
+import json
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -40,6 +43,12 @@ import torch
 from .errors import CsvPlusError, DataSourceError
 from .row import Row, all_columns_unique, equal_rows
 from .source import DataSource, RowFunc, iterate, take_rows
+
+#: The index file header's magic and the JSON-lines (host) format's
+#: version; columnar files are version 2, or 3 when they hold lane
+#: columns.  The reference's values: the formats are shared.
+_MAGIC = "csvplus-tpu-index"
+_VERSION = 1
 
 Resolver = Union[str, Callable[[List[Row]], Optional[Row]]]
 
@@ -77,6 +86,10 @@ class IndexImpl:
     @rows.setter
     def rows(self, value: List[Row]) -> None:
         self._rows = value
+        self._invalidate()
+
+    def _invalidate(self) -> None:
+        """Drop the caches built from the rows (key tuples, probe map)."""
         self._keys = None
         self._probe_map = None
 
@@ -276,6 +289,10 @@ class Index:
 
     Iterate = iterate
 
+    def __iter__(self):
+        """The rows in key order, each a clone."""
+        return iter(take_rows(self._impl.rows))
+
     def __len__(self) -> int:
         return len(self._impl)
 
@@ -336,9 +353,14 @@ class Index:
         """Resolve groups of rows with duplicate keys (csvplus.go:643-653).
 
         *resolve* is a callback receiving each group and returning the row
-        to keep (an empty row or None drops the group), or a named policy,
-        ``"first"`` or ``"last"``, which a device-lazy index applies with
-        a run-boundary mask and a gather, decoding no rows."""
+        to keep (an empty row or None drops the group, raising aborts and
+        leaves the index as it was), or a named policy, ``"first"`` or
+        ``"last"``, which a device-lazy index applies with a run-boundary
+        mask and a gather, decoding no rows.  A callback on a device-lazy
+        index decodes only the duplicate groups
+        (:meth:`_device_callback_dedup`); the index stays on the device
+        unless the callback makes a row that is not a member of its
+        group."""
         impl = self._impl
         if isinstance(resolve, str):
             if resolve not in ("first", "last"):
@@ -347,6 +369,9 @@ class Index:
                 self._device_policy_dedup(resolve)
                 return
             resolve = (lambda g: g[0]) if resolve == "first" else (lambda g: g[-1])
+        elif impl.is_lazy and impl.dev is not None:
+            self._device_callback_dedup(resolve)
+            return
         impl.dedup(resolve)
         self.device_table = None  # the columnar copy is stale after mutation
         impl.dev = None
@@ -371,6 +396,173 @@ class Index:
         impl.rows = None
         self.device_table = impl.dev
 
+    def _device_callback_dedup(self, resolve: Callable[[List[Row]], Optional[Row]]) -> None:
+        """Callback dedup of a device-lazy index that decodes only the
+        duplicate groups' rows (csvplus.go:809-867 semantics).
+
+        The group boundaries come from the run starts over the sorted
+        key columns; the callback runs exactly once per duplicate group,
+        in index order, on a list of that group's decoded rows.  A chosen
+        row that is None or shorter than the key column list drops the
+        group.  A chosen row is a member when it equals one of the
+        group's rows as decoded (pristine clones, compared before the
+        callback could mutate them), so a mutated member counts as a new
+        row.  When every chosen row is a member, the index is rebuilt by
+        one columnar gather and stays on the device; otherwise the whole
+        table is decoded once and the recorded decisions spliced in (the
+        callback is not called again) and the index ends on the host.
+        Each step records a telemetry stage of its own (``dedup:groups``,
+        ``:decode``, ``:callback``, then ``:compact`` or ``:splice``)."""
+        from .ops.join import DeviceIndex
+        from .ops.sort import run_starts
+        from .utils.observe import telemetry
+
+        impl = self._impl
+        table = impl.dev.table
+        n = table.nrows
+        with telemetry.stage("dedup:groups", n) as _t:
+            starts = run_starts(table, impl.columns)
+            idx_starts = np.flatnonzero(starts)
+            lengths = np.diff(np.append(idx_starts, n))
+            dup = lengths > 1
+            g_start = idx_starts[dup].astype(np.int64)
+            g_len = lengths[dup].astype(np.int64)
+            # every duplicate group's row ids, group after group
+            g_off = np.cumsum(g_len) - g_len
+            n_dup = int(g_len.sum())
+            dup_rows = np.repeat(g_start - g_off, g_len) + np.arange(n_dup, dtype=np.int64)
+            _t["rows_out"] = n_dup
+            _t["groups"] = int(g_len.shape[0])
+        if n_dup == 0:
+            return  # no duplicate keys (or an empty index)
+        with telemetry.stage("dedup:decode", n_dup):
+            decoded = table.to_rows(torch.from_numpy(dup_rows))
+
+        n_cols = len(impl.columns)
+        # per group: the chosen member's offset, -1 to drop the group, or
+        # -2 for a new row (kept in new_rows)
+        choice = np.empty(g_len.shape[0], dtype=np.int64)
+        new_rows: Dict[int, Row] = {}
+        with telemetry.stage("dedup:callback", n_dup) as _t:
+            pos = 0
+            for g, ln in enumerate(g_len.tolist()):
+                group = decoded[pos : pos + ln]
+                pos += ln
+                pristine = [Row(r) for r in group]
+                chosen = resolve(list(group))
+                if chosen is None or len(chosen) < n_cols:
+                    choice[g] = -1
+                    continue
+                off = next((i for i, r in enumerate(pristine) if r == chosen), None)
+                if off is None:
+                    choice[g] = -2
+                    new_rows[g] = chosen if isinstance(chosen, Row) else Row(chosen)
+                else:
+                    choice[g] = off
+            _t["rows_out"] = int((choice != -1).sum())
+
+        if not new_rows:
+            # one columnar compaction: the singleton rows and each group's
+            # chosen member
+            with telemetry.stage("dedup:compact", n) as _t:
+                keep = np.ones(n, dtype=bool)
+                keep[dup_rows] = False
+                hit = choice >= 0
+                keep[g_start[hit] + choice[hit]] = True
+                sel = torch.from_numpy(np.flatnonzero(keep)).to(table.device)
+                impl.dev = DeviceIndex.build(table.gather(sel), impl.columns)
+                impl._rows = None
+                impl._invalidate()
+                self.device_table = impl.dev
+                _t["rows_out"] = int(sel.shape[0])
+                telemetry.barrier(tuple(c.storage for c in impl.dev.table.columns.values()))
+            return
+
+        # a new row: decode the whole table once and splice the recorded
+        # decisions in
+        with telemetry.stage("dedup:splice", n) as _t:
+            rows = table.to_rows()
+            out: List[Row] = []
+            cursor = 0
+            for g, (s0, ln, d) in enumerate(zip(g_start.tolist(), g_len.tolist(),
+                                                choice.tolist())):
+                out.extend(rows[cursor:s0])
+                if d >= 0:
+                    out.append(rows[s0 + d])
+                elif d == -2:
+                    out.append(new_rows[g])
+                cursor = s0 + ln
+            out.extend(rows[cursor:])
+            impl.rows = out
+            self.device_table = None
+            impl.dev = None
+            _t["rows_out"] = len(out)
+
+    def write_to(self, file_name: str) -> None:
+        """Persist the index; on any write error the file is removed
+        (csvplus.go:656-680).  The reference's two formats:
+
+        * a device-lazy index writes **columnar** npz (version 2): the key
+          list and, per column, its dictionary and codes (a typed column
+          writes its demoted dictionary).  A lane-dictionary column
+          writes its sorted lanes instead (``l{i}:name``, version 3), so
+          neither writing nor loading builds its host dictionary;
+        * any other index writes JSON lines (version 1): a header object,
+          then one object per row with sorted keys."""
+        impl = self._impl
+        if impl.is_lazy and impl.dev is not None:
+            self._write_columnar(file_name)
+            return
+        from .sinks import _write_file
+
+        def dump(f) -> None:
+            f.write(json.dumps({
+                "magic": _MAGIC,
+                "version": _VERSION,
+                "columns": impl.columns,
+                "count": len(impl.rows),
+            }))
+            f.write("\n")
+            for row in impl.rows:
+                f.write(json.dumps(row, sort_keys=True, separators=(",", ":")))
+                f.write("\n")
+
+        _write_file(file_name, dump)
+
+    WriteTo = write_to
+
+    def _write_columnar(self, file_name: str) -> None:
+        """The npz write (version 2, or 3 with lane columns)."""
+        table = self._impl.dev.table
+        lane_columns: Dict[str, int] = {}
+        arrays: Dict[str, np.ndarray] = {}
+        for name, col in table.columns.items():
+            if col.dev_dictionary is not None and col._dictionary is None:
+                col._ensure_sorted_lanes()  # version 3 stores sorted lanes
+                lanes = col.dev_dictionary
+                lane_columns[name] = len(lanes)
+                for i, lane in enumerate(lanes):
+                    arrays[f"l{i}:{name}"] = lane.cpu().numpy()
+            else:
+                arrays[f"d:{name}"] = col.dictionary
+            arrays[f"c:{name}"] = col.codes.cpu().numpy()
+        arrays["__meta__"] = np.frombuffer(
+            json.dumps({
+                "magic": _MAGIC,
+                # 3 = lane columns present: a reader without lanes then
+                # reports an unsupported version, not a missing key
+                "version": 3 if lane_columns else 2,
+                "key_columns": self._impl.columns,
+                "columns": list(table.columns),
+                "lane_columns": lane_columns,
+                "count": table.nrows,
+            }).encode("utf-8"),
+            dtype=np.uint8,
+        )
+        from .sinks import _write_file
+
+        _write_file(file_name, lambda f: np.savez(f, **arrays), mode="wb")
+
     def on_device(self, device: str = "cuda") -> "Index":
         """Attach a device-resident columnar copy of this index so joins
         against it run on the device."""
@@ -385,6 +577,76 @@ class Index:
     FindMany = find_many
     SubIndex = sub_index
     ResolveDuplicates = resolve_duplicates
+
+
+def load_index(file_name: str, device: "str | None" = None) -> Index:
+    """Load an index written by :meth:`Index.write_to` (csvplus.go:683-705)
+    in either package.  A columnar file restores a device-lazy index on
+    *device* (``"cuda"`` when None, which raises with no card; ``"cpu"``
+    on request); a JSON-lines file restores a host index.  A file that is
+    not an index, of another version, or cut short raises
+    ``ValueError``."""
+    with open(file_name, "rb") as fb:
+        magic2 = fb.read(2)
+    if magic2 == b"PK":  # an npz (zip) container: the columnar format
+        return _load_columnar(file_name, device)
+    with open(file_name, "r", encoding="utf-8") as f:
+        try:
+            header = json.loads(f.readline())
+        except json.JSONDecodeError:
+            raise ValueError(f"{file_name}: not a csvplus-tpu index file") from None
+        if header.get("magic") != _MAGIC:
+            raise ValueError(f"{file_name}: not a csvplus-tpu index file")
+        if header.get("version") != _VERSION:
+            raise ValueError(f"{file_name}: unsupported index version {header.get('version')}")
+        rows = [Row(json.loads(line)) for line in f if line.strip()]
+    if len(rows) != header.get("count"):
+        raise ValueError(
+            f"{file_name}: truncated index file "
+            f"({len(rows)} rows, expected {header.get('count')})"
+        )
+    return Index(IndexImpl(rows, header["columns"]))
+
+
+LoadIndex = load_index
+
+
+def _load_columnar(file_name: str, device: "str | None") -> Index:
+    import zipfile
+
+    from .columnar.table import DeviceTable, StringColumn, resolve_device
+    from .ops.join import DeviceIndex
+
+    dev = resolve_device("cuda" if device is None else device)
+    try:
+        with np.load(file_name) as z:
+            meta = json.loads(bytes(z["__meta__"]).decode("utf-8"))
+            if meta.get("magic") != _MAGIC:
+                raise ValueError(f"{file_name}: not a csvplus-tpu index file")
+            if meta.get("version") not in (2, 3):
+                raise ValueError(
+                    f"{file_name}: unsupported columnar index version {meta.get('version')}"
+                )
+            lane_columns = meta.get("lane_columns", {})
+            cols = {}
+            for name in meta["columns"]:
+                codes = torch.from_numpy(z[f"c:{name}"]).to(dev)
+                if name in lane_columns:
+                    # sorted lanes straight to the device: the host
+                    # dictionary is never built
+                    lanes = tuple(
+                        torch.from_numpy(z[f"l{i}:{name}"]).to(dev)
+                        for i in range(int(lane_columns[name]))
+                    )
+                    cols[name] = StringColumn(None, codes, dev_dictionary=lanes)
+                else:
+                    cols[name] = StringColumn(z[f"d:{name}"], codes)
+            count = meta["count"]
+            key_columns = meta["key_columns"]
+    except (KeyError, zipfile.BadZipFile, json.JSONDecodeError) as e:
+        raise ValueError(f"{file_name}: not a csvplus-tpu index file") from e
+    table = DeviceTable(cols, count, dev)
+    return Index(IndexImpl(None, key_columns, dev=DeviceIndex.build(table, key_columns)))
 
 
 def _validate_index_columns(columns: Sequence[str]) -> Tuple[str, ...]:

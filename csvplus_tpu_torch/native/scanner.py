@@ -30,6 +30,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -38,6 +39,7 @@ import numpy as np
 from ..csvio import ERR_BARE_QUOTE, ERR_FIELD_COUNT, ERR_QUOTE
 from ..errors import DataSourceError, map_error
 from ..obs.recompile import register_kernel
+from ..resilience import faults
 from ..utils.env import env_int
 
 SOURCE = Path(__file__).resolve().parent / "scanner.cpp"
@@ -835,6 +837,7 @@ def _iter_parity_chunks(reader, f, chunk_bytes: int):
     pend_quote = False
     eof = False
     while not eof:
+        faults.inject("ingest:read")  # fault site: an I/O error mid-file
         raw = f.read(chunk_bytes)
         if not raw:
             eof = True
@@ -899,13 +902,16 @@ class _ChunkResult:
     order by the reassembler.  Errors are chunk-relative (absolute =
     rel + next_record - 1): only the reassembler knows the chunk's base."""
 
-    __slots__ = ("nscanned", "nrec", "cols", "error")
+    __slots__ = ("nscanned", "nrec", "cols", "error", "t_scan", "t_encode", "worker")
 
     def __init__(self):
         self.nscanned = 0  # records scanned (the header included on chunk 0)
         self.nrec = 0  # data records
         self.cols = None
         self.error = None  # ("data", rel_record, msg) | ("fallback", reason)
+        self.t_scan = 0.0  # the worker's scan seconds (the fused path: all)
+        self.t_encode = 0.0  # the worker's encode seconds
+        self.worker = ""  # the thread that ran it (per-worker busy tallies)
 
 
 _NOT_TYPED = object()  # sentinel: None is a valid (derive-mode) prefix
@@ -990,11 +996,13 @@ def _scan_encode_chunk(ctx, data):
     """One worker's unit: scan and encode one chunk after the first,
     against the context.  It reads ``ctx`` and mutates nothing shared, so
     K workers run it at once (the native calls release the GIL) and the
-    reassembler's file-order merge is the only serialization point.  Any
-    exception reaches the consumer: the reference's re-execution of a
-    chunk after an injected transient worker crash (its ``_run_chunk``)
-    belongs to its chaos layer, which is not ported."""
+    reassembler's file-order merge is the only serialization point.  The
+    ``ingest:worker`` fault site fires first; :func:`_run_chunk` re-runs
+    a chunk whose worker crashed."""
+    faults.inject("ingest:worker")  # fault site: one worker crashes
     res = _ChunkResult()
+    res.worker = threading.current_thread().name
+    t0 = time.perf_counter()
     reader = ctx.reader
     if b"\x00" in data:
         res.error = ("fallback", "NUL in chunk")
@@ -1028,6 +1036,7 @@ def _scan_encode_chunk(ctx, data):
             # fused records have exact arity by construction
             res.nscanned = res.nrec = fused[0]
             res.cols = fused[1]
+            res.t_scan = time.perf_counter() - t0
             return res
     try:
         # chunks start at record boundaries with closed quote state, so
@@ -1040,6 +1049,7 @@ def _scan_encode_chunk(ctx, data):
         res.error = ("data", int(e.line), e.err)
         return res
     res.nscanned = int(counts.shape[0])
+    res.t_scan = time.perf_counter() - t0
     if reader._num_fields >= 0:
         try:
             _check_field_counts(counts, ctx.expected, 1)
@@ -1047,7 +1057,33 @@ def _scan_encode_chunk(ctx, data):
             res.error = ("data", int(e.line), e.err)
             return res
     _encode_scanned(ctx, res, data, scratch, starts, lens, counts, 0, 1)
+    res.t_encode = time.perf_counter() - t0 - res.t_scan
     return res
+
+
+#: Bounded re-runs of one chunk after transient worker crashes.
+_WORKER_RETRIES = 3
+
+
+def _run_chunk(ctx, data):
+    """Run one worker unit, re-running the chunk after a transient worker
+    crash (at most :data:`_WORKER_RETRIES` times).  Sound because
+    :func:`_scan_encode_chunk` is pure over the immutable ``ctx`` and the
+    chunk bytes: the reassembler cannot tell that a crash happened.
+    Other failures re-raise untouched; each recovery counts
+    ``ingest.worker_recovered``."""
+    from ..resilience.retry import TRANSIENT, classify
+    from ..utils.observe import telemetry
+
+    attempt = 0
+    while True:
+        try:
+            return _scan_encode_chunk(ctx, data)
+        except Exception as err:
+            if classify(err) != TRANSIENT or attempt >= _WORKER_RETRIES:
+                raise
+            attempt += 1
+            telemetry.count("ingest.worker_recovered")
 
 
 def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
@@ -1091,6 +1127,24 @@ def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
     typed_enabled = os.environ.get("CSVPLUS_TYPED_LANES", "1") != "0"
     next_record = 1  # absolute 1-based ordinal of the next record scanned
     typed_live: set = set()  # columns still typed, in file order
+    _pc = time.perf_counter
+    stats = {
+        "cut": 0.0,  # readahead: file read + parity cut
+        "stall": 0.0,  # the reassembler waiting on the head-of-line chunk
+        "scan": 0.0,
+        "encode": 0.0,
+        "rows": 0,
+        "chunks": 0,
+        "per_worker": {},
+    }
+
+    def account(res):
+        stats["chunks"] += 1
+        stats["rows"] += res.nrec
+        stats["scan"] += res.t_scan
+        stats["encode"] += res.t_encode
+        w = stats["per_worker"]
+        w[res.worker] = w.get(res.worker, 0.0) + res.t_scan + res.t_encode
 
     try:
         f = open(path, "rb")
@@ -1108,6 +1162,7 @@ def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
                 raise map_error(e, next_record) from e
             if data is None:
                 break
+            t0 = _pc()
             if b"\x00" in data:
                 raise StreamFallback("NUL in chunk")
             try:
@@ -1136,9 +1191,12 @@ def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
                 # chunk workers and the scan's own threads split the cores
                 ctx.scan_threads = max(1, (os.cpu_count() or 1) // k_workers)
             res = _ChunkResult()
+            res.worker = threading.current_thread().name
             res.nscanned = int(counts.shape[0])
+            res.t_scan = _pc() - t0
             _encode_scanned(ctx, res, data, scratch, starts, lens, data_counts,
                             field_offset, rec_base)
+            res.t_encode = _pc() - t0 - res.t_scan
             if res.error is not None:
                 if res.error[0] == "fallback":
                     raise StreamFallback(res.error[1])
@@ -1149,6 +1207,7 @@ def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
                 c: enc[1] for c, enc in res.cols.items() if len(enc) == 3 and enc[0] == "int"
             }
             typed_live = set(ctx.typed)
+            account(res)
             next_record += res.nscanned
             yield ctx.names, res.cols, res.nrec
             break
@@ -1185,6 +1244,7 @@ def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
             if demoted_now:
                 # new chunks skip the dead speculative work
                 ctx.typed = {c: p for c, p in ctx.typed.items() if c in typed_live}
+            account(res)
             next_record += res.nscanned
             return ctx.names, out, res.nrec
 
@@ -1192,6 +1252,7 @@ def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
         read_error = None
         if k_workers == 1:
             while True:
+                t0 = _pc()
                 try:
                     data = next(chunks_iter, None)
                 except StreamFallback as e:
@@ -1200,9 +1261,10 @@ def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
                 except OSError as e:
                     read_error = e
                     data = None
+                stats["cut"] += _pc() - t0
                 if data is None:
                     break
-                yield emit(_scan_encode_chunk(ctx, data))
+                yield emit(_run_chunk(ctx, data))
         else:
             from collections import deque
             from concurrent.futures import ThreadPoolExecutor
@@ -1214,6 +1276,7 @@ def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
                 while True:
                     # at most K chunks in flight: K encodes + one being cut
                     while not exhausted and len(pending) < k_workers:
+                        t0 = _pc()
                         try:
                             data = next(chunks_iter, None)
                         except StreamFallback as e:
@@ -1224,16 +1287,59 @@ def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
                         except OSError as e:
                             read_error = e
                             data = None
+                        stats["cut"] += _pc() - t0
                         if data is None:
                             exhausted = True
                             break
-                        pending.append(pool.submit(_scan_encode_chunk, ctx, data))
+                        pending.append((pool.submit(_scan_encode_chunk, ctx, data), data))
                     if not pending:
                         break
-                    yield emit(pending.popleft().result())
+                    t0 = _pc()
+                    fut, chunk_data = pending.popleft()
+                    try:
+                        res = fut.result()
+                    except Exception as err:
+                        from ..resilience.retry import TRANSIENT, classify
+
+                        if classify(err) != TRANSIENT:
+                            raise
+                        # a crashed worker: re-run its chunk here, in the
+                        # same head-of-line position, so K stays
+                        # unobservable
+                        from ..utils.observe import telemetry
+
+                        telemetry.count("ingest.worker_recovered")
+                        res = _run_chunk(ctx, chunk_data)
+                    stats["stall"] += _pc() - t0
+                    yield emit(res)
             finally:
                 pool.shutdown(wait=False, cancel_futures=True)
         if read_error is not None:
             raise map_error(read_error, next_record) from read_error
         if cut_error is not None:
             raise cut_error
+
+    # per-stage attribution (recorded only while collecting; no
+    # barriers): cut = readahead read + parity cut, encode = worker busy
+    # time (summed over workers, so above wall time when they overlap),
+    # reorder-stall = the reassembler's head-of-line waits
+    from ..obs.span import tracer
+    from ..utils.observe import telemetry
+
+    rows = stats["rows"]
+    telemetry.add_stage("ingest:cut", rows, rows, stats["cut"], chunks=stats["chunks"])
+    telemetry.add_stage(
+        "ingest:encode", rows, rows, stats["scan"] + stats["encode"],
+        workers=k_workers,
+        scan_s=round(stats["scan"], 4),
+        encode_s=round(stats["encode"], 4),
+        per_worker_busy_s={k: round(v, 4) for k, v in sorted(stats["per_worker"].items())},
+    )
+    if k_workers > 1:
+        telemetry.add_stage("ingest:reorder-stall", rows, rows, stats["stall"],
+                            workers=k_workers)
+    # in a trace, each worker's busy time is one span on its own lane
+    if tracer.active():
+        for worker, busy_s in sorted(stats["per_worker"].items()):
+            tracer.add_span("ingest:encode-worker", float(busy_s),
+                            lane=f"ingest-w{worker}", worker=worker)

@@ -329,11 +329,15 @@ class DeviceIndex:
         n = int(self.table.nrows)
         if n == 0:
             return
+        from ..utils.observe import telemetry
+
         step = max(1, -(-n // self.BUILD_SAMPLE))
         if self.packed_i32 is not None:
             sample = self.packed_i32[::step].cpu().numpy()
+            telemetry.count_sync(sample.size)
         else:
             pair = torch.stack([self.packed_hi[::step], self.packed_lo[::step]]).cpu().numpy()
+            telemetry.count_sync(pair.size)
             sample = (pair[0].astype(np.int64) << 31) | pair[1].astype(np.int64)
         vals, cnts = np.unique(sample, return_counts=True)
         from ..obs.joinskew import joinskew
@@ -470,24 +474,38 @@ class DeviceIndex:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(lower, counts) per probe row, both int32 on the probe's device.
         Fewer probe columns than key columns = a prefix probe."""
+        from ..utils.observe import telemetry
+
         self.offer_build_sample()
         k = len(probe_cols)
-        # a typed probe column translates its value lanes against the
-        # parsed build dictionary: the probe side is never demoted
-        codes = [
-            pc.renumbered_to_col(self.table.columns[name])
-            for pc, name in zip(probe_cols, self.key_columns[:k])
-        ]
+        with telemetry.stage("join:translate", nrows):
+            # a typed probe column translates its value lanes against the
+            # parsed build dictionary: the probe side is never demoted
+            codes = [
+                pc.renumbered_to_col(self.table.columns[name])
+                for pc, name in zip(probe_cols, self.key_columns[:k])
+            ]
+            telemetry.barrier(tuple(codes))
         range_size = 1 << (self.shifts[k - 1] if k else 0)
         if self.packed_i32 is not None:
-            if codes:
-                qk = _pack_qk(codes, self.shifts[:k])
-            else:
-                qk = torch.zeros(nrows, dtype=torch.int32, device=self.table.device)
+            with telemetry.stage("join:pack", nrows):
+                if codes:
+                    qk = _pack_qk(codes, self.shifts[:k])
+                else:
+                    qk = torch.zeros(nrows, dtype=torch.int32, device=self.table.device)
+                telemetry.barrier(qk)
             cum = self.direct_cum
-            if cum is not None:
-                return direct_probe_parts(cum, qk, range_size)
-            return _probe_i32(self.packed_i32, qk, range_size)
+            with telemetry.stage("join:probe", nrows) as out:
+                if cum is not None:
+                    out["tier"] = "direct"
+                    ans = direct_probe_parts(cum, qk, range_size)
+                else:
+                    out["tier"] = "broadcast-i32"
+                    ans = _probe_i32(self.packed_i32, qk, range_size)
+                telemetry.barrier(ans)
+            return ans
+        # the two-lane tier records no pack or probe stage, as in the
+        # reference
         ok = torch.ones(nrows, dtype=torch.bool, device=self.table.device)
         clamped = []
         for c in codes:
@@ -535,11 +553,24 @@ def expand_matches_device(
 
 def _probe_stats(counts: torch.Tensor) -> Tuple[int, int]:
     """(total matches, max run length) in one host transfer."""
+    from ..utils.observe import telemetry
+
     if counts.shape[0] == 0:
         return 0, 0
     stats = torch.stack([counts.sum(dtype=torch.int64), counts.max().to(torch.int64)])
     total, maxc = stats.tolist()
+    telemetry.count_sync(2)
     return int(total), int(maxc)
+
+
+def _compact_nonzero(mask: torch.Tensor) -> torch.Tensor:
+    """Row ids where *mask* holds, compacted on the mask's device; the
+    result's size is one host sync (the unique-partial compaction)."""
+    from ..utils.observe import telemetry
+
+    ids = torch.nonzero(mask).squeeze(1)
+    telemetry.count_sync(1)
+    return ids
 
 
 def _checked_probe_cols(
@@ -583,47 +614,57 @@ def join_tables(
         }
         return DeviceTable(out_cols, 0, stream.device)
 
+    from ..utils.observe import telemetry
+
     probe_cols = _checked_probe_cols(stream, columns)
     lower, counts = dev_index.probe(probe_cols, stream.nrows)
-    total, maxc = _probe_stats(counts)
-    probe_ids = None
-    if maxc <= 1 and total == stream.nrows:
-        # every stream row matched once: stream columns pass through
-        # ungathered, build rows are addressed by the lower bounds
-        build_ids = lower.to(torch.int64)
-        expand_paths["unique-identity"] += 1
-    elif maxc <= 1:
-        probe_ids = torch.nonzero(counts > 0).squeeze(1)
-        build_ids = torch.index_select(lower, 0, probe_ids).to(torch.int64)
-        expand_paths["unique-partial"] += 1
-    else:
-        probe_ids, build_ids = expand_matches_device(lower, counts, total)
-        expand_paths["fan-out"] += 1
+    with telemetry.stage("join:expand", stream.nrows) as _exp:
+        total, maxc = _probe_stats(counts)
+        probe_ids = None
+        if maxc <= 1 and total == stream.nrows:
+            # every stream row matched once: stream columns pass through
+            # ungathered, build rows are addressed by the lower bounds
+            build_ids = lower.to(torch.int64)
+            path = "unique-identity"
+        elif maxc <= 1:
+            probe_ids = _compact_nonzero(counts > 0)
+            build_ids = torch.index_select(lower, 0, probe_ids).to(torch.int64)
+            path = "unique-partial"
+        else:
+            probe_ids, build_ids = expand_matches_device(lower, counts, total)
+            path = "fan-out"
+        expand_paths[path] += 1
+        _exp["path"] = path
+        _exp["rows_out"] = total
+        telemetry.barrier((probe_ids, build_ids))
 
     build_names = list(dev_index.table.columns)
     stream_names = list(stream.columns)
-    # kind-agnostic storage arrays (dictionary codes or typed value
-    # lanes): a typed payload column is never demoted by the join
-    g_build = _gather_cols(
-        [dev_index.table.columns[n].storage for n in build_names], build_ids
-    )
-    if probe_ids is None:
-        g_stream = None
-        n_out = stream.nrows
-    else:
-        g_stream = _gather_cols([stream.columns[n].storage for n in stream_names], probe_ids)
-        n_out = total
+    with telemetry.stage("join:merge", stream.nrows) as _mrg:
+        # kind-agnostic storage arrays (dictionary codes or typed value
+        # lanes): a typed payload column is never demoted by the join
+        g_build = _gather_cols(
+            [dev_index.table.columns[n].storage for n in build_names], build_ids
+        )
+        if probe_ids is None:
+            g_stream = None
+            n_out = stream.nrows
+        else:
+            g_stream = _gather_cols([stream.columns[n].storage for n in stream_names], probe_ids)
+            n_out = total
 
-    out_cols = {}
-    for name, arr in zip(build_names, g_build):
-        out_cols[name] = dev_index.table.columns[name].with_storage(arr)
-    for i, name in enumerate(stream_names):  # the stream wins on collision...
-        src = stream.columns[name]
-        g = src if g_stream is None else src.with_storage(g_stream[i])
-        if name in out_cols:
-            # ...but an absent stream cell keeps the index value
-            g = merge_with_fallback(g, out_cols[name])
-        out_cols[name] = g
+        out_cols = {}
+        for name, arr in zip(build_names, g_build):
+            out_cols[name] = dev_index.table.columns[name].with_storage(arr)
+        for i, name in enumerate(stream_names):  # the stream wins on collision...
+            src = stream.columns[name]
+            g = src if g_stream is None else src.with_storage(g_stream[i])
+            if name in out_cols:
+                # ...but an absent stream cell keeps the index value
+                g = merge_with_fallback(g, out_cols[name])
+            out_cols[name] = g
+        _mrg["rows_out"] = n_out
+        telemetry.barrier(tuple(c.storage for c in out_cols.values()))
     return DeviceTable(out_cols, n_out, stream.device)
 
 
@@ -660,6 +701,9 @@ def _multiway_stats(counts: Sequence[torch.Tensor]) -> Tuple[int, int, int]:
         prod = prod * c.to(torch.int64)
     maxp = prod.max() if prod.shape[0] else torch.zeros((), dtype=torch.int64, device=prod.device)
     total, maxp, inter = torch.stack([prod.sum(), maxp, inter]).tolist()
+    from ..utils.observe import telemetry
+
+    telemetry.count_sync(3)
     return int(total), int(maxp), int(inter)
 
 
@@ -703,26 +747,31 @@ def _multiway_expand(
     return probe_ids, tuple(build_ids)
 
 
-def _multiway_ids(lowers, counts, nrows: int, label: str):
+def _multiway_ids(lowers, counts, nrows: int, label: str, stage: dict):
     """(probe ids or None, per-build-side build ids, total, intermediate
     rows avoided) for the multiway fan-out, choosing the path as the
     reference does: every row matched once in every build side (stream
     side passes through), at most once (compaction, each build row is its
-    lower bound), or the cross-product expansion."""
+    lower bound), or the cross-product expansion.  Runs inside the
+    caller's ``join:expand`` stage and records the path and the row
+    count in *stage*."""
     total, maxp, inter = _multiway_stats(counts)
     if maxp <= 1 and total == nrows:
-        expand_paths[f"{label}-unique-identity"] += 1
-        return None, tuple(lo.to(torch.int64) for lo in lowers), total, inter
-    if maxp <= 1:
+        path = f"{label}-unique-identity"
+        probe_ids, build = None, tuple(lo.to(torch.int64) for lo in lowers)
+    elif maxp <= 1:
         mask = counts[0] > 0
         for c in counts[1:]:
             mask = mask & (c > 0)
-        probe_ids = torch.nonzero(mask).squeeze(1)
-        expand_paths[f"{label}-unique-partial"] += 1
+        probe_ids = _compact_nonzero(mask)
+        path = f"{label}-unique-partial"
         build = tuple(torch.index_select(lo, 0, probe_ids).to(torch.int64) for lo in lowers)
-        return probe_ids, build, total, inter
-    expand_paths[f"{label}-fan-out"] += 1
-    probe_ids, build = _multiway_expand(lowers, counts, total)
+    else:
+        path = f"{label}-fan-out"
+        probe_ids, build = _multiway_expand(lowers, counts, total)
+    expand_paths[path] += 1
+    stage["path"] = path
+    stage["rows_out"] = total
     return probe_ids, build, total, inter
 
 
@@ -757,6 +806,7 @@ def multiway_join(
     order, values, errors), with no intermediate table.  *specs* lists
     the cascade's (DeviceIndex, key columns) pairs in cascade order."""
     from ..obs.joinskew import joinskew
+    from ..utils.observe import telemetry
 
     if len(specs) == 1:  # degenerate run: exactly the binary join
         return join_tables(stream, specs[0][0], specs[0][1])
@@ -776,20 +826,27 @@ def multiway_join(
         dev_index.probe(_checked_probe_cols(stream, cols), stream.nrows)
         for dev_index, cols in specs
     ]
-    probe_ids, build_ids, total, inter = _multiway_ids(
-        [lo for lo, _ in answers], [ct for _, ct in answers], stream.nrows, "multiway"
-    )
-    # every build side's answers live at once here (the cascade holds one
-    # side's at a time): free them before the gathers
-    del answers
-    if probe_ids is None:
-        cur = dict(stream.columns)
-        n_out = stream.nrows
-    else:
-        cur = {n: c.with_storage(torch.index_select(c.storage, 0, probe_ids))
-               for n, c in stream.columns.items()}
-        n_out = total
-    cur = _merge_fold(cur, _gather_builds(specs, build_ids))
+    with telemetry.stage("join:expand", stream.nrows) as _exp:
+        _exp["dims"] = len(specs)
+        probe_ids, build_ids, total, inter = _multiway_ids(
+            [lo for lo, _ in answers], [ct for _, ct in answers], stream.nrows,
+            "multiway", _exp,
+        )
+        # every build side's answers live at once here (the cascade holds
+        # one side's at a time): free them before the gathers
+        del answers
+        telemetry.barrier((probe_ids,) + build_ids)
+    with telemetry.stage("join:merge", stream.nrows) as _mrg:
+        if probe_ids is None:
+            cur = dict(stream.columns)
+            n_out = stream.nrows
+        else:
+            cur = {n: c.with_storage(torch.index_select(c.storage, 0, probe_ids))
+                   for n, c in stream.columns.items()}
+            n_out = total
+        cur = _merge_fold(cur, _gather_builds(specs, build_ids))
+        _mrg["rows_out"] = n_out
+        telemetry.barrier(tuple(c.storage for c in cur.values()))
     joinskew.on_multiway(
         "+".join(",".join(di.key_columns) for di, _ in specs),
         len(specs), stream.nrows, n_out, inter,
@@ -825,29 +882,37 @@ def multiway_join_selected(
     validated over the selected rows (the executor raises the host-parity
     errors with the right row numbers)."""
     from ..obs.joinskew import joinskew
+    from ..utils.observe import telemetry
 
     n_sel = int(sel.shape[0])
     answers = [
         dev_index.probe([cols[c] if identity else cols[c].gather(sel) for c in kcols], n_sel)
         for dev_index, kcols in specs
     ]
-    probe_ids, build_ids, total, inter = _multiway_ids(
-        [lo for lo, _ in answers], [ct for _, ct in answers], n_sel, "fused"
-    )
-    del answers  # as in multiway_join: free the answers before the gathers
-    if probe_ids is None:
-        # every selected row matched once per build side: the stream side
-        # is the selection itself (identity: no gather at all)
-        emit = None if identity else sel
-        n_out = n_sel
-    else:
-        emit = probe_ids if identity else torch.index_select(sel, 0, probe_ids)
-        n_out = total
-    if emit is None:
-        cur = dict(cols)
-    else:
-        cur = {n: c.with_storage(torch.index_select(c.storage, 0, emit)) for n, c in cols.items()}
-    cur = _merge_fold(cur, _gather_builds(specs, build_ids))
+    with telemetry.stage("join:expand", n_sel) as _exp:
+        _exp["dims"] = len(specs)
+        probe_ids, build_ids, total, inter = _multiway_ids(
+            [lo for lo, _ in answers], [ct for _, ct in answers], n_sel, "fused", _exp
+        )
+        del answers  # as in multiway_join: free the answers before the gathers
+        telemetry.barrier((probe_ids,) + build_ids)
+    with telemetry.stage("join:merge", n_sel) as _mrg:
+        if probe_ids is None:
+            # every selected row matched once per build side: the stream
+            # side is the selection itself (identity: no gather at all)
+            emit = None if identity else sel
+            n_out = n_sel
+        else:
+            emit = probe_ids if identity else torch.index_select(sel, 0, probe_ids)
+            n_out = total
+        if emit is None:
+            cur = dict(cols)
+        else:
+            cur = {n: c.with_storage(torch.index_select(c.storage, 0, emit))
+                   for n, c in cols.items()}
+        cur = _merge_fold(cur, _gather_builds(specs, build_ids))
+        _mrg["rows_out"] = n_out
+        telemetry.barrier(tuple(c.storage for c in cur.values()))
     if len(specs) >= 2:  # counter parity: the staged binary join never ticks
         joinskew.on_multiway(
             "+".join(",".join(di.key_columns) for di, _ in specs),

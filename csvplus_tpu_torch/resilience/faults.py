@@ -1,7 +1,7 @@
 """Seeded deterministic fault injection.
 
 Copy of ``csvplus_tpu/resilience/faults.py``.  A process-global
-:class:`FaultPlan` arms **injection sites**.  The port threads three:
+:class:`FaultPlan` arms **injection sites**.  The port threads five:
 
 * ``serve:dispatch`` — top of a dispatch cycle in the
   :class:`~csvplus_tpu_torch.serve.coalesce.LookupServer` dispatcher.  A
@@ -16,11 +16,19 @@ Copy of ``csvplus_tpu/resilience/faults.py``.  A process-global
   :func:`~csvplus_tpu_torch.columnar.exec.execute_plan_view`, before the
   stage loop, so a whole plan execution fails (and is re-executed by
   the retry wrapper from the cached executable).
+* ``ingest:worker`` — top of the streamed tier's scan+encode worker
+  (``native/scanner.py:_scan_encode_chunk``).  A ``crash`` raise kills
+  one worker's chunk; the chunk is re-run (it is pure over the
+  immutable stream context), so the worker count stays unobservable,
+  and each recovery counts ``ingest.worker_recovered``.
+* ``ingest:read`` — before each readahead ``f.read`` of the streamed
+  tier's chunk cutter.  An ``io`` raise is an I/O error mid-file,
+  surfaced as a :class:`~csvplus_tpu_torch.errors.DataSourceError` with
+  the absolute 1-based record number.
 
-:data:`SITES` also names the reference's ingest, storage and views sites
-(``ingest:worker``, ``ingest:read``, ``storage:*``, ``views:refresh``),
-so a plan valid there is valid here; their modules are not ported yet
-and nothing fires them.
+:data:`SITES` also names the reference's storage and views sites
+(``storage:*``, ``views:refresh``), so a plan valid there is valid here;
+their modules are not ported yet and nothing fires them.
 
 The disarmed path is one module-global ``None`` check per site
 (:func:`inject`).

@@ -66,6 +66,7 @@ from ..resilience.retry import (
     classify,
 )
 from ..row import Row
+from ..utils.observe import telemetry
 from .admit import AdmissionController, DeadlineExceeded
 from .metrics import ServingMetrics
 from .plancache import PlanCache
@@ -536,6 +537,7 @@ class LookupServer:
             ("serve:bounds", t_a, t_b),
             ("serve:gather-decode", t_b, t_c),
         )
+        t_d = time.perf_counter()
         for req, rows in zip(lookups, groups):
             # clone on delivery: blocks may be shared with the
             # mirror LRU (same contract as iterate/_rows_hint)
@@ -547,6 +549,13 @@ class LookupServer:
                 batch_n=len(lookups),
                 phases=phases,
             )
+        if telemetry.enabled:
+            # how the batch's time splits (stages of the port's own: the
+            # reference records these phases as spans only)
+            n, n_rows = len(lookups), sum(len(g) for g in groups)
+            telemetry.add_stage("serve:bounds", n, n, t_b - t_a)
+            telemetry.add_stage("serve:gather-decode", n, n_rows, t_c - t_b)
+            telemetry.add_stage("serve:deliver", n_rows, n_rows, time.perf_counter() - t_d)
 
     def _execute_plan_with_retry(self, req: ServeFuture):
         """Execute one plan query through the cache, retrying transient

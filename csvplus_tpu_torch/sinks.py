@@ -140,10 +140,13 @@ def to_rows_many(sources) -> List[List[Row]]:
     return out
 
 
-def _write_file(name: str, fn) -> None:
+def _write_file(name: str, fn, mode: str = "w") -> None:
     """Create *name*, run *fn(file)*; on any failure remove the file
-    (csvplus.go:418-443)."""
-    f = open(name, "w", encoding="utf-8", newline="")
+    (csvplus.go:418-443).  ``mode="wb"`` for binary writers."""
+    if "b" in mode:
+        f = open(name, mode)
+    else:
+        f = open(name, mode, encoding="utf-8", newline="")
     try:
         fn(f)
         f.close()  # a failing close (e.g. ENOSPC on flush) also removes it

@@ -30,7 +30,7 @@ Ported so far: ``transform``, ``filter``, ``map``, ``validate``,
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterable, List, Optional, Sequence
+from typing import Any, Callable, Iterable, Iterator, List, Optional, Sequence
 
 from .errors import CsvPlusError, DataSourceError, StopPipeline
 from .row import Row, merge_rows
@@ -85,6 +85,25 @@ class DataSource:
             self._run(fn)
         except StopPipeline:
             return
+
+    def __iter__(self) -> Iterator[Row]:
+        """Pull iteration over the rows.  The push pipeline runs on a
+        helper thread and rows cross a bounded queue
+        (:func:`~csvplus_tpu_torch.utils.relay.relay_iter`), so memory
+        stays constant on long streams; abandoning the iterator stops
+        the producer at its next row."""
+        from .utils.relay import RelayStopped, relay_iter
+
+        def run(emit) -> None:
+            def fn(row: Row) -> None:
+                try:
+                    emit(row)
+                except RelayStopped:
+                    raise StopPipeline from None
+
+            self(fn)
+
+        return relay_iter(run, maxsize=1024)
 
     # -- per-row lazy combinators (csvplus.go:258-310) ---------------------
 

@@ -6,12 +6,20 @@ counters, host-sync accounting — and, whenever a span trace is active in
 the calling context, every stage recorded here ALSO opens a span in that
 trace:
 
-* :data:`telemetry` — opt-in collector of per-stage statistics (a few
-  host ops per stage, never per row).  Mutation is lock-guarded: the
-  serve dispatcher records stages concurrently with readers.  The
-  serving tier writes its ``serve:dispatch`` stage here
-  (``serve/metrics.ServingMetrics.observe_dispatch``); the executor's
-  and ingest's stages are not hooked in the port yet;
+* :data:`telemetry` — opt-in collector of per-stage statistics from the
+  plan executor (``plan:execute`` and one stage per plan node), the
+  joins (``join:translate``, ``join:pack``, ``join:probe``,
+  ``join:expand``, ``join:merge``), ingest (one stage per tier, and the
+  streamed tier's ``ingest:scan`` / ``:place`` / ``:cut`` / ``:encode``
+  / ``:reorder-stall``), the lane dictionaries' deferred sort, typed
+  demotions, the plan verifier's counters and the serving dispatcher (a
+  few host ops per stage, never per row).  Mutation is lock-guarded:
+  ingest workers and the serve dispatcher record concurrently;
+* :meth:`Telemetry.barrier` — while collecting, waits for the card so
+  asynchronous device work lands in the stage that launched it; a
+  strict no-op otherwise;
+* :func:`profile_to` — a ``torch.profiler`` capture of the enclosed
+  run, written into a directory as a Chrome trace;
 * ``torch.profiler.record_function`` pass-through, so stages show up as
   named ranges inside profiler traces.
 """
@@ -149,6 +157,25 @@ class Telemetry:
                 )
             )
 
+    def barrier(self, x):
+        """Wait for the CUDA devices of the tensors in *x* (a tensor or a
+        tuple of tensors and Nones) when collecting, so asynchronous
+        device work lands inside the stage that launched it and the
+        per-stage times are attributable.  A strict no-op when
+        collection is off (no synchronize, no transfer): headline timings
+        run with telemetry off, the stage table with it on.  CPU tensors
+        need no wait.  Returns *x*."""
+        if self.enabled and x is not None:
+            import torch
+
+            devices = set()
+            for t in x if isinstance(x, (tuple, list)) else (x,):
+                if isinstance(t, torch.Tensor) and t.device.type == "cuda":
+                    devices.add(t.device)
+            for d in devices:
+                torch.cuda.synchronize(d)
+        return x
+
     def add_stage(
         self, name: str, rows_in: int, rows_out: int, seconds: float, **extra
     ) -> None:
@@ -264,3 +291,35 @@ def _trace_annotation(name: str):
     with cm:
         yield
 
+
+
+@contextlib.contextmanager
+def profile_to(log_dir: str, device: str = "cuda"):
+    """Capture a ``torch.profiler`` trace of the enclosed run (CPU and
+    CUDA activities; CPU only when *device* is ``"cpu"``) and write it
+    into *log_dir* as a Chrome trace (``csvplus-<pid>-<n>.json``).
+    ``"cuda"`` with no card present raises."""
+    import os
+
+    import torch
+    import torch.profiler as tp
+
+    activities = [tp.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("profile_to: device 'cuda' requested but no CUDA device is present")
+        activities.append(tp.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = tp.profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        n = 0
+        while True:
+            path = os.path.join(log_dir, f"csvplus-{os.getpid()}-{n}.json")
+            if not os.path.exists(path):
+                break
+            n += 1
+        prof.export_chrome_trace(path)

@@ -1,5 +1,5 @@
-"""The port stands alone: ``csvplus_tpu_torch`` and ``chip_smoke.py``
-import neither ``jax`` nor any module of ``csvplus_tpu`` (on the
+"""The port stands alone: ``csvplus_tpu_torch``, ``chip_smoke.py`` and
+``warm_compare.py`` import neither ``jax`` nor any module of ``csvplus_tpu`` (on the
 whole-file and on the streamed ingest tier, with lane dictionaries and
 the vectorized CSV/JSON sinks, and through the plan cache with every
 module the plan-analysis slice added, and through the serving tier with
@@ -7,7 +7,7 @@ every module the serving slice added), its ingest loads its own build of the
 native scanner and never the JAX package's, its device entry points
 refuse ``"cuda"`` where no card is present instead of running on the CPU
 (the streamed tier and the JSON sink's source too), and ``chip_smoke.py``
-fails without a card."""
+and ``warm_compare.py`` fail without a card."""
 
 import ast
 import io
@@ -21,7 +21,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "csvplus_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "csvplus_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                   ROOT / "warm_compare.py"]
 
 MAIN_PATH = r"""
 import io, json, sys, tempfile
@@ -237,3 +238,14 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     )
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_warm_compare_fails_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    res = subprocess.run(
+        [sys.executable, str(ROOT / "warm_compare.py"), str(ROOT)], cwd=tmp_path,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 1 and "no CUDA card" in res.stderr
+    assert '"warm_a"' not in res.stdout
