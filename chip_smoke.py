@@ -7,9 +7,9 @@ Phases; any failure raises, exits non-zero and prints no result line:
 
 1. Device: the card's name, and its name and power limit from nvidia-smi;
    the host's CPU count.
-2. Build: ``csrc/mask.cu`` with nvcc for sm_90a and the native CSV
-   scanner ``native/scanner.cpp`` with g++, both started together;
-   prints the seconds.
+2. Build: ``csrc/mask.cu`` and ``csrc/parse.cu`` with nvcc for sm_90a
+   and the native CSV scanner ``native/scanner.cpp`` with g++, all three
+   started together; prints the seconds.
 3. Mask kernel against its plain PyTorch version on the card, bitwise:
    seeded codes with ~5 % absent cells at n = 10,000,003 (ragged on
    purpose) for k in {1, 2, 8} columns, both modes, IN-lists of 1 and 50
@@ -21,30 +21,44 @@ Phases; any failure raises, exits non-zero and prints no result line:
    absent from the column).  Times the kernel (device time per call, see
    ``_timed``), its bound, the plain version and, for the single-column
    IN-list, ``torch.isin``.
-4. Main path at 10M orders, through the public API on "cuda":
+3b. The field-pack kernel (``csrc/parse.cu``, the device dictionary
+   encode's gather-and-pack) against its plain version on the card,
+   bitwise: 10,000,019 seeded fields of 0 to 4 * lanes bytes at lanes 2, 4
+   and 8, the last field ending at the buffer's last byte.  Times the
+   kernel, its bound and the plain version at phase 4's ``order_id``
+   column (10M fields, 2 lanes; no PyTorch call computes this function),
+   and the seconds of each step of ``encode_column_device`` there.
+4. Main path at 10M orders, through the public API on "cuda", in two
+   legs: the default, where all three files must take the
+   ``device-parsed`` tier (every column a dictionary column, the pack
+   kernel launched once per column), and ``CSVPLUS_DEVICE_PARSE=0``:
    northstar-shaped CSVs written from the seed (orders
    ``order_id,cust_id,prod_id,qty`` x 10,000,000, customers ``id,name``
    x 100,000, products ``prod_id,product,price`` x 1,000);
    ``from_file(...).on_device("cuda")`` for all three, which must take the
    ``native-encoded`` ingest tier (the file is under the streamed tier's
-   256 MiB) with the four orders columns as typed int32 lanes;
+   256 MiB) with the four orders columns as typed int32 lanes.  In each
+   leg:
    ``unique_index_on`` for both build sides, then
    (a) ``filter(Not(Like{prod_id, qty})).join(cust, "cust_id").join(prod)``
    (b) ``filter(Any(Like prod_id p1..p50, Like qty 7))`` with the same joins.
    Each result is held against a numpy oracle built from the generated
    arrays: row count, positional checksums of every column, first rows.
    The mask kernel's launch count must rise, the result must lie on the
-   card, and no orders-side column may be demoted to a dictionary in the
-   cold and warm runs of either pipeline.  Prints warm (a) with the
+   card, and the orders columns keep their kind (no typed column demoted)
+   in the cold and warm runs of either pipeline.  Prints each leg's ingest
+   seconds and warm (a) / (b), and, in the native leg, warm (a) with the
    executor's verifier hook on and off (``CSVPLUS_VERIFY=0``), and the
    hook alone.
 5. The streamed main path at 50M orders (BASELINE config 4's row count in
    phase 4's layout, ~1.2 GB of CSV): the file must be at least 256 MiB
-   and take the ``streamed`` tier with four typed orders columns, at the
-   automatic worker count and again at ``CSVPLUS_INGEST_WORKERS=1``, with
-   equal positional checksums of every column in both runs and against
-   the oracle; pipelines (a) and (b), cold then warm, against the oracle,
-   with mask launches and no demotion; ``(b).to_csv_file`` of all eight
+   and take the ``streamed`` tier with four typed orders columns, under
+   the default (the device chunk encoder, which forces K = 1; four typed
+   columns never reach it) and again with ``CSVPLUS_DEVICE_PARSE=0`` at
+   the automatic worker count, with equal positional checksums of every
+   column in both runs and against the oracle; pipelines (a) and (b),
+   cold then warm, against the oracle, with mask launches and no
+   demotion; ``(b).to_csv_file`` of all eight
    columns and ``(b).top(100000).to_json_file`` equal, byte for byte
    (size and sha256), to files numpy builds from the oracle.  Prints the
    ingest seconds and rows/s per K with the scan-wait / place split, the
@@ -120,13 +134,36 @@ Phases; any failure raises, exits non-zero and prints no result line:
    .filter(Like{name: Amelia}).map(SetValue(name, Julia))
    .to_csv_file(out, "name", "surname")`` over 10,000,000 people in the
    test corpus's layout; the file byte-equal (size, sha256) to numpy's.
-12. A ``{"kernels": [...]}`` line, then the last line
+12. Mutable indexes (``csvplus_tpu_torch.storage``): a durable
+   ``MutableIndex`` on the card over BASELINE config 2's 1M-row layout
+   (phase 9's (s1) file, ``index_on("cust_id")``), its WAL in the data
+   directory, in ``bench_delta.py``'s shape: batches of 2,000 fresh keys
+   to 16 delta tiers, interleaved deletes, a leveled fold, a full merge
+   under two readers probing without a pause (as the bench runs them),
+   a CSV appended with ``append_csv`` (on the card by default), and one
+   more full merge with no reader running.  After each step
+   the tier set's positional checksums equal the port's
+   ``rebuild_reference`` and a numpy oracle of the logical stream;
+   ``MutableIndex.open`` recovers a WAL tail written after the
+   checkpoint checksum-equal; ``LookupServer`` ``append`` /
+   ``delete`` acks read back as the oracle; no kernel is built or loaded
+   in the phase.  Prints append rows/s, ``find`` p50/p99 at 0, 4 and 16
+   tiers, the compactions' seconds and the readers' p99 during the merge.
+13. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
+
+Phases 6, 7, 10 and 11 run under the default too (the device-parse tier
+and the streamed tier's device chunk encoder); their pack kernel
+launches are counted (set to 0 before each path, read after) and listed
+per path.
 
 Phases 4-9 and 11 also hold the mask kernel's wrapper against its plain
 version, bitwise, on the inputs of every call their filters made
 (recorded during the path's run and replayed after its launch count was
-read).
+read).  Phases 4, 6, 7, 10 and 11 hold what the pack kernel returned in
+each of their launches (the path's own buffers, strided columns and
+streamed chunks, recorded during the run) against the plain version on
+the same inputs, bitwise, after the path's launch count was read.
 
 Stage tables (``telemetry.collect()``; stage, records, rows in and out,
 milliseconds, share of the window, counters, host-sync elements) are
@@ -138,11 +175,12 @@ the automatic K (phase 5), one served batch of 32 lookups (phase 9,
 
 Writes its CSVs under ``.chip_smoke_data/`` beside this file and removes
 them at the end.  Needs one card; imports nothing of JAX or csvplus_tpu.
-Phases 4-11 run on the CPU too, at a small size, as a rehearsal:
+Phases 4-12 run on the CPU too, at a small size, as a rehearsal:
 ``run_main_path``, ``run_streamed_path`` (with phases 8 and 9 at its
 end), ``run_lane_path``, ``run_host_dict_path``, ``run_plancache_path``,
-``run_serving_path``, ``run_dedup_path`` and ``run_config1_path`` with
-``device="cpu"``.
+``run_serving_path``, ``run_dedup_path``, ``run_config1_path`` and
+``run_storage_path`` with ``device="cpu"`` (set ``CSVPLUS_DEVICE_PARSE=1``
+to take the tier the card takes by default).
 """
 
 from __future__ import annotations
@@ -169,6 +207,7 @@ STREAM_MIN_BYTES = 256 << 20  # the streamed tier's default threshold
 N_CUST = 100_000
 N_PROD = 1_000
 MASK_ROWS = 10_000_003
+PACK_ROWS = 10_000_019  # the field-pack kernel's bitwise check, ragged on purpose
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # H100 SXM int32 issue rate: 132 SMs x 64 INT32 lanes per SM (NVIDIA H100
 # Tensor Core GPU Architecture whitepaper) at the 1.98 GHz boost clock that
@@ -277,6 +316,58 @@ def check_path_masks(calls, label: str) -> dict:
     return {"cases": len(calls), "max_abs_err": worst}
 
 
+@contextlib.contextmanager
+def recorded_pack_calls(calls=None):
+    """Record the inputs and the output of every call the device encode
+    makes to the pack kernel's wrapper inside the block (appended to
+    *calls* when given); the wrapper still runs (and counts its launches)
+    as usual.  The records hold the path's buffers until they are checked."""
+    from csvplus_tpu_torch.ops import parse as P
+
+    calls = [] if calls is None else calls
+    wrapper = P.pack_field_lanes
+
+    def record(data, starts, lens, lanes):
+        out = wrapper(data, starts, lens, lanes)
+        calls.append((data, starts, lens, lanes, out))
+        return out
+
+    P.pack_field_lanes = record
+    try:
+        yield calls
+    finally:
+        P.pack_field_lanes = wrapper
+
+
+def check_path_packs(calls, label: str, launches: int, device: str) -> dict:
+    """Hold what the pack kernel's wrapper returned in each recorded call
+    against the plain version on the same inputs (the path's own buffers,
+    strided columns and chunks), bitwise; on the card each call is one of
+    the path's *launches*.  No kernel is launched here.  Drops the
+    records as it goes."""
+    import torch
+
+    from csvplus_tpu_torch.ops import parse as P
+
+    n_calls = len(calls)
+    if device == "cuda" and n_calls != launches:
+        raise AssertionError(f"{label}: {n_calls} recorded pack calls, {launches} launches")
+    worst = 0
+    shapes = set()
+    while calls:
+        data, starts, lens, lanes, out = calls.pop()
+        want = P.pack_field_lanes_plain(data, starts, lens, lanes)
+        if out.shape != want.shape or not torch.equal(out, want):
+            raise AssertionError(f"{label}: pack kernel != plain at m={starts.shape[0]} "
+                                 f"lanes={lanes}")
+        if out.numel():
+            worst = max(worst, int((out.to(torch.int64) - want.to(torch.int64)).abs().max()))
+        shapes.add(lanes)
+    log(f"{label}: pack kernel == plain version, bitwise, in the path's {n_calls} calls "
+        f"(lanes {sorted(shapes)})")
+    return {"cases": n_calls, "max_abs_err": worst}
+
+
 def check_mask_kernel(seed: int) -> dict:
     import torch
 
@@ -365,6 +456,115 @@ def check_mask_kernel(seed: int) -> dict:
         timings.append(row)
         log("mask timing " + json.dumps(row))
     return {"max_abs_err": worst, "cases": len(cases), "timings": timings}
+
+
+# -- phase 3b: the field-pack kernel against its plain version --------------
+
+
+def _pack_bound_ms(m: int, lanes: int, field_bytes: int) -> "tuple[float, str]":
+    """Least time for the pack on this card: each field's start and length
+    (8 bytes) and its own bytes read once and 4 * lanes bytes written, or
+    3 int32 operations (a load-select, a shift, an OR) per output byte
+    over the int32 issue rate, whichever is larger."""
+    t_bytes = (m * (8 + 4 * lanes) + field_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = 3 * m * 4 * lanes / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _ids_buffer(n: int, prefix: bytes = b"o") -> "tuple[bytes, np.ndarray, np.ndarray]":
+    """Phase 4's ``order_id`` column alone: ``o<i>`` for i < n, one per
+    line, and each field's start and length."""
+    digits = _digits(np.arange(n))
+    lens = (len(prefix) + (digits != 0).sum(axis=1)).astype(np.int32)
+    data = _lines([_lit(n, prefix), digits, _lit(n, b"\n")])
+    starts = np.zeros(n, np.int64)
+    starts[1:] = np.cumsum(lens[:-1].astype(np.int64) + 1)
+    return data, starts, lens
+
+
+def check_pack_kernel(seed: int) -> dict:
+    """The field-pack kernel (``csrc/parse.cu``) against its plain version
+    on the card, bitwise: seeded bytes (no NUL) cut into *PACK_ROWS*
+    fields of 0 to 4 * lanes bytes (ragged on purpose), lanes 2, 4 and 8,
+    the last field ending at the buffer's last byte.  Then its time, its
+    bound and the plain version's at the main path's shape (phase 4's
+    ``order_id``: 10M fields of 2-8 bytes, 2 lanes), and the seconds of
+    each step of ``encode_column_device`` on that column."""
+    import torch
+
+    from csvplus_tpu_torch.ops import parse as P
+    from csvplus_tpu_torch.ops.lanes import lanes_for_width
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 21)
+    m = PACK_ROWS
+    cases = []
+    worst = 0
+    for lanes in (2, 4, 8):
+        lens = rng.integers(0, 4 * lanes + 1, m).astype(np.int32)
+        lens[-1] = 4 * lanes  # the widest field ends the buffer
+        starts = np.zeros(m, np.int64)
+        starts[1:] = np.cumsum(lens[:-1].astype(np.int64) + 1)
+        n = int(starts[-1] + lens[-1])
+        data = torch.from_numpy(rng.integers(1, 256, n, dtype=np.uint8)).to(dev)
+        st = torch.from_numpy(starts.astype(np.int32)).to(dev)
+        ln = torch.from_numpy(lens).to(dev)
+        got = P.pack_field_lanes(data, st, ln, lanes)
+        want = P.pack_field_lanes_plain(data, st, ln, lanes)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"pack kernel != plain at lanes={lanes}, m={m}")
+        worst = max(worst, err)
+        cases.append({"lanes": lanes, "m": m, "bytes": n})
+        del data, st, ln, got, want
+    log(f"pack kernel == plain version, bitwise, at lanes 2, 4 and 8 (m = {m:,}, fields of "
+        f"0-4*lanes bytes, the last ending at the buffer's last byte)")
+
+    raw, starts, lens = _ids_buffer(N_ORDERS)
+    data = P.upload_bytes(raw, dev)
+    st = torch.from_numpy(starts.astype(np.int32)).to(dev)
+    ln = torch.from_numpy(lens).to(dev)
+    lanes = lanes_for_width(int(lens.max()))
+    ms = _timed(lambda: P.pack_field_lanes(data, st, ln, lanes))
+    plain_ms = _timed(lambda: P.pack_field_lanes_plain(data, st, ln, lanes), reps=3, batches=3)
+    bound, by = _pack_bound_ms(N_ORDERS, lanes, int(lens.sum()))
+    timing = {"m": N_ORDERS, "lanes": lanes, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+              "bound_by": by, "library_ms": None}
+    log("pack timing " + json.dumps(timing))
+
+    # encode_column_device on that column, step by step (host clock, each
+    # step ending in a synchronize)
+    steps = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t0
+        return out
+
+    step("upload_s", lambda: P.upload_bytes(raw, dev))
+    words = step("pack_s", lambda: P.pack_field_lanes(data, st, ln, lanes))
+    codes, n_uniq, first = step("sort_rank_s", lambda: P.encode_lanes(words))
+    k = int(n_uniq)
+    lanes_host = step("download_s", lambda: words.index_select(
+        1, first[:k].to(torch.int64)).cpu().numpy())
+    dictionary = step("dictionary_s", lambda: P.dictionary_from_lanes(
+        lanes_host, int(lens.max())))
+    t0 = time.perf_counter()
+    enc = P.encode_column_device(data, starts, lens)
+    torch.cuda.synchronize()
+    steps["encode_column_device_s"] = time.perf_counter() - t0
+    if k != N_ORDERS or not np.array_equal(enc[0], dictionary) \
+            or not torch.equal(enc[1], codes):
+        raise AssertionError("encode_column_device of the order ids != its steps")
+    want_d = np.sort(np.char.add(b"o", np.arange(N_ORDERS).astype("S")))
+    if not np.array_equal(dictionary, want_d):
+        raise AssertionError("the order ids' dictionary != numpy's sorted ids")
+    log("encode_column_device of 10M order ids, seconds per step " + json.dumps(steps))
+    return {"max_abs_err": worst, "cases": cases, "timing": timing, "encode_steps": steps}
 
 
 # -- phase 4: the main path --------------------------------------------------
@@ -611,11 +811,14 @@ def _index_dims(data: dict, device: str):
     return dims, dims["cust"].unique_index_on("id"), dims["prod"].unique_index_on("prod_id")
 
 
-def run_pipelines(orders, cust, prod, data: dict, device: str, label: str) -> dict:
+def run_pipelines(orders, cust, prod, data: dict, device: str, label: str,
+                  typed_lanes: bool = True) -> dict:
     """Drive pipelines (a) and (b) over *orders*, cold then warm, and hold
     each against the oracle.  The mask kernel's count is set to 0 just
     before and read just after; the launches and the orders-side
-    demotions of that run are checked."""
+    demotions of that run are checked.  *typed_lanes*: the orders columns are
+    typed value lanes (and must stay so), else dictionary columns (the
+    device-parse tier's)."""
     from csvplus_tpu_torch.columnar import typed
     from csvplus_tpu_torch.ops import mask as M
     from csvplus_tpu_torch.utils.checksum import checksum_device_table
@@ -661,14 +864,16 @@ def run_pipelines(orders, cust, prod, data: dict, device: str, label: str) -> di
         log(f"{label} pipeline {name}: {table.nrows:,} rows == oracle (count, positional "
             f"checksums of {len(cols)} columns, first rows); filter+join cold "
             f"{times[0]:.3f}s, warm {times[1]:.3f}s ({n_orders / times[1]:,.0f} rows/s)")
-    # the orders side stays typed value lanes end to end: in the ingested
-    # table and in both pipelines' results, after the checksums and top(3)
+    # the orders side keeps its kind end to end: in the ingested table and
+    # in both pipelines' results, after the checksums and top(3)
     for where, cols in [("ingested orders", orders.plan.table.columns)] + [
         (f"pipeline {name} result", res[0].columns) for name, res in results.items()
     ]:
         for c in ORDERS_COLS:
-            if cols[c].kind != "int" or cols[c]._demoted is not None:
+            if typed_lanes and (cols[c].kind != "int" or cols[c]._demoted is not None):
                 raise AssertionError(f"{label} {where}: column {c} was demoted")
+            if not typed_lanes and cols[c].kind != "str":
+                raise AssertionError(f"{label} {where}: column {c} is {cols[c].kind}")
     out["main_demotions"] = [(p.decode(), n) for p, n in main_demotions]
     if main_demotions:
         raise AssertionError(f"{label}: the main path demoted typed columns: {main_demotions}")
@@ -681,57 +886,106 @@ def run_pipelines(orders, cust, prod, data: dict, device: str, label: str) -> di
     return out
 
 
+def _default_parse_env(device: str) -> dict:
+    """The environment of a path's default run: nothing on the card, where
+    the device-parse tier is on by default; ``CSVPLUS_DEVICE_PARSE=1`` in
+    a CPU rehearsal, where the default is off."""
+    return {} if device == "cuda" else {"CSVPLUS_DEVICE_PARSE": "1"}
+
+
+#: Phase 4's legs: the default (the device-parse tier on the card) and the
+#: native tier with the tier turned off.
+MAIN_LEGS = {"device-parsed": None, "native-encoded": {"CSVPLUS_DEVICE_PARSE": "0"}}
+
+
 def run_main_path(
     n_orders: int, seed: int, device: str, workdir: Path, profile: bool = False
 ) -> dict:
     """Phase 4: drive both pipelines through the public API on *device*
-    and hold them against the oracle.  Returns the launches and the phase
-    times; *profile* adds a ``torch.profiler`` breakdown of one more warm
-    run."""
-    import csvplus_tpu_torch as T
-    from csvplus_tpu_torch.columnar import typed
-
+    and hold them against the oracle, in two legs: the default, where all
+    three files must take the ``device-parsed`` tier (every column a
+    dictionary column, the pack kernel launched once per column), and
+    ``CSVPLUS_DEVICE_PARSE=0``, where they take ``native-encoded`` with the
+    orders columns as typed lanes and no demotion.  Returns each leg's
+    launches and times; *profile* adds a ``torch.profiler`` breakdown of
+    one more warm run of the native leg."""
     t0 = time.perf_counter()
     data = generate(workdir, n_orders, seed)
     log(f"generated {n_orders:,} orders in {time.perf_counter() - t0:.1f}s")
+    out = {"rows": n_orders, "cpu_count": os.cpu_count(), "legs": {}}
+    for leg, env in MAIN_LEGS.items():
+        with _env_set(_default_parse_env(device) if env is None else env):
+            out["legs"][leg] = _main_leg(data, device, leg, profile)
+        gc.collect()  # the leg's tables; a source and its run function form a cycle
+    return out
 
+
+def _main_leg(data: dict, device: str, leg: str, profile: bool) -> dict:
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.columnar import typed
+    from csvplus_tpu_torch.ops import parse as P
+
+    n_orders = data["n"]
     typed.demotions.clear()
-    t0 = time.perf_counter()
-    orders = T.from_file(str(data["paths"]["orders"])).on_device(device)
-    _sync(device)
-    t_ingest = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    dims, cust, prod = _index_dims(data, device)
-    _sync(device)
-    t_index = time.perf_counter() - t0
+    with recorded_pack_calls() as pack_calls:
+        P.launches = 0  # the leg's ingest starts here
+        t0 = time.perf_counter()
+        orders = T.from_file(str(data["paths"]["orders"])).on_device(device)
+        _sync(device)
+        t_ingest = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dims, cust, prod = _index_dims(data, device)
+        _sync(device)
+        t_index = time.perf_counter() - t0
+        pack_launches = P.launches  # ... and ends here
     tiers = {"orders": orders.plan.table.ingest_tier,
              **{k: src.plan.table.ingest_tier for k, src in dims.items()}}
-    if set(tiers.values()) != {"native-encoded"}:
-        raise AssertionError(f"ingest tiers {tiers}, expected native-encoded for all three")
+    if set(tiers.values()) != {leg}:
+        raise AssertionError(f"ingest tiers {tiers}, expected {leg} for all three")
     kinds = {c: orders.plan.table.columns[c].kind for c in ORDERS_COLS}
-    if set(kinds.values()) != {"int"}:
-        raise AssertionError(f"orders column kinds {kinds}, expected four typed int32 columns")
+    want_kind = "int" if leg == "native-encoded" else "str"
+    if set(kinds.values()) != {want_kind}:
+        raise AssertionError(f"orders column kinds {kinds}, expected {want_kind} for all four")
+    n_cols = sum(len(src.plan.table.columns) for src in (orders, *dims.values()))
+    want_packs = n_cols if leg == "device-parsed" and device == "cuda" else 0
+    if pack_launches != want_packs:
+        raise AssertionError(f"{leg}: {pack_launches} pack kernel launches, expected "
+                             f"{want_packs} (one per column of at most 32 bytes)")
+    pack_check = check_path_packs(pack_calls, f"[{leg}] ingest", pack_launches, device)
     index_demotions = list(typed.demotions)
-    log(f"ingest {t_ingest:.2f}s ({n_orders / t_ingest:,.0f} rows/s) on the "
-        f"{tiers['orders']} tier, orders columns {kinds}; index build (ingest, "
-        f"sort, unique check of both dimensions) {t_index:.2f}s; host CPUs {os.cpu_count()}")
+    log(f"[{leg}] ingest {t_ingest:.2f}s ({n_orders / t_ingest:,.0f} rows/s) on the "
+        f"{tiers['orders']} tier, orders columns {kinds}; pack kernel launches "
+        f"{pack_launches} for {n_cols} columns; index build (ingest, sort, unique check of "
+        f"both dimensions) {t_index:.2f}s; host CPUs {os.cpu_count()}")
+    scan_s = None
+    if leg == "device-parsed":
+        # the tier's host part alone: the numpy separator scan of the
+        # orders file (after the ingest, so its seconds are not in it)
+        raw = data["paths"]["orders"].read_bytes()
+        t0 = time.perf_counter()
+        P._offsets_np(np.frombuffer(raw, np.uint8), ord(","), raw.endswith(b"\n"))
+        scan_s = time.perf_counter() - t0
+        del raw
+        log(f"[{leg}] the numpy separator scan of the orders file alone: {scan_s:.2f}s")
 
-    run = run_pipelines(orders, cust, prod, data, device, "10M")
-    out = {"ingest_s": t_ingest, "index_s": t_index, "rows": n_orders,
-           "ingest_tiers": tiers, "cpu_count": os.cpu_count(),
+    run = run_pipelines(orders, cust, prod, data, device, f"10M {leg}",
+                        typed_lanes=leg == "native-encoded")
+    out = {"ingest_s": t_ingest, "index_s": t_index, "ingest_tiers": tiers,
+           "separator_scan_s": scan_s,
            "pipelines": run["pipelines"], "launches": run["launches"],
-           "mask_check": run["mask_check"],
-           "demotions": {"index_build": [(p.decode(), n) for p, n in index_demotions],
+           "pack_launches": pack_launches, "pack_check": pack_check,
+           "mask_check": run["mask_check"], "demotions": {"index_build": [(p.decode(), n) for p, n in index_demotions],
                          "main_path": run["main_demotions"]}}
-    log(f"demotions (prefix, rows): index builds {out['demotions']['index_build']}, "
+    log(f"[{leg}] demotions (prefix, rows): index builds {out['demotions']['index_build']}, "
         f"main path {out['demotions']['main_path']}")
-    out["verifier"] = verifier_cost(run["srcs"]["a"], device)
     src_a = run["srcs"]["a"]
-    _, out["stage_table"] = stage_table(f"warm pipeline (a) at {n_orders:,} orders",
+    _, out["stage_table"] = stage_table(f"[{leg}] warm pipeline (a) at {n_orders:,} orders",
                                         lambda: (src_a.to_device_table(), _sync(device)))
-    out["telemetry_cost"] = telemetry_cost(src_a, device)
-    if profile:
-        profile_pipelines(run["srcs"])
+    if leg == "native-encoded":  # the costs earlier slices measured, on their tier
+        out["verifier"] = verifier_cost(src_a, device)
+        out["telemetry_cost"] = telemetry_cost(src_a, device)
+        if profile:
+            profile_pipelines(run["srcs"])
     return out
 
 
@@ -765,23 +1019,17 @@ def verifier_cost(src, device: str, reps: int = 7) -> dict:
 # -- phase 5: the streamed main path -----------------------------------------
 
 
-def _ingest_streamed(path: str, device: str, workers: "str | None") -> tuple:
-    """``from_file(path).on_device(device)`` with ``CSVPLUS_INGEST_WORKERS``
-    set to *workers* (None: automatic); (source, seconds)."""
+def _ingest_streamed(path: str, device: str, env: dict) -> tuple:
+    """``from_file(path).on_device(device)`` under *env* (with
+    ``CSVPLUS_INGEST_WORKERS`` unset: the automatic K); (source,
+    seconds)."""
     import csvplus_tpu_torch as T
 
-    old = os.environ.pop("CSVPLUS_INGEST_WORKERS", None)
-    if workers is not None:
-        os.environ["CSVPLUS_INGEST_WORKERS"] = workers
-    try:
+    with _env_set({"CSVPLUS_INGEST_WORKERS": None, **env}):
         t0 = time.perf_counter()
         src = T.from_file(path).on_device(device)
         _sync(device)
         return src, time.perf_counter() - t0
-    finally:
-        os.environ.pop("CSVPLUS_INGEST_WORKERS", None)
-        if old is not None:
-            os.environ["CSVPLUS_INGEST_WORKERS"] = old
 
 
 def _sha256(path: Path) -> str:
@@ -856,6 +1104,7 @@ def run_streamed_path(n_orders: int, seed: int, device: str, workdir: Path,
 
     from csvplus_tpu_torch.columnar import typed
     from csvplus_tpu_torch.native.scanner import _ingest_workers
+    from csvplus_tpu_torch.ops import parse as P
     from csvplus_tpu_torch.utils.checksum import checksum_device_table
 
     t0 = time.perf_counter()
@@ -868,18 +1117,23 @@ def run_streamed_path(n_orders: int, seed: int, device: str, workdir: Path,
     want_ingest = ingest_oracle(data)
 
     out = {"rows": n_orders, "bytes": size, "ingest": {}}
-    sums_by_k = {}
+    sums_by_leg = {}
     orders = None
-    # K = 1 first and dropped, so each run's peak device memory is its own
-    for workers in ("1", None):
+    # the default first (on the card the device chunk encoder, which forces
+    # K = 1), then CSVPLUS_DEVICE_PARSE=0 at the automatic K; each run's
+    # peak device memory is its own
+    legs = {"default": _default_parse_env(device), "auto": {"CSVPLUS_DEVICE_PARSE": "0"}}
+    for leg, env in legs.items():
         if device == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        if workers is None:
+        P.launches = 0  # the leg's ingest starts here
+        if leg == "auto":
             (src, secs), out["stage_table_ingest"] = stage_table(
                 f"streamed ingest of {n_orders:,} orders at K = auto",
-                lambda: _ingest_streamed(str(path), device, None))
+                lambda: _ingest_streamed(str(path), device, env))
         else:
-            src, secs = _ingest_streamed(str(path), device, workers)
+            src, secs = _ingest_streamed(str(path), device, env)
+        pack_launches = P.launches  # ... and ends here
         table = src.plan.table
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
         kinds = {c: table.columns[c].kind for c in ORDERS_COLS}
@@ -888,26 +1142,30 @@ def run_streamed_path(n_orders: int, seed: int, device: str, workdir: Path,
                                  "streamed tier with four typed orders columns")
         acct = table.ingest_seconds
         k = acct["workers"]
-        if workers is None and k != _ingest_workers():
-            raise AssertionError(f"automatic K ran {k} workers, expected {_ingest_workers()}")
+        want_k = 1 if leg == "default" else _ingest_workers()
+        if k != want_k:
+            raise AssertionError(f"{leg} ran {k} workers, expected {want_k}")
+        if pack_launches:  # typed columns never reach the encoder
+            raise AssertionError(f"{leg}: {pack_launches} pack launches on four typed columns")
         sums = checksum_device_table(table, list(ORDERS_COLS), positional=True)
         if sums != want_ingest:
-            raise AssertionError(f"K={k}: ingested checksums {sums} != oracle {want_ingest}")
-        sums_by_k[k] = sums
+            raise AssertionError(f"{leg}: ingested checksums {sums} != oracle {want_ingest}")
+        sums_by_leg[leg] = sums
         row = {"workers": k, "seconds": secs, "rows_per_s": n_orders / secs,
                "scan_wait_s": acct["scan_wait"], "place_s": acct["place"],
-               "chunks": acct["chunks"], "peak_device_bytes": peak}
-        out["ingest"]["auto" if workers is None else "K=1"] = row
-        log(f"streamed ingest K={k}: {secs:.2f}s ({n_orders / secs:,.0f} rows/s), "
+               "chunks": acct["chunks"], "peak_device_bytes": peak,
+               "pack_launches": pack_launches, "env": env}
+        out["ingest"][leg] = row
+        log(f"streamed ingest [{leg}] K={k}: {secs:.2f}s ({n_orders / secs:,.0f} rows/s), "
             f"scan-wait {acct['scan_wait']:.2f}s, place {acct['place']:.2f}s, "
-            f"{acct['chunks']} chunks, peak device memory {peak}; tier "
-            f"{table.ingest_tier}, kinds {kinds}, checksums == oracle")
-        if workers is None:
+            f"{acct['chunks']} chunks, peak device memory {peak}, pack launches "
+            f"{pack_launches}; tier {table.ingest_tier}, kinds {kinds}, checksums == oracle")
+        if leg == "auto":
             orders = src
         del src, table
         gc.collect()  # a source and its run function form a cycle
-    if len(set(map(str, sums_by_k.values()))) != 1:
-        raise AssertionError(f"checksums differ across worker counts: {sums_by_k}")
+    if sums_by_leg["default"] != sums_by_leg["auto"]:
+        raise AssertionError(f"checksums differ between the legs: {sums_by_leg}")
 
     typed.demotions.clear()
     dims, cust, prod = _index_dims(data, device)
@@ -959,6 +1217,7 @@ def run_lane_path(n_rows: int, n_refs: int, seed: int, device: str, workdir: Pat
     import csvplus_tpu_torch as T
     from csvplus_tpu_torch.columnar import table as TB
     from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.ops import parse as P
     from csvplus_tpu_torch.utils.checksum import checksum_device_table
 
     rng = np.random.default_rng(seed + 2)
@@ -994,11 +1253,14 @@ def run_lane_path(n_rows: int, n_refs: int, seed: int, device: str, workdir: Pat
     old = os.environ.get("CSVPLUS_DICT_DEVICE_MIN_DISTINCT")
     if lane_threshold is not None:
         os.environ["CSVPLUS_DICT_DEVICE_MIN_DISTINCT"] = str(lane_threshold)
+    pack_calls: list = []
     try:
         TB.lane_sorts.clear()
+        P.launches = 0  # the path's device encodes start here
         t0 = time.perf_counter()
-        src = T.from_file(str(path)).on_device(device)
-        _sync(device)
+        with recorded_pack_calls(pack_calls):
+            src = T.from_file(str(path)).on_device(device)
+            _sync(device)
         t_ingest = time.perf_counter() - t0
     finally:
         if lane_threshold is not None:
@@ -1066,10 +1328,16 @@ def run_lane_path(n_rows: int, n_refs: int, seed: int, device: str, workdir: Pat
     rows = np.flatnonzero(found)
     brow = pos[refs[rows]]
     t0 = time.perf_counter()
-    joined = T.from_file(str(probe)).on_device(device).join(idx, "ref")
+    with recorded_pack_calls(pack_calls):
+        probe_src = T.from_file(str(probe)).on_device(device)
+    joined = probe_src.join(idx, "ref")
     jt = joined.to_device_table()
     _sync(device)
     t_join = time.perf_counter() - t0
+    pack_launches = P.launches  # ... and end here (the probe file's ingest included)
+    if pack_launches <= 0 and device == "cuda":
+        raise AssertionError("the lane path never launched the pack kernel")
+    pack_check = check_path_packs(pack_calls, "lane path", pack_launches, device)
     jwant = {"ref": _positional_sum(_fnv32_mat(id_mat(refs[rows]))),
              "order_id": _positional_sum(_fnv32_mat(id_mat(refs[rows]))),
              "note": _positional_sum(_fnv_affix(b"n", rows)),
@@ -1097,11 +1365,13 @@ def run_lane_path(n_rows: int, n_refs: int, seed: int, device: str, workdir: Pat
     log(f"lane column: unique_index_on sorted the union on {device} once ({t_index:.2f}s, "
         f"{TB.lane_sorts[0]:,} slots); Like filter 1 row == oracle ({t_filter:.3f}s, mask "
         f"launches {launches}); join of {n_refs:,} refs {t_join:.2f}s -> {m:,} rows == oracle; "
-        f"to_csv_file {csv_bytes:,} bytes in {t_csv:.2f}s == oracle bytes")
+        f"to_csv_file {csv_bytes:,} bytes in {t_csv:.2f}s == oracle bytes; pack kernel "
+        f"launches {pack_launches} (K={table.ingest_seconds['workers']})")
     return {"rows": n_rows, "bytes": size, "ingest_s": t_ingest, "checksum_s": t_sum,
             "slots_unsorted": slots, "index_s": t_index, "filter_s": t_filter,
             "join_s": t_join, "join_rows": m, "csv_s": t_csv, "csv_bytes": csv_bytes,
-            "launches": launches, "mask_check": mask_check}
+            "launches": launches, "pack_launches": pack_launches, "pack_check": pack_check,
+            "workers": table.ingest_seconds["workers"], "mask_check": mask_check}
 
 
 # -- phase 7: the streamed tier's host dictionaries ---------------------------
@@ -1123,6 +1393,7 @@ def run_host_dict_path(n_rows: int, seed: int, device: str, workdir: Path) -> di
     to sorted host unions with the codes remapped on the card."""
     import csvplus_tpu_torch as T
     from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.ops import parse as P
     from csvplus_tpu_torch.utils.checksum import checksum_device_table
 
     rng = np.random.default_rng(seed + 3)
@@ -1163,10 +1434,12 @@ def run_host_dict_path(n_rows: int, seed: int, device: str, workdir: Path) -> di
     }
     cols = list(hashes)
 
-    t0 = time.perf_counter()
-    src = T.from_file(str(path)).on_device(device)
-    _sync(device)
-    t_ingest = time.perf_counter() - t0
+    with recorded_pack_calls() as pack_calls:
+        P.launches = 0  # the path's device encodes start here
+        t0 = time.perf_counter()
+        src = T.from_file(str(path)).on_device(device)
+        _sync(device)
+        t_ingest = time.perf_counter() - t0
     table = src.plan.table
     if table.ingest_tier != "streamed":
         raise AssertionError(f"tier {table.ingest_tier}, expected streamed")
@@ -1203,15 +1476,21 @@ def run_host_dict_path(n_rows: int, seed: int, device: str, workdir: Path) -> di
     if hit.nrows != rows.size or got != hwant:
         raise AssertionError(f"filter: {hit.nrows} rows, checksums {got}; oracle "
                              f"{rows.size} rows, {hwant}")
+    pack_launches = P.launches  # ... and end here
     if launches <= 0 and device == "cuda":
         raise AssertionError("the host-dictionary filter never launched the mask kernel")
+    if pack_launches <= 0 and device == "cuda":
+        raise AssertionError("the host-dictionary path never launched the pack kernel")
     mask_check = check_path_masks(calls, "host-dictionary path")
+    pack_check = check_path_packs(pack_calls, "host-dictionary path", pack_launches, device)
     log(f"host dictionaries: filter {rows.size:,} rows == oracle ({t_filter:.3f}s, mask "
-        f"launches {launches})")
+        f"launches {launches}); pack kernel launches {pack_launches}")
     return {"rows": n_rows, "bytes": size, "ingest_s": t_ingest,
             "scan_wait_s": acct["scan_wait"], "place_s": acct["place"],
             "chunks": acct["chunks"], "workers": acct["workers"], "filter_s": t_filter,
-            "filter_rows": int(rows.size), "launches": launches, "mask_check": mask_check}
+            "filter_rows": int(rows.size), "launches": launches,
+            "pack_launches": pack_launches, "pack_check": pack_check,
+            "mask_check": mask_check}
 
 
 # -- phase 8: the plan cache, cascaded and fused -----------------------------
@@ -1234,9 +1513,14 @@ N_EXCEPT_PRODUCTS = 100  # a seeded subset of the 1,000 product ids
 
 @contextlib.contextmanager
 def _env_set(values: dict):
-    """Set environment variables inside the block, restoring them after."""
+    """Set environment variables inside the block (a value of None unsets
+    it), restoring them after."""
     old = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -1888,6 +2172,7 @@ def run_dedup_path(n_rows: int, n_distinct: int, seed: int, device: str, workdir
     ``CSVPLUS_DICT_DEVICE_MIN_DISTINCT`` for a small rehearsal."""
     import csvplus_tpu_torch as T
     from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.ops import parse as P
 
     t0 = time.perf_counter()
     d = _dedup_data(workdir, n_rows, n_distinct, seed)
@@ -1903,8 +2188,9 @@ def run_dedup_path(n_rows: int, n_distinct: int, seed: int, device: str, workdir
         raise AssertionError(f"{size} bytes is under the streamed tier's {STREAM_MIN_BYTES}")
     out = {"rows": n_rows, "bytes": size, "distinct": n_distinct, "groups": oracle["groups"]}
 
-    with recorded_mask_calls() as mask_calls:
+    with recorded_mask_calls() as mask_calls, recorded_pack_calls() as pack_calls:
         M.launches = 0  # the path's run starts here
+        P.launches = 0
         with _env_set({} if lane_threshold is None
                       else {"CSVPLUS_DICT_DEVICE_MIN_DISTINCT": str(lane_threshold)}):
             t0 = time.perf_counter()
@@ -2001,11 +2287,17 @@ def run_dedup_path(n_rows: int, n_distinct: int, seed: int, device: str, workdir
         t_find = time.perf_counter() - t0
         _check_rows(found, want, "phase 10 find_many on the reloaded index")
         launches = M.launches  # ... and ends here
+        pack_launches = P.launches
     if launches and device == "cuda":
         raise AssertionError(f"config 4's dedup launched the mask kernel {launches} times")
+    if pack_launches <= 0 and device == "cuda":
+        raise AssertionError("config 4's ingest never launched the pack kernel")
     out["launches"] = launches
-    log(f"config 4 dedup: mask kernel launches {launches}")
+    out["pack_launches"] = pack_launches
+    log(f"config 4 dedup: mask kernel launches {launches}, pack kernel launches "
+        f"{pack_launches}")
     out["mask_check"] = check_path_masks(mask_calls, "config 4 dedup")
+    out["pack_check"] = check_path_packs(pack_calls, "config 4 dedup", pack_launches, device)
     out["write"] = {"seconds": t_write, "bytes": file_bytes, "rows_per_s": last.size / t_write}
     out["load"] = {"seconds": t_load, "rows_per_s": last.size / t_load}
     out["find_many"] = {"probes": n_find, "seconds": t_find, "lookups_per_s": n_find / t_find}
@@ -2036,6 +2328,7 @@ def run_config1_path(n_rows: int, seed: int, device: str, workdir: Path) -> dict
     plain version."""
     import csvplus_tpu_torch as T
     from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.ops import parse as P
 
     rng = np.random.default_rng(seed + 12)
     name = rng.integers(0, PEOPLE_NAMES.size, n_rows)
@@ -2060,8 +2353,9 @@ def run_config1_path(n_rows: int, seed: int, device: str, workdir: Path) -> dict
     log(f"phase 11: generated {n_rows:,} people ({size:,} bytes) in "
         f"{time.perf_counter() - t0:.1f}s")
     out_path = workdir / "julia.csv"
-    with recorded_mask_calls() as calls:
+    with recorded_mask_calls() as calls, recorded_pack_calls() as pack_calls:
         M.launches = 0  # the path's run starts here
+        P.launches = 0
         t0 = time.perf_counter()
         src = T.from_file(str(path)).on_device(device)
         _sync(device)
@@ -2071,6 +2365,7 @@ def run_config1_path(n_rows: int, seed: int, device: str, workdir: Path) -> dict
             str(out_path), "name", "surname")
         t_pipe = time.perf_counter() - t0
         launches = M.launches  # ... and ends here
+        pack_launches = P.launches
     _same_file(out_path, want, "config 1 to_csv_file")
     out_bytes = out_path.stat().st_size
     tier = src.plan.table.ingest_tier
@@ -2079,14 +2374,316 @@ def run_config1_path(n_rows: int, seed: int, device: str, workdir: Path) -> dict
     if launches <= 0 and device == "cuda":
         raise AssertionError("config 1's filter never launched the mask kernel")
     mask_check = check_path_masks(calls, "config 1")
+    pack_check = check_path_packs(pack_calls, "config 1", pack_launches, device)
     log(f"phase 11 (config 1): ingest {t_ingest:.2f}s on the {tier} tier; filter -> map -> "
         f"to_csv_file {t_pipe:.2f}s ({size / t_pipe / 1e6:.1f} MB/s of input, "
         f"{m:,} rows, {out_bytes:,} bytes) == oracle bytes (size, sha256); mask kernel "
-        f"launches {launches}")
+        f"launches {launches}, pack kernel launches {pack_launches}")
     return {"rows": n_rows, "bytes": size, "ingest_s": t_ingest, "ingest_tier": tier,
             "pipeline_s": t_pipe, "input_mb_per_s": size / t_pipe / 1e6,
             "rows_out": m, "out_bytes": out_bytes, "launches": launches,
+            "pack_launches": pack_launches, "pack_check": pack_check,
             "mask_check": mask_check}
+
+
+# -- phase 12: mutable indexes and the server's writes ------------------------
+
+STORAGE_BATCH_ROWS = 2_000  # bench_delta.py's append batch
+STORAGE_LOOKUPS = 1_500  # bench_delta.py's probes per latency scenario
+
+
+class _StreamOracle:
+    """The logical row stream of a mutable index in numpy: segments of
+    (key, value) 'S' arrays in append order, a delete erasing its key from
+    every earlier segment; :meth:`sums` gives the positional checksums of
+    the stable key order, as ``index_checksums`` of a rebuild gives them."""
+
+    def __init__(self, keys: np.ndarray, vals: np.ndarray):
+        self.segs = [(keys, vals)]
+
+    def append(self, keys: np.ndarray, vals: np.ndarray) -> None:
+        self.segs.append((keys, vals))
+
+    def delete(self, key: bytes) -> None:
+        self.segs = [(k[k != key], v[k != key]) for k, v in self.segs]
+
+    def rows_of(self, key: bytes) -> list:
+        return [{"cust_id": key.decode(), "v": v.decode()}
+                for k, vs in self.segs for v in vs[k == key]]
+
+    def sums(self) -> dict:
+        keys = np.concatenate([k for k, _ in self.segs])
+        vals = np.concatenate([v for _, v in self.segs])
+        order = np.argsort(keys, kind="stable")
+        return {"cust_id": _positional_sum(_fnv32(keys[order])),
+                "v": _positional_sum(_fnv32(vals[order]))}
+
+
+def _delta_batch(start: int, n: int) -> "tuple[list, np.ndarray, np.ndarray]":
+    """bench_delta.py's fresh-key rows ``d<n>`` / ``dv<n>``."""
+    keys = _sbytes(b"d", np.arange(start, start + n))
+    vals = _sbytes(b"dv", np.arange(start, start + n))
+    rows = [{"cust_id": k.decode(), "v": v.decode()} for k, v in zip(keys, vals)]
+    return rows, keys, vals
+
+
+def _latencies(fn, probes) -> dict:
+    lats = []
+    for p in probes:
+        t0 = time.perf_counter()
+        fn(p)
+        lats.append(time.perf_counter() - t0)
+    a = np.asarray(lats)
+    return {"n": len(probes), "p50_ms": float(np.percentile(a, 50)) * 1e3,
+            "p99_ms": float(np.percentile(a, 99)) * 1e3}
+
+
+def run_storage_path(n_rows: int, seed: int, device: str, workdir: Path,
+                     batch_rows: int = STORAGE_BATCH_ROWS,
+                     n_lookups: int = STORAGE_LOOKUPS, reader_pause_s: float = 0.0) -> dict:
+    """Phase 12: a durable ``MutableIndex`` on *device* over BASELINE
+    config 2's layout (``_serve_csv``, *n_rows* rows, ``index_on
+    ("cust_id")``), its WAL in *workdir*, in ``bench_delta.py``'s shape:
+    append batches of *batch_rows* fresh keys up to 16 delta tiers,
+    interleaved deletes, a leveled fold, then a full merge with two
+    readers probing throughout without a pause, as the bench's
+    compaction-pause scenario runs them; after recovery a CSV delta
+    (``append_csv``, which must land on *device*) and a full merge with
+    no reader, which shows what the readers cost the merge
+    (*reader_pause_s* > 0 makes each reader sleep that long after each
+    probe instead).  After each
+    step the live tier set's positional checksums, the port's
+    ``rebuild_reference`` and a numpy oracle of the logical stream agree;
+    a tail of writes after the checkpoint is recovered by ``MutableIndex.open`` checksum-equal; then
+    ``LookupServer.append`` / ``delete`` acks are read back.  No kernel is
+    built or loaded in the whole phase (``RecompileWatch``)."""
+    import torch
+
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.obs.recompile import RecompileWatch
+    from csvplus_tpu_torch.serve import LookupServer
+    from csvplus_tpu_torch.storage import MutableIndex, index_checksums, rebuild_reference
+    from csvplus_tpu_torch.utils.checksum import checksum_device_table
+
+    rng = np.random.default_rng(seed + 13)
+    path, ids = _serve_csv(workdir, n_rows)
+    base_keys, base_vals = _sbytes(b"c", ids), np.arange(n_rows).astype("S")
+    oracle = _StreamOracle(base_keys, base_vals)
+    t0 = time.perf_counter()
+    base = T.from_file(str(path)).on_device(device).index_on("cust_id").sync()
+    wal_dir = workdir / "mutable"
+    mi = MutableIndex(base, mode="append", directory=str(wal_dir))
+    t_create = time.perf_counter() - t0
+    path.unlink()
+    out = {"rows": n_rows, "batch_rows": batch_rows, "create_s": t_create, "steps": {}}
+    log(f"phase 12: durable MutableIndex over {n_rows:,} rows on {mi.device} in "
+        f"{t_create:.2f}s (ingest, index_on, base write, WAL, manifest)")
+
+    def parity(step: str, rebuild: bool = True) -> None:
+        want = oracle.sums()
+        merged = mi.to_index()
+        if merged._impl.dev is not None:
+            got = checksum_device_table(merged._impl.dev.table, ["cust_id", "v"],
+                                        positional=True)
+            if merged._impl.dev.table.device.type != device:
+                raise AssertionError(f"{step}: the merged tiers left {device}")
+        else:
+            got = index_checksums(merged)
+        if got != want:
+            raise AssertionError(f"{step}: tier set checksums {got} != oracle {want}")
+        t_r = None
+        if rebuild:
+            t1 = time.perf_counter()
+            ref = index_checksums(rebuild_reference(mi))
+            t_r = time.perf_counter() - t1
+            if ref != want:
+                raise AssertionError(f"{step}: rebuild_reference {ref} != oracle {want}")
+        out["steps"][step] = {"deltas": mi.delta_count, "rebuild_s": t_r}
+        log(f"phase 12 {step}: {mi.delta_count} delta tiers; checksums == numpy oracle"
+            + (" == rebuild_reference" if rebuild else ""))
+
+    probes = [f"c{v}" for v in rng.choice(ids, n_lookups)]
+    lookups = {}
+    watch = RecompileWatch().__enter__()
+    mi.find_rows_many([(p,) for p in probes[:64]])
+    lookups["0"] = _latencies(mi.find_rows, probes)
+    append_s = 0.0
+    appended = 0
+    for b in range(16):
+        rows, keys, vals = _delta_batch(b * batch_rows, batch_rows)
+        t0 = time.perf_counter()
+        mi.append_rows(rows)
+        append_s += time.perf_counter() - t0
+        appended += batch_rows
+        oracle.append(keys, vals)
+        if mi.delta_count in (4, 16):
+            mi.find_rows_many([(p,) for p in probes[:64]])
+            lookups[str(mi.delta_count)] = _latencies(mi.find_rows, probes)
+    out["append"] = {"rows": appended, "seconds": append_s, "rows_per_s": appended / append_s}
+    out["lookups"] = lookups
+    log(f"phase 12 append {appended / append_s:,.0f} rows/s ({16} batches of {batch_rows:,}, "
+        f"WAL fsync per batch); find p50/p99 ms at 0/4/16 tiers: "
+        + ", ".join(f"{k}: {v['p50_ms']:.3f}/{v['p99_ms']:.3f}" for k, v in lookups.items()))
+
+    # interleaved deletes (base and delta keys) and re-appends
+    for i in range(4):
+        for key in (base_keys[rng.integers(0, n_rows)], _sbytes(b"d", np.array([i * 37]))[0]):
+            mi.delete((key.decode(),))
+            oracle.delete(key)
+        rows, keys, vals = _delta_batch(16 * batch_rows + 64 * i, 64)
+        mi.append_rows(rows)
+        oracle.append(keys, vals)
+    parity("16 tiers + tombstones")
+    t0 = time.perf_counter()
+    step = mi.compact_step(ratio=4)
+    t_fold = time.perf_counter() - t0
+    if step is None or step["kind"] != "partial":
+        raise AssertionError(f"the leveled fold did not run a partial merge: {step}")
+    parity("leveled fold")
+
+    # the full merge under two readers that probe without a pause, as
+    # bench_delta.py's compaction-pause scenario runs them
+    import threading
+
+    n_readers = 2
+    stop = threading.Event()
+    started = threading.Barrier(n_readers + 1)
+    per_thread: list = [[] for _ in range(n_readers)]
+    errs: list = []
+
+    def reader(slot: int) -> None:
+        local = per_thread[slot]
+        try:
+            with torch.cuda.device(mi.device) if device == "cuda" else contextlib.nullcontext():
+                started.wait(timeout=60)
+                i = slot
+                while not stop.is_set():
+                    t1 = time.perf_counter()
+                    mi.find_rows(probes[i % len(probes)])
+                    local.append((t1, time.perf_counter() - t1))
+                    i += n_readers
+                    if reader_pause_s:
+                        time.sleep(reader_pause_s)
+        except BaseException as e:
+            errs.append(e)
+            stop.set()
+
+    threads = [threading.Thread(target=reader, args=(k,)) for k in range(n_readers)]
+    for t in threads:
+        t.start()
+    started.wait(timeout=60)
+    time.sleep(0.05)  # the readers reach a steady state first
+    t_c0 = time.perf_counter()
+    full = mi.compact_once()
+    t_c1 = time.perf_counter()
+    # the pass's own seconds are the merge and the new base's pruner, up to
+    # the swap; the rest is the checkpoint (base file, sidecar, manifest)
+    merge_parts = {"merge_and_pruner_s": full["seconds"],
+                   "checkpoint_s": t_c1 - t_c0 - full["seconds"]}
+    time.sleep(0.05)  # and a tail after it
+    stop.set()
+    for t in threads:
+        t.join(timeout=60)
+        if t.is_alive():
+            raise AssertionError("a reader did not stop")
+    if errs:
+        raise errs[0]
+    during = np.asarray([lat for local in per_thread for ts, lat in local
+                         if t_c0 <= ts <= t_c1])
+    out["compaction"] = {"leveled_fold_s": t_fold, "leveled_fold": step,
+                         "full_merge_s": t_c1 - t_c0, "full_merge": full,
+                         "full_merge_parts_s": merge_parts, "readers": n_readers,
+                         "reader_pause_s": reader_pause_s,
+                         "reads_during": int(during.size),
+                         "reader_p99_ms_during": (float(np.percentile(during, 99)) * 1e3
+                                                  if during.size else None)}
+    parity("full merge")
+    log(f"phase 12 compaction: leveled fold {t_fold:.3f}s ({step['deltas']} tiers -> 1), full "
+        f"merge {t_c1 - t_c0:.3f}s ({full['rows_in']:,} -> {full['rows_out']:,} rows; "
+        f"{merge_parts}) with "
+        f"{during.size} reads during it, reader p99 "
+        f"{out['compaction']['reader_p99_ms_during']} ms")
+
+    # a WAL tail after the checkpoint, then recovery
+    rows, keys, vals = _delta_batch(20 * batch_rows, batch_rows)
+    mi.append_rows(rows)
+    oracle.append(keys, vals)
+    gone = base_keys[rng.integers(0, n_rows)]
+    mi.delete((gone.decode(),))
+    oracle.delete(gone)
+    live = oracle.sums()
+    mi.close()
+    t0 = time.perf_counter()
+    mi = MutableIndex.open(str(wal_dir), ingest_device=device)
+    t_open = time.perf_counter() - t0
+    if mi.recovered_records != 2:
+        raise AssertionError(f"recovery replayed {mi.recovered_records} records, expected 2")
+    parity("recovered")
+    out["recovery"] = {"seconds": t_open, "records": mi.recovered_records, "sums": live}
+    log(f"phase 12 MutableIndex.open {t_open:.2f}s, {mi.recovered_records} WAL records "
+        f"replayed; checksum-equal")
+
+    # a CSV delta through the ingest tiers, on the index's device by default
+    csv_path = workdir / "delta.csv"
+    ids = np.arange(40 * batch_rows, 41 * batch_rows)
+    csv_path.write_bytes(b"cust_id,v\n" + _lines([
+        _lit(batch_rows, b"d"), _digits(ids), _lit(batch_rows, b",dv"), _digits(ids),
+        _lit(batch_rows, b"\n")]))
+    t0 = time.perf_counter()
+    n_csv = mi.append_csv(str(csv_path))
+    t_csv = time.perf_counter() - t0
+    csv_path.unlink()
+    csv_tier = mi.tiers().deltas[-1].index._impl.dev
+    if n_csv != batch_rows or csv_tier is None or csv_tier.table.device.type != device:
+        raise AssertionError(f"append_csv: {n_csv} rows, tier on "
+                             f"{None if csv_tier is None else csv_tier.table.device}")
+    oracle.append(*_delta_batch(40 * batch_rows, batch_rows)[1:])
+    parity("append_csv")
+    # the same full merge with no reader running: what the readers cost it
+    t_c0 = time.perf_counter()
+    quiet = mi.compact_once()
+    t_c1 = time.perf_counter()
+    out["compaction"]["quiet_full_merge_s"] = t_c1 - t_c0
+    out["compaction"]["quiet_full_merge"] = quiet
+    out["append_csv"] = {"rows": n_csv, "seconds": t_csv}
+    parity("quiet full merge")
+    log(f"phase 12 append_csv of {n_csv:,} rows {t_csv:.3f}s on {device}; full merge with no "
+        f"reader {t_c1 - t_c0:.3f}s ({quiet['rows_in']:,} -> {quiet['rows_out']:,} rows; "
+        f"merge and pruner {quiet['seconds']:.3f}s)")
+
+    # the server's write surface: acks, then reads back
+    srv = LookupServer(indexes={"m": mi})
+    with _running(srv):
+        rows, keys, vals = _delta_batch(30 * batch_rows, batch_rows)
+        acks = [srv.submit_append(rows, index="m").result(timeout=120)]
+        oracle.append(keys, vals)
+        gone = keys[7]
+        acks.append(srv.submit_delete(gone.decode(), index="m").result(timeout=120))
+        oracle.delete(gone)
+        back = {k: srv.submit(k.decode(), index="m").result(timeout=120)
+                for k in (keys[0], keys[7], keys[-1], base_keys[3])}
+    if acks != [batch_rows, 1]:
+        raise AssertionError(f"server acks {acks}, expected [{batch_rows}, 1]")
+    for k, got in back.items():
+        if [dict(r) for r in got] != oracle.rows_of(k):
+            raise AssertionError(f"served rows of {k!r}: {got} != {oracle.rows_of(k)}")
+    cell = srv.snapshot()["by_index"]["m"]
+    if (cell["append_reqs"], cell["delete_reqs"], cell["rows_appended"]) != (1, 1, batch_rows):
+        raise AssertionError(f"the server's index cell {cell}")
+    parity("served writes", rebuild=False)
+    watch.__exit__(None, None, None)
+    recompiles = watch.delta()
+    if recompiles:
+        raise AssertionError(f"the storage phase built or loaded kernels: {recompiles}")
+    mi.close()
+    shutil.rmtree(wal_dir, ignore_errors=True)
+    out["server"] = {"acks": acks, "cell": {k: cell[k] for k in (
+        "append_reqs", "delete_reqs", "rows_appended", "deltas_live", "wal_records",
+        "wal_fsyncs")}}
+    out["recompiles"] = sum(recompiles.values())
+    log(f"phase 12 server: append ack {acks[0]:,} rows, delete ack {acks[1]}, reads back == "
+        f"oracle; recompiles (kernels built or loaded) in the phase: {out['recompiles']}")
+    return out
 
 
 def main(argv=None) -> int:
@@ -2117,17 +2714,19 @@ def main(argv=None) -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from csvplus_tpu_torch.native import scanner as S
+    from csvplus_tpu_torch.ops import parse as P
 
     log(f"host CPUs: {os.cpu_count()}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:  # nvcc and g++ together
-        builds = [pool.submit(M.build), pool.submit(S.build)]
+    with ThreadPoolExecutor(max_workers=3) as pool:  # both nvcc and g++ together
+        builds = [pool.submit(M.build), pool.submit(P.build), pool.submit(S.build)]
         for f in builds:
             f.result()
-    log(f"built {M.SOURCE.relative_to(here)} for sm_90a (nvcc) and "
-        f"{S.SOURCE.relative_to(here)} (g++) in {time.perf_counter() - t0:.2f}s")
+    log(f"built {M.SOURCE.relative_to(here)} and {P.SOURCE.relative_to(here)} for sm_90a "
+        f"(nvcc) and {S.SOURCE.relative_to(here)} (g++) in {time.perf_counter() - t0:.2f}s")
 
     mask = check_mask_kernel(args.seed)
+    pack = check_pack_kernel(args.seed)
 
     workdir = here / ".chip_smoke_data"
     workdir.mkdir(exist_ok=True)
@@ -2138,17 +2737,23 @@ def main(argv=None) -> int:
         host_dict = run_host_dict_path(N_HOST_DICT_ROWS, args.seed, "cuda", workdir)
         dedup = run_dedup_path(N_DEDUP_ROWS, N_DEDUP_DISTINCT, args.seed, "cuda", workdir)
         config1 = run_config1_path(N_PEOPLE, args.seed, "cuda", workdir)
+        storage = run_storage_path(N_SERVE_ROWS, args.seed, "cuda", workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     plancache = streamed.pop("plancache")
     serving = streamed.pop("serving")
-    paths = {"10M native-encoded": main_path, "50M streamed": streamed,
+    legs = main_path["legs"]
+    paths = {"10M device-parsed": legs["device-parsed"],
+             "10M native-encoded": legs["native-encoded"], "50M streamed": streamed,
              "50M plan cache": plancache, "serving": serving,
              "14M lane dictionary": lane, "13M host dictionary": host_dict,
              "50M config 4 dedup": dedup, "10M config 1": config1}
     path_cases = sum(p["mask_check"]["cases"] for p in paths.values())
     log(f"mask kernel == plain version, bitwise, in {mask['cases']} matrix cases and "
         f"{path_cases} calls at the paths' own shapes")
+    pack_paths = [p["pack_check"] for p in paths.values() if "pack_check" in p]
+    log(f"pack kernel == plain version, bitwise, in {len(pack['cases'])} matrix cases and "
+        f"{sum(c['cases'] for c in pack_paths)} launches at the paths' own shapes")
 
     shape = mask["timings"][0]  # pipeline (a)'s shape: k = 2, "all", one target each
     kernels = [{
@@ -2172,7 +2777,31 @@ def main(argv=None) -> int:
         "bound_by": shape["bound_by"],
         "library_ms": shape["library_ms"],
         "shape": f"n={shape['n']} k={shape['k']} mode={shape['mode']}",
+    }, {
+        "name": "pack_field_lanes",
+        "route": "cuda",
+        "source": "csvplus_tpu_torch/csrc/parse.cu",
+        "replaces": "csvplus_tpu/ops/parse.py:78",
+        # phase 4's default leg: one launch per column of the three files
+        "launches": legs["device-parsed"]["pack_launches"],
+        "launches_by_path": {
+            "10M device-parsed": legs["device-parsed"]["pack_launches"],
+            "10M native-encoded": legs["native-encoded"]["pack_launches"],
+            **{f"50M streamed {leg}": v["pack_launches"]
+               for leg, v in streamed["ingest"].items()},
+            "14M lane dictionary": lane["pack_launches"],
+            "13M host dictionary": host_dict["pack_launches"],
+            "50M config 4 dedup": dedup["pack_launches"],
+            "10M config 1": config1["pack_launches"]},
+        "max_abs_err": max([pack["max_abs_err"]] + [c["max_abs_err"] for c in pack_paths]),
+        "ms": pack["timing"]["ms"],
+        "plain_ms": pack["timing"]["plain_ms"],
+        "bound_ms": pack["timing"]["bound_ms"],
+        "bound_by": pack["timing"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
+        "shape": f"m={pack['timing']['m']} lanes={pack['timing']['lanes']}",
     }]
+    log("pack kernel phase " + json.dumps(pack))
     log("main path phases " + json.dumps(main_path))
     log("streamed path phases " + json.dumps(streamed))
     log("plan cache path phases " + json.dumps(plancache))
@@ -2181,6 +2810,7 @@ def main(argv=None) -> int:
     log("host dictionary path phases " + json.dumps(host_dict))
     log("config 4 dedup path phases " + json.dumps(dedup))
     log("config 1 path phases " + json.dumps(config1))
+    log("storage path phases " + json.dumps(storage))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,8 +3,9 @@
 The same fluent pipeline API as ``csvplus_tpu`` (which stays in the repo
 as the reference), with the device path written in PyTorch for an NVIDIA
 H100, the reference's Pallas kernel rewritten by hand in CUDA C++
-(``csrc/mask.cu``), and the reference's native CSV scanner copied and
-built with ``g++`` (``native/scanner.cpp``).  The port imports neither
+(``csrc/mask.cu``), the device dictionary encode's field pack written by
+hand too (``csrc/parse.cu``), and the reference's native CSV scanner
+copied and built with ``g++`` (``native/scanner.cpp``).  The port imports neither
 ``jax`` nor any module of ``csvplus_tpu``: it keeps its own copies of the
 host modules it needs.
 
@@ -20,10 +21,11 @@ Device entry points run on ``"cuda"`` unless the caller asks for
         .join(cust, "cust_id").join(prod).to_rows()
 
 Point lookups batch through ``Index.find_many``, and concurrent callers
-share batches through ``csvplus_tpu_torch.serve.LookupServer``.
-``Index.write_to`` / ``load_index`` persist an index in the reference's
-file formats, and ``telemetry.collect()`` / ``profile_to`` observe a
-run stage by stage.
+share batches through ``csvplus_tpu_torch.serve.LookupServer``, which
+also takes appends and deletes into a ``storage.MutableIndex`` (delta
+tiers, a WAL, compaction).  ``Index.write_to`` / ``load_index`` persist an
+index in the reference's file formats, and ``telemetry.collect()`` /
+``profile_to`` observe a run stage by stage.
 """
 
 from .errors import CsvPlusError, DataSourceError, StopPipeline
@@ -37,6 +39,7 @@ from .exprs import Rename, SetValue, Update
 from . import obs
 from . import plan
 from . import serve
+from . import storage
 from .utils import telemetry, profile_to
 
 # Go-style aliases (the reference API names)
@@ -82,6 +85,7 @@ __all__ = [
     "obs",
     "plan",
     "serve",
+    "storage",
     "telemetry",
     "profile_to",
     "Take",

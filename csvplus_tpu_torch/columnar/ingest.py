@@ -1,10 +1,10 @@
 """CSV / Index -> DeviceTable ingestion.
 
-Port of ``csvplus_tpu/columnar/ingest.py`` without its device-parse
-tier and its sharded (mesh) ingest.  ``from_file(...).on_device("cuda")``
-parses the CSV with the Reader's exact header and field-count policies
-and row-numbered errors, encodes each column on the host and uploads it.
-The tiers, in the reference's order:
+Port of ``csvplus_tpu/columnar/ingest.py`` without its sharded (mesh)
+ingest.  ``from_file(...).on_device("cuda")`` parses the CSV with the
+Reader's exact header and field-count policies and row-numbered errors,
+encodes each column and places it on the device.  The tiers, in the
+reference's order:
 
 0. ``streamed``, for files of ``CSVPLUS_STREAM_MIN_BYTES`` (256 MiB) and
    more: the file is read in chunks of ``CSVPLUS_STREAM_CHUNK_BYTES``
@@ -12,21 +12,27 @@ The tiers, in the reference's order:
    (:func:`~csvplus_tpu_torch.native.scanner.stream_encoded_chunks`) and
    uploaded chunk by chunk (:func:`_stream_to_table`); only
    :class:`~csvplus_tpu_torch.native.scanner.StreamFallback` drops to
-   the whole-file tiers below;
-1. ``native-encoded``: the native scanner and a vectorized encode
+   the whole-file tiers below.  With the device-parse policy on, its
+   string columns are encoded on the device per chunk
+   (:func:`_device_chunk_encoder`), which forces K = 1;
+1. ``device-parsed``, when :func:`_device_parse_enabled`: the numpy
+   separator scan, one upload of the bytes and the dictionary encode on
+   the device (:func:`~csvplus_tpu_torch.native.scanner.read_device_parsed_columns`,
+   :mod:`~csvplus_tpu_torch.ops.parse`); every column comes out a
+   dictionary column, none typed, as in the reference;
+2. ``native-encoded``: the native scanner and a vectorized encode
    (:func:`~csvplus_tpu_torch.native.scanner.read_encoded_columns_native`),
    no per-cell Python strings; ``prefix + canonical int32`` columns
    become typed value lanes
    (:class:`~csvplus_tpu_torch.columnar.typed.IntColumn`);
-2. ``native-strings``: the native scanner, Python strings per cell, then
+3. ``native-strings``: the native scanner, Python strings per cell, then
    dictionary encoding (:func:`_read_columns_fast`);
-3. ``python``: the Reader's own ``read_columns``.
+4. ``python``: the Reader's own ``read_columns``.
 
 A tier declines only for the reference's reasons of semantics (see
-:mod:`~csvplus_tpu_torch.native.scanner`); a scanner that cannot be
-built or loaded raises.  The tier that ran is recorded on the table as
-``ingest_tier``.  The reference's device-parse tier (and the streamed
-tier's device chunk encoder) is not ported yet.
+:mod:`~csvplus_tpu_torch.native.scanner`); a scanner or kernel that
+cannot be built or loaded raises.  The tier that ran is recorded on the
+table as ``ingest_tier``.
 """
 
 from __future__ import annotations
@@ -63,9 +69,9 @@ def _encoded_nrows(value) -> int:
 def _ingest(reader, device) -> DeviceTable:
     """The first tier that accepts *reader*'s input, as a DeviceTable.
     Each tier that ran records one telemetry stage (``ingest:streamed``,
-    ``ingest:native-encoded``, or ``ingest:python`` for both string
-    tiers, as the reference names them); a tier that declines records
-    nothing."""
+    ``ingest:device-parsed``, ``ingest:native-encoded``, or
+    ``ingest:python`` for both string tiers, as the reference names
+    them); a tier that declines records nothing."""
     from ..utils.observe import telemetry
 
     path = getattr(reader, "_path", None)
@@ -80,6 +86,21 @@ def _ingest(reader, device) -> DeviceTable:
             return table
         except StreamFallback:
             pass  # the reference's reasons only; everything else raises
+    if path is not None and _device_parse_enabled(device):
+        from ..native import scanner
+
+        with telemetry.stage("ingest:device-parsed", 0) as _t:
+            enc = scanner.read_device_parsed_columns(reader, path, device)
+            if enc is not None:
+                names, data = enc
+                nrows = _encoded_nrows(data[names[0]]) if names else 0
+                table = DeviceTable.from_encoded({n: data[n] for n in names}, nrows, device)
+                _t["rows_out"] = nrows
+            else:
+                _t["discard"] = True
+        if enc is not None:
+            table.ingest_tier = "device-parsed"
+            return table
     if path is not None:
         from ..native import scanner
 
@@ -207,6 +228,7 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
     from .typed import IntColumn, format_affix
 
     dev = resolve_device(device)
+    encoder = _device_chunk_encoder(dev) if _device_parse_enabled(dev) else None
     _pc = time.perf_counter
     # what "place" is made of (host seconds, the ingest:place stage's
     # extras): pinned staging + copy enqueue, dtype narrowing, the running
@@ -268,7 +290,10 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
                 dt = np.dtype(f"S{max_width[c]}")
                 running_union[c] = np.union1d(ru.astype(dt), d.astype(dt))
                 parts["union_s"] += _pc() - t0
-        chunk_codes[c].append(upload(narrowed(_narrow_codes, codes, d.size)))
+        if isinstance(codes, np.ndarray):
+            codes = upload(narrowed(_narrow_codes, codes, d.size))
+        # codes the device encoder made are int32 on the card already
+        chunk_codes[c].append(codes)
         if chunk_lanes[c] or (
             not host_only[c]
             and running_union[c] is not None
@@ -294,8 +319,9 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
             add_dict_chunk(c, dd, cc.astype(np.int32))
         int_vals[c] = []
 
-    workers = _ingest_workers()
-    chunks = stream_encoded_chunks(reader, path, workers=workers)
+    # the device chunk encoder needs one upload stream: K = 1
+    workers = 1 if encoder is not None else _ingest_workers()
+    chunks = stream_encoded_chunks(reader, path, encoder=encoder, workers=workers)
     if prefetch_depth > 0:
         # overlap chunk N+1's read + scan + encode (a producer thread)
         # with chunk N's uploads and bookkeeping (this thread)
@@ -418,6 +444,81 @@ def _prefetch_iter(gen, depth: int):
             emit(item)
 
     return relay_iter(run, maxsize=depth)
+
+
+def _device_chunk_encoder(device: torch.device):
+    """Per-chunk column encoder that runs the dictionary encode on the
+    device (:func:`~csvplus_tpu_torch.ops.parse.encode_column_device`):
+    each chunk's bytes go up once and every string column's codes are born
+    on the device.  It declines (None) a column with a field over 32 bytes
+    and a chunk of 2 GiB or more (int32 offsets); the scanner then encodes
+    on the host."""
+    state: dict = {}
+
+    def encode(combined, col_starts, col_lens):
+        from ..ops.parse import encode_column_device, upload_bytes
+
+        if combined.shape[0] >= 2**31:
+            return None  # int32 offsets would wrap
+        if state.get("combined") is not combined:
+            # holding the array keeps the identity check sound (one chunk
+            # of host memory, freed with the next chunk)
+            state["combined"] = combined
+            state["dev"] = upload_bytes(combined, device)
+        return encode_column_device(state["dev"], col_starts, col_lens)
+
+    return encode
+
+
+_link_rtt_cache: "dict[str, float]" = {}
+
+
+def link_rtt_ms(device="cuda") -> float:
+    """The round trip of a tiny dispatch + sync to *device*, in
+    milliseconds: the median of 3 probes after a warm-up, cached per
+    process and device.  A card on the host's own bus answers in well
+    under a millisecond."""
+    from .table import resolve_device
+
+    dev = resolve_device(device)
+    key = str(dev)
+    if key in _link_rtt_cache:
+        return _link_rtt_cache[key]
+    x = torch.zeros(8, dtype=torch.int32, device=dev)
+    int(x.sum())  # warm: the first launch loads the module
+    samples = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        int(x.sum())
+        samples.append((time.perf_counter() - t0) * 1000.0)
+    rtt = sorted(samples)[1]
+    _link_rtt_cache[key] = rtt
+    return rtt
+
+
+_DEVICE_PARSE_MAX_RTT_MS = 20.0
+
+
+def _device_parse_enabled(device="cuda") -> bool:
+    """The device-parse tier's policy, as the reference's: on by default
+    for an accelerator whose measured round trip (:func:`link_rtt_ms`) is
+    at most ``CSVPLUS_DEVICE_PARSE_MAX_RTT_MS`` (default 20 ms), off on the
+    CPU; ``CSVPLUS_DEVICE_PARSE=1`` / ``=0`` forces it on or off.  The
+    reference keys it on JAX's default backend; the port on the *target*
+    device of the ingest (ROADMAP §3)."""
+    from ..utils.env import env_str
+
+    flag = env_str("CSVPLUS_DEVICE_PARSE")
+    if flag is not None:
+        return flag == "1"
+    if torch.device(device).type == "cpu":
+        return False
+    v = env_str("CSVPLUS_DEVICE_PARSE_MAX_RTT_MS")
+    try:
+        thresh = float(v) if v else _DEVICE_PARSE_MAX_RTT_MS
+    except ValueError:
+        thresh = _DEVICE_PARSE_MAX_RTT_MS
+    return link_rtt_ms(device) <= thresh
 
 
 def _concat_lanes_device(lanes_list, n_lanes: int) -> tuple:

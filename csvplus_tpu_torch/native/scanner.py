@@ -1,14 +1,16 @@
 """ctypes binding and build of the port's native CSV scanner.
 
-Port of ``csvplus_tpu/native/scanner.py`` without its device-parse
-tier: the scan (single pass and threaded over newline-aligned chunks),
-the vectorized dictionary encode of a column straight from field
-offsets, the typed ``prefix + canonical int32`` parse (per column,
-strided over rectangular chunks, and fused with the tokenizer), the C++
-itoa, the two whole-file ingest tiers built on them
-(:func:`read_encoded_columns_native` and :func:`read_columns_native`),
-and the streamed tier's staged chunk pipeline
-(:func:`stream_encoded_chunks`).
+Port of ``csvplus_tpu/native/scanner.py``: the scan (single pass and
+threaded over newline-aligned chunks), the vectorized dictionary encode
+of a column straight from field offsets, the typed ``prefix + canonical
+int32`` parse (per column, strided over rectangular chunks, and fused
+with the tokenizer), the C++ itoa, the two whole-file ingest tiers built
+on them (:func:`read_encoded_columns_native` and
+:func:`read_columns_native`), the device-parse tier
+(:func:`read_device_parsed_columns`: numpy field offsets, the dictionary
+encode on the device through :mod:`..ops.parse`), and the streamed
+tier's staged chunk pipeline (:func:`stream_encoded_chunks`), whose
+``encoder`` hook encodes string columns chunk by chunk on the device.
 
 ``scanner.cpp`` is compiled with ``g++ -O3`` at first use into
 ``csvplus_tpu_torch/_build/``, under a name that carries a hash of the
@@ -700,6 +702,53 @@ def read_encoded_columns_native(reader, path: str):
     return list(header), out
 
 
+def read_device_parsed_columns(reader, path: str, device="cuda"):
+    """The device-encode ingest tier (:mod:`..ops.parse`): the separator
+    scan and field offsets run in numpy (the host consumes them at once),
+    the bytes go to *device* once, and the dictionary encode runs there;
+    the host touches only the header fields and the unique values.
+
+    Simple rectangular CSV only (no quotes, CR, comments or blank lines;
+    a one-byte delimiter, no trimmed leading space).  Returns ``(names,
+    {name: (dictionary, codes)})`` with the codes on *device*, or None to
+    decline.  A column with a field over 32 bytes is encoded on the host
+    from the same offsets.  No column comes back typed: this tier makes
+    dictionaries only, as the reference's does."""
+    if (
+        reader._trim_leading_space
+        or reader._comment is not None
+        or len(reader._delimiter.encode("utf-8")) != 1
+    ):
+        return None
+    from ..ops.parse import encode_column_device, parse_simple_csv_device
+
+    with open(path, "rb") as f:
+        data = f.read()
+    parsed = parse_simple_csv_device(data, reader._delimiter, device)
+    if parsed is None:
+        return None
+    starts, lens, counts, data_dev = parsed
+
+    header, rec_base, field_offset, data_counts, _ = _resolve_header_from_arrays(
+        reader, data, b"", starts, lens, counts
+    )
+
+    combined = np.frombuffer(data, dtype=np.uint8)
+    out = {}
+    pad_allowed = reader._num_fields < 0
+    for name, pos, ok in _column_positions(data_counts, field_offset, header, rec_base,
+                                           pad_allowed):
+        col_starts = np.where(ok, starts[np.where(ok, pos, 0)], 0)
+        col_lens = np.where(ok, lens[np.where(ok, pos, 0)], 0).astype(np.int32)
+        enc = encode_column_device(data_dev, col_starts, col_lens)
+        if enc is None:  # wide fields: the vectorized host encode, same offsets
+            enc = encode_fields_vectorized(combined, col_starts, col_lens)
+        if enc is None:
+            return None
+        out[name] = enc
+    return list(header), out
+
+
 class _EncodeFallback(Exception):
     """A column declined the vectorized encode (an over-long field); the
     caller abandons the whole encode at once."""
@@ -883,10 +932,11 @@ class _StreamCtx:
     normalizes that result."""
 
     __slots__ = ("reader", "header", "names", "expected", "pad_allowed", "typed",
-                 "fused_ncols", "delim_b", "scan_threads")
+                 "fused_ncols", "encoder", "delim_b", "scan_threads")
 
-    def __init__(self, reader):
+    def __init__(self, reader, encoder=None):
         self.reader = reader
+        self.encoder = encoder
         self.header = None
         self.names = []
         self.expected = reader._num_fields
@@ -925,8 +975,7 @@ def _encode_scanned(ctx, res, data, scratch, starts, lens, data_counts, field_of
     header = ctx.header
     typed = ctx.typed  # one read: the reassembler may swap in a new dict
     # scratch holds unescaped quoted content; negative starts index it
-    enc_data = data + scratch if scratch else data
-    combined = np.frombuffer(enc_data, dtype=np.uint8)
+    combined = np.frombuffer(data + scratch if scratch else data, dtype=np.uint8)
     base = len(data)
     abs_starts = np.where(starts >= 0, starts, base + (-starts - 1)) if scratch else starts
     # rectangular chunks: column idx of record r is flat field
@@ -978,13 +1027,27 @@ def _encode_scanned(ctx, res, data, scratch, starts, lens, data_counts, field_of
             packed = pack_int32_native(combined, col_starts, col_lens, prefix)
             if packed is not None:
                 return name, ("int", packed[0], packed[1])
-        enc = encode_fields_vectorized(combined, col_starts, col_lens)
+        # the device encoder (when given) after the typed attempt; it
+        # declines (None) a column it cannot take, and the host encodes it
+        enc = (
+            ctx.encoder(combined, col_starts, col_lens)
+            if ctx.encoder is not None
+            else None
+        )
+        if enc is None:
+            enc = encode_fields_vectorized(combined, col_starts, col_lens)
         if enc is None:
             raise StreamFallback("field too long for vectorized encode")
         return name, enc
 
     try:
-        out = dict(_map_columns(enc_one, cols))
+        # device-encoded chunks stay serial (one upload stream); host
+        # encodes thread across columns
+        out = dict(
+            [enc_one(c) for c in cols]
+            if ctx.encoder is not None
+            else _map_columns(enc_one, cols)
+        )
     except StreamFallback as e:
         res.error = ("fallback", str(e))
         return
@@ -1087,7 +1150,7 @@ def _run_chunk(ctx, data):
 
 
 def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
-                          workers: Optional[int] = None):
+                          encoder=None, workers: Optional[int] = None):
     """Generator over record-aligned chunks of *path*, each scanned and
     encoded natively with no per-cell Python objects.
 
@@ -1112,6 +1175,12 @@ def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
     every error's row number are the same for every K; K = 1 drives the
     same worker function inline.
 
+    *encoder*, when given, is tried for each column after the typed
+    attempt: ``encoder(combined_u8, col_starts, col_lens)`` returns
+    ``(dictionary, codes)`` (codes may lie on the device) or None to
+    decline, and then the host encode runs.  It is the hook of the
+    device-encode tier, and it forces K = 1 (one upload stream).
+
     Raises :class:`StreamFallback` for the reference's reasons (see the
     class) and :class:`DataSourceError` with absolute 1-based record
     numbers for header and field-count errors.
@@ -1124,6 +1193,8 @@ def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
         raise StreamFallback("comment")
     chunk_bytes = chunk_bytes or _stream_chunk_bytes()
     k_workers = max(1, workers if workers is not None else _ingest_workers())
+    if encoder is not None:
+        k_workers = 1  # the device-encode hook: one upload stream, inline
     typed_enabled = os.environ.get("CSVPLUS_TYPED_LANES", "1") != "0"
     next_record = 1  # absolute 1-based ordinal of the next record scanned
     typed_live: set = set()  # columns still typed, in file order
@@ -1177,7 +1248,7 @@ def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
             header, rec_base, field_offset, data_counts, expected = (
                 _resolve_header_from_arrays(reader, data, scratch, starts, lens, counts)
             )
-            ctx = _StreamCtx(reader)
+            ctx = _StreamCtx(reader, encoder)
             ctx.header = header
             ctx.names = list(header)
             ctx.expected = expected

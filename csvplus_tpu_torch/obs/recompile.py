@@ -3,8 +3,9 @@
 The reference counts, per registered ``jax.jit`` kernel, the lowerings
 jax caches; a count that grows between two snapshots is a recompile.
 Torch eager keeps no lowering cache, and the port's device work is torch
-ops plus two binaries built from the checkout: the CUDA mask kernel
-(``csrc/mask.cu``, nvcc) and the native CSV scanner
+ops plus three binaries built from the checkout: the CUDA mask kernel
+(``csrc/mask.cu``, nvcc), the CUDA field-pack kernel of the device
+dictionary encode (``csrc/parse.cu``, nvcc) and the native CSV scanner
 (``native/scanner.cpp``, g++).  So here each count is **how many times
 that binary was built or loaded into this process** — the event a warm
 pass must never repeat.  The names and the workflow are the

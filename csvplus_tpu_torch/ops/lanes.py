@@ -73,17 +73,14 @@ def unpack_host(lane_arrays: "List[np.ndarray]") -> np.ndarray:
     bytes array (trailing NULs trimmed by the dtype)."""
     lanes = len(lane_arrays)
     n = lane_arrays[0].shape[0]
-    width = 4 * lanes
     if n == 0:
         return np.empty(0, dtype="S1")
-    mat = np.empty((n, width), dtype=np.uint8)
+    # undo the sign flip, then each row's lanes as big-endian words are
+    # its bytes in order
+    words = np.empty((n, lanes), dtype=">u4")
     for w, lane in enumerate(lane_arrays):
-        word = lane.astype(np.int32) ^ _SIGN
-        mat[:, 4 * w] = (word >> 24) & 0xFF
-        mat[:, 4 * w + 1] = (word >> 16) & 0xFF
-        mat[:, 4 * w + 2] = (word >> 8) & 0xFF
-        mat[:, 4 * w + 3] = word & 0xFF
-    return np.frombuffer(mat.tobytes(), dtype=f"S{width}").copy()
+        words[:, w] = lane.astype(np.int32) ^ _SIGN
+    return words.view(f"S{4 * lanes}").ravel()
 
 
 def extend_lanes_host(lane_arrays: "List[np.ndarray]", lanes: int):

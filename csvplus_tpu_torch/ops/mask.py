@@ -26,10 +26,6 @@ is ``(4k + 1) * n`` bytes over the card's memory rate (see the source).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import List, Sequence, Tuple
@@ -37,6 +33,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from ..obs.recompile import register_kernel
+from .cubuild import nvcc_build
 
 MAX_COLS = 8
 
@@ -47,44 +44,15 @@ launches = 0
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "mask.cu"
-BUILD_DIR = _PKG / "_build"
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path("/usr/local/cuda/bin/nvcc")
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA mask kernel cannot be built")
-
-
 def build() -> Path:
     """Compile ``csrc/mask.cu`` for ``sm_90a`` into ``_build/`` and return
-    the shared library's path.  The file name carries a hash of the
-    source, so an edited kernel never loads a stale build."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
-    out = BUILD_DIR / f"libcsvplus_mask_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(),
-        "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-        "-o", str(tmp), str(SOURCE),
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
+    the shared library's path (see :func:`.cubuild.nvcc_build`)."""
+    return nvcc_build(SOURCE, "libcsvplus_mask")
 
 
 @register_kernel("mask.cu")

@@ -26,9 +26,15 @@ Copy of ``csvplus_tpu/resilience/faults.py``.  A process-global
   surfaced as a :class:`~csvplus_tpu_torch.errors.DataSourceError` with
   the absolute 1-based record number.
 
-:data:`SITES` also names the reference's storage and views sites
-(``storage:*``, ``views:refresh``), so a plan valid there is valid here;
-their modules are not ported yet and nothing fires them.
+* ``storage:compact``, ``storage:wal-write``, ``storage:manifest-swap``
+  and ``storage:prune-sidecar`` — the mutable indexes' crash windows
+  (:mod:`csvplus_tpu_torch.storage`): compaction entry and pre-swap, each
+  WAL write and segment seal, either side of the manifest's rename and of
+  the prune sidecar's write.
+
+:data:`SITES` also names the reference's views site (``views:refresh``),
+so a plan valid there is valid here; its module is not ported yet and
+nothing fires it.
 
 The disarmed path is one module-global ``None`` check per site
 (:func:`inject`).

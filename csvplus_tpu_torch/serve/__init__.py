@@ -2,7 +2,8 @@
 and the verified-plan executable cache.
 
 * :mod:`.coalesce` — :class:`LookupServer`: concurrent callers submit
-  single point-lookup probes (or plan queries); one dispatcher thread
+  single point-lookup probes (or plan queries, or appends and deletes
+  against a :class:`~csvplus_tpu_torch.storage.MutableIndex`); one dispatcher thread
   drains the pending queue into ONE batched ``find_rows_many`` call per
   cycle and index and scatters per-key results back to caller futures.
 * :mod:`.plancache` — :class:`PlanCache`: plan-IR queries are verified
@@ -14,8 +15,8 @@ and the verified-plan executable cache.
 
 Failure handling (retry, circuit-breaker degradation onto the host
 oracle, typed :class:`ServerCrashed`) comes from
-:mod:`csvplus_tpu_torch.resilience`.  The reference's write surface and
-live views wait for the ``storage`` and ``views`` slices (``ROADMAP.md``).
+:mod:`csvplus_tpu_torch.resilience`.  The reference's live views wait
+for the ``views`` slice (``ROADMAP.md``).
 """
 
 from ..resilience.retry import ServerCrashed

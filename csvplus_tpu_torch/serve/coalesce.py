@@ -1,17 +1,20 @@
 """Request coalescer: N concurrent callers, ONE batched device call.
 
-Port of the read path of ``csvplus_tpu/serve/coalesce.py``.
-:class:`LookupServer` registers one or more named indexes
-(:class:`~csvplus_tpu_torch.index.Index`).  Callers submit single
-point-lookup probes (or whole plan-IR queries) from any thread; a single
+Port of ``csvplus_tpu/serve/coalesce.py``.  :class:`LookupServer`
+registers one or more named indexes (an immutable
+:class:`~csvplus_tpu_torch.index.Index` or a
+:class:`~csvplus_tpu_torch.storage.MutableIndex`).  Callers submit single
+point-lookup probes (or whole plan-IR queries, or, against a mutable
+index, append batches and key deletes) from any thread; a single
 dispatcher thread drains the pending queue into one ``find_rows_many``
 call per (cycle, index) pair and scatters the per-key row blocks back to
 caller futures.  Independent single-key clients ride the same
 one-searchsorted-pass / one-amortized-decode path as ``find_many``: the
 server is how callers that cannot batch still get batched execution.
-The reference's write surface (``submit_append``/``append``/
-``submit_delete``/``delete``) and live views (``register_view``/
-``view``/``view_names``) come with the ``storage`` and ``views`` slices.
+Writes drained in one cycle apply in submission order before its lookups,
+and their futures complete only after the index's WAL is synced.  The
+reference's live views (``register_view``/``view``/``view_names``) come
+with the ``views`` slice.
 
 Coalescing policy (``tick_us``):
 
@@ -84,7 +87,9 @@ def _device_scope(device):
 
 def _index_device(impl):
     dev = getattr(impl, "dev", None)
-    return None if dev is None else dev.table.device
+    if dev is None:
+        return getattr(impl, "device", None)  # a MutableIndex's tiers
+    return dev.table.device
 
 
 def _plan_device(root):
@@ -104,11 +109,13 @@ DEFAULT_INDEX = "default"
 
 
 class _Registered:
-    """One named index and its per-index serving state.  Each
-    registration carries its own host-fallback oracle so breaker
-    degradation of one index never materializes another's rows."""
+    """One named index and its per-index serving state.  ``mutable``
+    marks an impl with the storage write surface (``append_rows``); only
+    those accept :meth:`LookupServer.append`.  Each registration carries
+    its own host-fallback oracle so breaker degradation of one index never
+    materializes another's rows."""
 
-    __slots__ = ("name", "index", "impl", "key_width", "oracle")
+    __slots__ = ("name", "index", "impl", "key_width", "oracle", "mutable")
 
     def __init__(self, name: str, index):
         self.name = name
@@ -116,6 +123,7 @@ class _Registered:
         self.impl = index._impl
         self.key_width = len(self.impl.columns)
         self.oracle = HostLookupOracle(self.impl)
+        self.mutable = hasattr(self.impl, "append_rows")
 
 
 class ServeFuture:
@@ -123,20 +131,23 @@ class ServeFuture:
 
     ``result()`` returns the request's value — a ``List[Row]`` for a
     point lookup (rows cloned on delivery, same contract as
-    ``iterate``), a materialized ``DeviceTable`` for a plan query — or
-    raises the request's error (:class:`DeadlineExceeded`, a plan
-    admission rejection, or whatever the batched call raised).
+    ``iterate``), a materialized ``DeviceTable`` for a plan query, the
+    appended row count for an append batch, 1 for a delete — or raises
+    the request's error (:class:`DeadlineExceeded`, a plan admission
+    rejection, or whatever the batched call raised).
     """
 
-    __slots__ = ("probe", "plan", "index_name",
+    __slots__ = ("probe", "plan", "rows", "del_key", "index_name",
                  "deadline_s", "callback", "t_submit", "t_dispatch",
                  "trace_ctx", "value", "error", "_event", "_done")
 
     def __init__(self, probe, plan, deadline_s, callback,
-                 index_name=DEFAULT_INDEX):
+                 index_name=DEFAULT_INDEX, rows=None, del_key=None):
         self._done = False
         self.probe = probe
         self.plan = plan
+        self.rows = rows
+        self.del_key = del_key
         self.index_name = index_name
         self.deadline_s = deadline_s
         self.callback = callback
@@ -186,7 +197,7 @@ class LookupServer:
         plane: Optional[TelemetryPlane] = None,
     ):
         # registry: the positional index lands under DEFAULT_INDEX;
-        # *indexes* (name -> Index) adds named routes.
+        # *indexes* (name -> Index | MutableIndex) adds named routes.
         # Stored as an immutable-by-convention dict swapped whole under
         # self._cv, so the dispatcher reads it with one attribute load.
         regs: dict = {}
@@ -204,6 +215,10 @@ class LookupServer:
         self.admission = AdmissionController(max_pending)
         self.plancache = plancache if plancache is not None else PlanCache()
         self.metrics = metrics if metrics is not None else ServingMetrics()
+        for reg in regs.values():
+            rec = getattr(reg.impl, "recovered_records", 0)
+            if rec:
+                self.metrics.on_recovered(reg.name, rec)
         self._cv = threading.Condition()
         self._pending: List[ServeFuture] = []
         self._open = False
@@ -225,10 +240,16 @@ class LookupServer:
         registry dict is replaced whole under ``self._cv`` — in-flight
         dispatch cycles keep the snapshot they already read."""
         reg = _Registered(str(name), index)
+        rec = getattr(reg.impl, "recovered_records", 0)
+        if rec:
+            self.metrics.on_recovered(reg.name, rec)
         with self._cv:
             regs = dict(self._indexes)
             regs[reg.name] = reg
             self._indexes = regs
+        if hasattr(reg.impl, "key_sketch"):
+            # late registrations get their build-key sketch too
+            reg.impl.key_sketch = self.plane.build_sketch(reg.name)
 
     def registered(self) -> dict:
         """Snapshot of the index registry as ``{name: impl}`` — the
@@ -313,6 +334,88 @@ class LookupServer:
             ServeFuture(norm, None, deadline_s, callback, index_name=reg.name)
         )
 
+    def submit_append(
+        self,
+        rows: Sequence,
+        *,
+        deadline_s: Optional[float] = None,
+        callback: Optional[Callable[[ServeFuture], None]] = None,
+        index: Optional[str] = None,
+    ) -> ServeFuture:
+        """Enqueue one append batch against a MUTABLE named index.
+
+        Appends coalesce like reads: every append for the same index
+        drained in one dispatch cycle lands as ONE delta tier (one
+        columnarize + encode + sort), and all of them are visible to
+        lookups dispatched in the same cycle.  The future's value is
+        this request's appended row count."""
+        reg = self._registered(index)
+        if not reg.mutable:
+            raise TypeError(
+                f"index {reg.name!r} is immutable (register a "
+                f"MutableIndex to accept appends)"
+            )
+        batch = [r if isinstance(r, Row) else Row(r) for r in rows]
+        if not batch:
+            raise ValueError("append batch is empty")
+        return self._enqueue(
+            ServeFuture(None, None, deadline_s, callback,
+                        index_name=reg.name, rows=batch)
+        )
+
+    def append(
+        self,
+        rows: Sequence,
+        *,
+        deadline_s: Optional[float] = None,
+        index: Optional[str] = None,
+    ) -> int:
+        """Blocking convenience: submit one append batch and wait for its
+        appended row count."""
+        return self.submit_append(rows, deadline_s=deadline_s, index=index).result()
+
+    def submit_delete(
+        self,
+        key: Sequence[str],
+        *,
+        deadline_s: Optional[float] = None,
+        callback: Optional[Callable[[ServeFuture], None]] = None,
+        index: Optional[str] = None,
+    ) -> ServeFuture:
+        """Enqueue one full-width-key tombstone against a MUTABLE named
+        index.  Writes drained into one dispatch cycle — appends AND
+        deletes — apply in SUBMISSION order before the cycle's lookups,
+        so a delete()+append() for the same key lands exactly as the
+        caller issued it.  The future's value is the tombstoned key count
+        (1)."""
+        reg = self._registered(index)
+        if not reg.mutable or not hasattr(reg.impl, "delete"):
+            raise TypeError(
+                f"index {reg.name!r} is immutable (register a "
+                f"MutableIndex to accept deletes)"
+            )
+        norm = (key,) if isinstance(key, str) else tuple(key)
+        if len(norm) != reg.key_width:
+            raise ValueError(
+                f"delete() needs a full-width key ({reg.key_width} "
+                f"columns, got {len(norm)})"
+            )
+        return self._enqueue(
+            ServeFuture(None, None, deadline_s, callback,
+                        index_name=reg.name, del_key=norm)
+        )
+
+    def delete(
+        self,
+        key: Sequence[str],
+        *,
+        deadline_s: Optional[float] = None,
+        index: Optional[str] = None,
+    ) -> int:
+        """Blocking convenience: submit one tombstone and wait for it to be
+        applied (and, on a durable index, synced)."""
+        return self.submit_delete(key, deadline_s=deadline_s, index=index).result()
+
     def submit_plan(
         self,
         root,
@@ -395,6 +498,7 @@ class LookupServer:
         regs = self._indexes  # one snapshot for the whole cycle
         samples: List[tuple] = []
         lookups: dict = {}  # index name -> sub-batch
+        writes: dict = {}  # index name -> appends + deletes, submission order
         plans: List[ServeFuture] = []
         for req in batch:
             req.t_dispatch = t0
@@ -403,8 +507,14 @@ class LookupServer:
                 self._complete(req, None, expired, samples)
             elif req.plan is not None:
                 plans.append(req)
+            elif req.rows is not None or req.del_key is not None:
+                writes.setdefault(req.index_name, []).append(req)
             else:
                 lookups.setdefault(req.index_name, []).append(req)
+        # writes land BEFORE the cycle's lookups: a lookup coalesced into
+        # the same dispatch cycle as a write observes it
+        for name, reqs in writes.items():
+            self._run_writes(regs[name], reqs, samples)
         for name, reqs in lookups.items():
             self._run_lookups(regs[name], reqs, samples)
         for req in plans:
@@ -440,6 +550,66 @@ class LookupServer:
         # and note the cycle summary in the flight ring — a constant
         # number of lock rounds regardless of batch size
         self.plane.on_cycle(len(batch), cycle_s, samples)
+
+    def _run_writes(
+        self, reg: _Registered, reqs: List[ServeFuture], samples: List[tuple]
+    ) -> None:
+        """One mutable index's writes for the cycle, applied in
+        SUBMISSION order: contiguous append runs concatenate into a
+        single ``append_rows`` call each (one columnarize + encode +
+        sort, one delta tier per run), with each ``delete`` applied
+        between runs exactly where the caller issued it.
+
+        Durable-ack ordering: against a durable index the cycle's WAL
+        records are forced to disk (``wal_sync()``, the ``batch``
+        policy's fsync barrier; a cheap no-op under ``always``/``off``)
+        BEFORE any future in the cycle completes, so a completed write
+        future is a durability promise, not just a visibility one.  A
+        failure anywhere fails EVERY future in the cycle un-acked.  The
+        device work runs under ``torch.cuda.device`` of the index's
+        device."""
+        t_a = time.perf_counter()
+        wal_stats = None
+        rows_appended = 0
+        append_reqs = delete_reqs = 0
+        try:
+            with _device_scope(_index_device(reg.impl)):
+                run: List[Row] = []
+                for req in reqs:
+                    if req.rows is not None:
+                        append_reqs += 1
+                        run.extend(req.rows)
+                        continue
+                    if run:
+                        reg.impl.append_rows(run)
+                        rows_appended += len(run)
+                        run = []
+                    delete_reqs += 1
+                    reg.impl.delete(req.del_key)
+                if run:
+                    reg.impl.append_rows(run)
+                    rows_appended += len(run)
+            sync = getattr(reg.impl, "wal_sync", None)
+            if sync is not None:
+                wal_stats = sync()
+        except Exception as err:
+            for req in reqs:
+                self._complete(req, None, err, samples, batch_n=len(reqs))
+        else:
+            phases = (("serve:append", t_a, time.perf_counter()),)
+            for req in reqs:
+                self._complete(
+                    req, len(req.rows) if req.rows is not None else 1,
+                    None, samples, batch_n=len(reqs), phases=phases,
+                )
+        self.metrics.on_index_batch(
+            reg.name,
+            append_reqs=append_reqs,
+            delete_reqs=delete_reqs,
+            rows_appended=rows_appended,
+            deltas_live=getattr(reg.impl, "delta_count", None),
+            wal=wal_stats,
+        )
 
     def _run_lookups(
         self, reg: _Registered, lookups: List[ServeFuture], samples: List[tuple]
@@ -529,7 +699,12 @@ class LookupServer:
             return
         if degraded:
             self.metrics.on_degraded(len(lookups))
-        self.metrics.on_index_batch(reg.name, lookups=len(lookups))
+        self.metrics.on_index_batch(
+            reg.name,
+            lookups=len(lookups),
+            tiers_probed=getattr(bounds, "tiers_probed", None),
+            tiers_pruned=getattr(bounds, "tiers_pruned", None),
+        )
         # skew evidence: the sub-batch's probe keys into this index's
         # Space-Saving sketch, one lock round
         self.plane.offer_probes(reg.name, probes)
@@ -641,7 +816,11 @@ class LookupServer:
         # extended completion record: the first three fields are the
         # classic ServingMetrics shape; the tail sampler reads the
         # rest (request kind, route, error type) when it retains one
-        kind = "plan" if req.plan is not None else "lookup"
+        kind = (
+            "plan" if req.plan is not None
+            else "write" if (req.rows is not None or req.del_key is not None)
+            else "lookup"
+        )
         samples.append(
             (
                 done - req.t_submit,

@@ -28,3 +28,11 @@ def env_str(name: str, default: Optional[str] = None,
     in for ``os.environ`` (the fault plan's explicit mapping)."""
     source = os.environ if env is None else env
     return source.get(name, default)
+
+
+def env_float(name: str, default: float) -> float:
+    """A float tuning knob; a malformed value gives *default*."""
+    try:
+        return float(os.environ.get(name, default))
+    except (TypeError, ValueError):
+        return default

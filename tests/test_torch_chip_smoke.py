@@ -1,10 +1,15 @@
-"""``chip_smoke.py``'s phases 4-11 and its stage tables rehearsed on the
+"""``chip_smoke.py``'s phases 4-12 and its stage tables rehearsed on the
 CPU at a small size.
 
 Each phase drives the port's public API on ``device="cpu"`` and holds it
 against the script's own numpy oracles (row counts, positional
-checksums, dictionaries, CSV and JSON bytes); the mask kernel's wrapper
-runs its plain version here, so the launch counts are not checked.  The
+checksums, dictionaries, CSV and JSON bytes); the kernels' wrappers run
+their plain versions here, so the launch counts they measure are 0 (and
+are checked to be); the pack calls each device-encoding phase recorded
+are still replayed against the plain version.  The device-parse tier, which is the card's default,
+is forced on here (``CSVPLUS_DEVICE_PARSE=1``) where the card's run
+takes it: phase 4's first leg, phase 5's first run and phases 6, 7, 10,
+11 and 12, each of which must reach the device encode.  The
 streamed phases lower ``CSVPLUS_STREAM_MIN_BYTES`` to 1 and the chunk size
 to 64 KiB, so their small files stream in many chunks.  Phase 8 (the
 plan cache, cascaded and fused) and phase 9 (point lookups and the
@@ -13,9 +18,10 @@ alone here on whole-file tables; phase 9's over-the-cap half runs with
 the mirror cap patched below its small table.  Phase 10 (BASELINE
 config 4's dedup, write and reload) streams 200,000 rows with 180,000
 distinct ids over a lane threshold of 50,000; phase 11 (config 1) runs
-200,000 people.  The stage tables printed by phases 4, 5, 9 and 10 must
-hold the stages of what they time, and warm (a) must synchronize
-nowhere with telemetry off."""
+200,000 people; phase 12 (the mutable index and the server's writes)
+10,000 rows in batches of 100.  The stage tables printed by phases 4, 5,
+9 and 10 must hold the stages of what they time, and warm (a) must
+synchronize nowhere with telemetry off."""
 
 import importlib.util
 from pathlib import Path
@@ -42,9 +48,11 @@ PHASES = {
     "9-serving": (False, lambda C, d: _serving(C, d)),
     "10-dedup": (True, lambda C, d: _dedup(C, d)),
     "11-config1": (False, lambda C, d: C.run_config1_path(200_000, 1, "cpu", d)),
+    "12-storage": (False, lambda C, d: _storage(C, d)),
 }
 
-NO_FILTER = {"10-dedup"}  # phases that run no filter, checked in their own helper
+NO_FILTER = {"10-dedup", "12-storage"}  # no filter: checked in their own helper
+DEVICE_PARSED = {"6-lane", "7-host-dict", "10-dedup", "11-config1", "12-storage"}
 
 
 def _stages(table):
@@ -62,6 +70,27 @@ def _dedup(C, workdir):
     # the path runs no filter: no call reaches the mask kernel's wrapper
     assert out["launches"] == 0 and out["mask_check"] == {"cases": 0, "max_abs_err": 0}
     return out
+
+def _storage(C, workdir):
+    # The card's run has its merge readers probe without a pause.  Here
+    # every probe is host numpy calls that drop and retake the interpreter
+    # lock, which starves the merging thread (a 12K-row merge then takes
+    # minutes, against a fiftieth of a second with no reader; PERF.md, open
+    # questions), so the rehearsal's readers pause a millisecond a probe.
+    out = C.run_storage_path(10_000, 1, "cpu", workdir, batch_rows=100, n_lookups=100,
+                             reader_pause_s=0.001)
+    assert out["recompiles"] == 0
+    assert set(out["lookups"]) == {"0", "4", "16"}
+    assert out["steps"]["16 tiers + tombstones"]["deltas"] > 16
+    assert out["steps"]["full merge"]["deltas"] == 0
+    assert out["compaction"]["leveled_fold"]["kind"] == "partial"
+    assert out["recovery"]["records"] == 2 and out["server"]["acks"] == [100, 1]
+    assert out["append_csv"]["rows"] == 100
+    assert out["steps"]["append_csv"]["deltas"] == out["steps"]["recovered"]["deltas"] + 1
+    assert out["steps"]["quiet full merge"]["deltas"] == 0
+    assert out["compaction"]["readers"] == 2 and out["compaction"]["quiet_full_merge_s"] > 0
+    return out
+
 
 # phase 9 at a rehearsal size: (s1) 20,000 rows, (s2) over a cap of 1,000
 SERVE = dict(n_rows=20_000, n_find=300, n_requests=640, n_plans=20, cap=1_000)
@@ -110,22 +139,49 @@ def _serving(C, workdir):
 def test_chip_smoke_phase_rehearses_on_the_cpu(phase, tmp_path, monkeypatch):
     streamed, run = PHASES[phase]
     monkeypatch.delenv("CSVPLUS_INGEST_WORKERS", raising=False)
+    monkeypatch.delenv("CSVPLUS_DEVICE_PARSE", raising=False)
+    if phase in DEVICE_PARSED:
+        monkeypatch.setenv("CSVPLUS_DEVICE_PARSE", "1")
+    from csvplus_tpu_torch.ops import parse as P
+
+    encodes = []
+    real = P.encode_column_device
+    monkeypatch.setattr(P, "encode_column_device",
+                        lambda *a: encodes.append(1) or real(*a))
     if streamed:
         monkeypatch.setenv("CSVPLUS_STREAM_MIN_BYTES", "1")
         monkeypatch.setenv("CSVPLUS_STREAM_CHUNK_BYTES", str(64 << 10))
     else:
         monkeypatch.delenv("CSVPLUS_STREAM_MIN_BYTES", raising=False)
     out = run(_chip_smoke(), tmp_path)
-    if phase not in NO_FILTER:
+    if phase in DEVICE_PARSED:
+        assert encodes, "the phase never reached the device encode"
+    if phase in DEVICE_PARSED - {"12-storage"}:
+        assert out["pack_launches"] == 0  # the plain version counts no launch
+        # every call the device encode made, replayed against the plain version
+        assert out["pack_check"]["cases"] > 0 and out["pack_check"]["max_abs_err"] == 0
+    if phase not in NO_FILTER and phase != "4-main":
         assert out["mask_check"]["cases"] > 0 and out["mask_check"]["max_abs_err"] == 0
     if phase == "5-streamed":
         assert out["plancache"]["mask_check"]["max_abs_err"] == 0
         assert out["serving"]["mask_check"]["cases"] > 0
         assert {"ingest:streamed", "ingest:scan", "ingest:place", "ingest:cut",
                 "ingest:encode"} <= _stages(out["stage_table_ingest"])
+        ingest = out["ingest"]
+        assert ingest["default"]["workers"] == 1 and ingest["auto"]["workers"] >= 1
+        assert ingest["default"]["pack_launches"] == ingest["auto"]["pack_launches"] == 0
     if phase == "4-main":
-        warm = out["stage_table"]
-        assert {"Filter", "Join", "join:translate", "join:pack", "join:probe", "join:expand",
-                "join:merge"} <= _stages(warm)
+        legs = out["legs"]
+        assert encodes  # the device-parsed leg
+        for name, leg in legs.items():
+            assert set(leg["ingest_tiers"].values()) == {name}
+            assert leg["mask_check"]["cases"] > 0 and leg["mask_check"]["max_abs_err"] == 0
+            assert leg["pack_launches"] == 0  # the plain version counts no launch
+            assert (leg["pack_check"]["cases"] > 0) == (name == "device-parsed")
+            assert leg["pack_check"]["max_abs_err"] == 0
+            assert {"Filter", "Join", "join:translate", "join:probe", "join:expand",
+                    "join:merge"} <= _stages(leg["stage_table"])
+        warm = legs["native-encoded"]["stage_table"]
+        assert "join:pack" in _stages(warm)
         assert warm["counters"]["verify.plans"] >= 1
-        assert out["telemetry_cost"]["synchronizes"]["off"] == 0
+        assert legs["native-encoded"]["telemetry_cost"]["synchronizes"]["off"] == 0

@@ -389,8 +389,8 @@ def test_iterator_relays_errors():
 
 
 def test_exported_names_match_reference():
-    # storage/ is not ported yet; every other reference export is here
-    assert set(J.__all__) - set(T.__all__) == {"storage"}
+    # every reference export is here, storage/ included
+    assert set(J.__all__) - set(T.__all__) == set()
     assert set(T.__all__) - set(J.__all__) == set()
     assert T.__version__ == J.__version__
     assert T.LoadIndex is T.load_index and T.Index.WriteTo is T.Index.write_to

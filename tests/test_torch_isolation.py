@@ -3,7 +3,8 @@
 whole-file and on the streamed ingest tier, with lane dictionaries and
 the vectorized CSV/JSON sinks, and through the plan cache with every
 module the plan-analysis slice added, and through the serving tier with
-every module the serving slice added), its ingest loads its own build of the
+every module the serving slice added, and through the device-parse tier
+and the mutable indexes with their server writes), its ingest loads its own build of the
 native scanner and never the JAX package's, its device entry points
 refuse ``"cuda"`` where no card is present instead of running on the CPU
 (the streamed tier and the JSON sink's source too), and ``chip_smoke.py``
@@ -176,6 +177,79 @@ def test_serving_path_loads_no_jax_and_no_reference_module(tmp_path):
     assert out["foreign"] == []
     assert out["rows"] == [1, 0, 1] and out["served"] == 20
     assert out["plan_rows"] == 1 and out["completed"] == 21
+
+
+DEVICE_PARSE_STORAGE_PATH = r"""
+import json, sys, tempfile, os
+from pathlib import Path
+import csvplus_tpu_torch as T
+import csvplus_tpu_torch.ops.parse, csvplus_tpu_torch.ops.cubuild
+import csvplus_tpu_torch.storage.compact, csvplus_tpu_torch.storage.lsm
+import csvplus_tpu_torch.storage.manifest, csvplus_tpu_torch.storage.prune
+import csvplus_tpu_torch.storage.wal
+from csvplus_tpu_torch.serve import LookupServer
+from csvplus_tpu_torch.storage import MutableIndex, index_checksums, rebuild_reference
+
+d = Path(tempfile.mkdtemp())
+(d / "o.csv").write_text("order_id,name\n" + "".join(f"o{i},n{i % 7}x\n" for i in range(300)))
+whole = T.from_file(str(d / "o.csv")).on_device("cpu")
+os.environ.update(CSVPLUS_STREAM_MIN_BYTES="1", CSVPLUS_STREAM_CHUNK_BYTES="512")
+streamed = T.from_file(str(d / "o.csv")).on_device("cpu")
+mi = MutableIndex.create(whole, ["order_id"], directory=str(d / "idx"), ingest_device="cpu")
+with LookupServer(indexes={"m": mi}) as srv:
+    acks = [srv.submit_append([{"order_id": "new", "name": "z"}], index="m").result(timeout=30),
+            srv.submit_delete("o3", index="m").result(timeout=30)]
+    found = len(srv.submit("new", index="m").result(timeout=30))
+mi.compact_once()
+mi.close()
+back = MutableIndex.open(str(d / "idx"), ingest_device="cpu")
+same = index_checksums(back.to_index()) == index_checksums(rebuild_reference(mi))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+             or m == "csvplus_tpu" or m.startswith("csvplus_tpu."))
+print(json.dumps({"tiers": [whole.plan.table.ingest_tier, streamed.plan.table.ingest_tier],
+                  "workers": streamed.plan.table.ingest_seconds["workers"], "acks": acks,
+                  "found": found, "same": same, "foreign": bad}))
+"""
+
+
+def test_device_parse_and_storage_load_no_jax_and_no_reference_module(tmp_path):
+    """The device-parse tier (whole file and streamed, forced on with
+    ``CSVPLUS_DEVICE_PARSE=1``), a durable MutableIndex behind the server's
+    write calls, a compaction and a recovery, with every module this slice
+    added imported."""
+    res = subprocess.run(
+        [sys.executable, "-c", DEVICE_PARSE_STORAGE_PATH], cwd=tmp_path,
+        env=_env(CSVPLUS_DEVICE_PARSE="1", CSVPLUS_INGEST_WORKERS="4"),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["foreign"] == []
+    assert out["tiers"] == ["device-parsed", "streamed"] and out["workers"] == 1
+    assert out["acks"] == [1, 1] and out["found"] == 1 and out["same"] is True
+
+
+def test_pack_kernel_wrapper_never_falls_back_off_the_cpu():
+    """The pack wrapper runs its plain version only for a CPU tensor: a
+    tensor on any other device goes to the kernel or raises."""
+    from csvplus_tpu_torch.ops import parse as P
+
+    meta = torch.empty(4, dtype=torch.uint8, device="meta")
+    idx = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        P.pack_field_lanes(meta, idx, idx, 2)
+    assert P.SOURCE.name == "parse.cu" and P.SOURCE.exists()
+
+
+def test_device_parse_on_cuda_raises_without_a_card(people_csv, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import csvplus_tpu_torch as T
+
+    monkeypatch.setenv("CSVPLUS_DEVICE_PARSE", "1")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        T.from_file(people_csv).on_device("cuda")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
