@@ -149,7 +149,30 @@ Phases; any failure raises, exits non-zero and prints no result line:
    ``delete`` acks read back as the oracle; no kernel is built or loaded
    in the phase.  Prints append rows/s, ``find`` p50/p99 at 0, 4 and 16
    tiers, the compactions' seconds and the readers' p99 during the merge.
-13. A ``{"kernels": [...]}`` line, then the last line
+13. Live materialized views (``csvplus_tpu_torch.views``) in
+   ``bench_view.py``'s deployment: a durable append-mode ``MutableIndex``
+   of 1,000,000 orders on the card (``oid = o%08d``, ``cust_id`` striped
+   over 5,000 customers, ``prod_id`` over 500 products), frozen dimension
+   indexes ``cust_id -> name`` and ``prod_id -> label``, and two views
+   registered on a ``LookupServer`` over it: ``orders_enriched`` (the
+   three-way join) and ``orders_filtered`` (the join, ``Like`` on one
+   product, a ``SetValue``; the mask kernel at a write batch's size).  A
+   warm-up batch, 8 batches of 1,000 rows with a delete every third, 2,000
+   ``view.read()`` probes, then 4 batches and a delete through the started
+   server (each in both views by the next dispatch cycle) and one
+   ``views:refresh`` fault (the prior snapshot stays live until the next
+   cycle applies the event).  After every step both views' checksums
+   equal their from-scratch ``recompute_checksums`` and a numpy oracle of
+   the acked stream; every warm refresh builds, loads and lowers nothing;
+   the base, every tier and both dimensions lie on ``cuda:0``; the phase's
+   spans export as a Chrome trace that validates.  Then ``certify(n=3,
+   device="cuda")`` over the plan space (366 plans) after resetting the
+   process-wide build-side sketches, which must be ``ok``, and
+   ``diff_stage_tables`` of phase 4's two warm (a) stage tables.  Prints
+   refresh ms per batch (mean, max), recompute seconds and their ratio,
+   read p50/p99/max and reads/s, the server's refresh-after-write
+   latency, and the mask launches with their n.
+14. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phases 6, 7, 10 and 11 run under the default too (the device-parse tier
@@ -157,7 +180,7 @@ and the streamed tier's device chunk encoder); their pack kernel
 launches are counted (set to 0 before each path, read after) and listed
 per path.
 
-Phases 4-9 and 11 also hold the mask kernel's wrapper against its plain
+Phases 4-9, 11 and 13 also hold the mask kernel's wrapper against its plain
 version, bitwise, on the inputs of every call their filters made
 (recorded during the path's run and replayed after its launch count was
 read).  Phases 4, 6, 7, 10 and 11 hold what the pack kernel returned in
@@ -175,11 +198,12 @@ the automatic K (phase 5), one served batch of 32 lookups (phase 9,
 
 Writes its CSVs under ``.chip_smoke_data/`` beside this file and removes
 them at the end.  Needs one card; imports nothing of JAX or csvplus_tpu.
-Phases 4-12 run on the CPU too, at a small size, as a rehearsal:
+Phases 4-13 run on the CPU too, at a small size, as a rehearsal:
 ``run_main_path``, ``run_streamed_path`` (with phases 8 and 9 at its
 end), ``run_lane_path``, ``run_host_dict_path``, ``run_plancache_path``,
-``run_serving_path``, ``run_dedup_path``, ``run_config1_path`` and
-``run_storage_path`` with ``device="cpu"`` (set ``CSVPLUS_DEVICE_PARSE=1``
+``run_serving_path``, ``run_dedup_path``, ``run_config1_path``,
+``run_storage_path``, ``run_views_path`` and ``run_plancert_path`` with
+``device="cpu"`` (set ``CSVPLUS_DEVICE_PARSE=1``
 to take the tier the card takes by default).
 """
 
@@ -2686,6 +2710,448 @@ def run_storage_path(n_rows: int, seed: int, device: str, workdir: Path,
     return out
 
 
+# -- phase 13: live materialized views, plan-space certification, obs tools --
+
+VIEW_ROWS = 1_000_000  # bench_view.py's source
+VIEW_CUST = 5_000
+VIEW_PROD = 500
+VIEW_BATCH_ROWS = 1_000
+VIEW_BATCHES = 8
+VIEW_READS = 2_000
+VIEW_SERVER_BATCHES = 4
+VIEW_FILTER_PROD = 7  # orders_filtered keeps prod_id p0007
+
+
+def _zf(prefix: bytes, ints: np.ndarray, width: int) -> np.ndarray:
+    return np.char.add(prefix, np.char.zfill(ints.astype("S"), width))
+
+
+class _ViewOracle:
+    """The acked stream of the views' source in numpy: segments of
+    (oid, customer number, product number) in append order, a delete
+    erasing its key from every earlier segment.  :meth:`sums` gives the
+    positional checksums of a view's columns over the stable key order:
+    ``orders_enriched`` joins every row (all keys are in the dimensions),
+    ``orders_filtered`` keeps one product and adds ``src``."""
+
+    def __init__(self, oid: np.ndarray, cust: np.ndarray, prod: np.ndarray):
+        self.segs = [(oid, cust, prod)]
+
+    def append(self, oid, cust, prod) -> None:
+        self.segs.append((oid, cust, prod))
+
+    def delete(self, key: bytes) -> None:
+        self.segs = [(o[o != key], c[o != key], p[o != key]) for o, c, p in self.segs]
+
+    def live(self, key: bytes, prod_only: "int | None" = None) -> int:
+        """Rows of *key* in the stream (of product *prod_only* only)."""
+        return sum(int(((o == key) & ((p == prod_only) if prod_only is not None else True)).sum())
+                   for o, _, p in self.segs)
+
+    def sums(self, prod_only: "int | None" = None) -> dict:
+        oid = np.concatenate([s[0] for s in self.segs])
+        cust = np.concatenate([s[1] for s in self.segs])
+        prod = np.concatenate([s[2] for s in self.segs])
+        if prod_only is not None:
+            keep = prod == prod_only
+            oid, cust, prod = oid[keep], cust[keep], prod[keep]
+        order = np.argsort(oid, kind="stable")
+        oid, cust, prod = oid[order], cust[order], prod[order]
+        cols = {"oid": oid, "cust_id": _zf(b"c", cust, 5), "prod_id": _zf(b"p", prod, 4),
+                "name": _zf(b"nm", cust, 5), "label": _zf(b"lb", prod, 4)}
+        if prod_only is not None:
+            cols["src"] = np.full(oid.size, b"live", dtype="S4")
+        return {c: _positional_sum(_fnv32(v)) for c, v in cols.items()}
+
+
+def _view_batch(b: int, n: int) -> "tuple[list, np.ndarray, np.ndarray, np.ndarray]":
+    """``bench_view.py``'s write batch *b*: fresh keys ``w%08d``, dimension
+    keys round-robin from the batch's base (exactly min(n, dimension)
+    distinct values per column at fixed widths)."""
+    ids = np.arange(b * n, (b + 1) * n)
+    oid, cust, prod = _zf(b"w", ids, 8), ids % VIEW_CUST, ids % VIEW_PROD
+    rows = [{"oid": o, "cust_id": c, "prod_id": p} for o, c, p in zip(
+        oid.astype(str).tolist(), _zf(b"c", cust, 5).astype(str).tolist(),
+        _zf(b"p", prod, 4).astype(str).tolist())]
+    return rows, oid, cust, prod
+
+
+def _view_reads(view, n_reads: int) -> dict:
+    """``bench_view.py``'s read scenario: *n_reads* ``view.read()`` probes
+    of keys sampled from the first four live segments (seed 0)."""
+    rng = np.random.default_rng(0)
+    snap = view.snapshot()
+    pool = [seg.keys[i][0] for seg in snap.segments[:4]
+            for i in range(0, len(seg.keys), max(1, len(seg.keys) // 64))]
+    probes = [pool[int(v)] for v in rng.integers(0, len(pool), n_reads)]
+    view.read(probes[0])
+    lats = []
+    hits = 0
+    t_all = time.perf_counter()
+    for p in probes:
+        t0 = time.perf_counter()
+        hits += bool(view.read(p))  # a deleted key reads empty
+        lats.append(time.perf_counter() - t0)
+    dt = time.perf_counter() - t_all
+    a = np.asarray(lats)
+    return {"n": n_reads, "hits": hits, "seconds": dt, "reads_per_s": n_reads / dt,
+            "p50_ms": float(np.percentile(a, 50)) * 1e3,
+            "p99_ms": float(np.percentile(a, 99)) * 1e3, "max_ms": float(a.max()) * 1e3}
+
+
+def run_views_path(n_rows: int, seed: int, device: str, workdir: Path,
+                   batch_rows: int = VIEW_BATCH_ROWS, n_batches: int = VIEW_BATCHES,
+                   n_reads: int = VIEW_READS, server_batches: int = VIEW_SERVER_BATCHES) -> dict:
+    """Phase 13: ``bench_view.py``'s deployment on *device*.  A durable
+    append-mode ``MutableIndex`` of *n_rows* orders (``oid = o%08d``,
+    ``cust_id`` striped over 5,000 customers, ``prod_id`` over 500
+    products) and frozen dimension indexes ``cust_id -> name`` and
+    ``prod_id -> label``; two live views registered on a ``LookupServer``
+    over the source: ``orders_enriched`` (the three-way join) and
+    ``orders_filtered`` (the join, a ``Like`` on one product, a ``SetValue``).
+    Traffic: one warm-up batch, *n_batches* batches of *batch_rows* with a
+    delete of one key of the previous batch every third batch, each warm
+    refresh under ``RecompileWatch(plancache=...)`` (no binary built or
+    loaded, nothing lowered); *n_reads* reads; then *server_batches*
+    batches and a delete through the started server, each write in the
+    views by the next dispatch cycle, and one ``views:refresh`` fault that
+    leaves the prior snapshot live until the next cycle applies the event.
+    After every applied step both views' checksums equal their
+    ``recompute_checksums`` and the numpy oracle of the acked stream.
+    Every mask call the phase made is replayed against the plain version
+    after its launch count was read.  The phase runs inside a trace, whose
+    spans are exported as a Chrome trace and validated."""
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch import plan as PL
+    from csvplus_tpu_torch.columnar.table import DeviceTable
+    from csvplus_tpu_torch.obs.export import export_chrome_trace, validate_chrome_trace
+    from csvplus_tpu_torch.obs.recompile import RecompileWatch
+    from csvplus_tpu_torch.obs.span import tracer
+    from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.resilience import faults
+    from csvplus_tpu_torch.serve import LookupServer, PlanCache
+    from csvplus_tpu_torch.storage import MutableIndex
+
+    t0 = time.perf_counter()
+    ids = np.arange(n_rows)
+    oid0, cust0, prod0 = _zf(b"o", ids, 8), ids % VIEW_CUST, ids % VIEW_PROD
+    table = DeviceTable.from_pylists({
+        "oid": oid0.astype(str).tolist(),
+        "cust_id": _zf(b"c", cust0, 5).astype(str).tolist(),
+        "prod_id": _zf(b"p", prod0, 4).astype(str).tolist()}, device=device)
+    wal_dir = workdir / "views"
+    mi = MutableIndex(T.take(table).index_on("oid").sync(), mode="append",
+                      directory=str(wal_dir))
+    del table
+    nc, npd = np.arange(VIEW_CUST), np.arange(VIEW_PROD)
+    cust = T.take(DeviceTable.from_pylists({
+        "cust_id": _zf(b"c", nc, 5).astype(str).tolist(),
+        "name": _zf(b"nm", nc, 5).astype(str).tolist()}, device=device)).index_on("cust_id").sync()
+    prod = T.take(DeviceTable.from_pylists({
+        "prod_id": _zf(b"p", npd, 4).astype(str).tolist(),
+        "label": _zf(b"lb", npd, 4).astype(str).tolist()}, device=device)).index_on("prod_id").sync()
+    _sync(device)
+    t_source = time.perf_counter() - t0
+    oracle = _ViewOracle(oid0, cust0, prod0)
+    fprod = f"p{VIEW_FILTER_PROD:04d}"
+    join = PL.Join(PL.Join(PL.Scan(None), cust, ("cust_id",)), prod, ("prod_id",))
+    plans = {"orders_enriched": join,
+             "orders_filtered": PL.MapExpr(PL.Filter(join, T.Like({"prod_id": fprod})),
+                                           T.SetValue("src", "live"))}
+    filt = {"orders_enriched": None, "orders_filtered": VIEW_FILTER_PROD}
+    pc = PlanCache()
+    srv = LookupServer(indexes={"orders": mi}, plancache=pc)
+    out = {"rows": n_rows, "batch_rows": batch_rows, "batches": n_batches,
+           "source_s": t_source, "recompute_s": {n: [] for n in plans},
+           "checksums_s": {n: [] for n in plans}, "refresh_ms": {n: [] for n in plans},
+           "steps": 0}
+    log(f"phase 13: durable MutableIndex over {n_rows:,} orders on {mi.device} and "
+        f"dimensions of {VIEW_CUST:,} and {VIEW_PROD} keys in {t_source:.2f}s")
+
+    def on_device(what: str, t) -> None:
+        d = t.device
+        if d.type != device or (device == "cuda" and d.index != 0):
+            raise AssertionError(f"phase 13: {what} lies on {d}, not {device}:0")
+
+    def parity(step: str) -> None:
+        for name, view in views.items():
+            want = oracle.sums(filt[name])
+            t1 = time.perf_counter()
+            got = view.checksums()
+            t2 = time.perf_counter()
+            ref = view.recompute_checksums()
+            t3 = time.perf_counter()
+            out["checksums_s"][name].append(t2 - t1)
+            out["recompute_s"][name].append(t3 - t2)
+            if got != ref or got != want:
+                raise AssertionError(f"phase 13 {step}: {name} checksums {got}, recompute "
+                                     f"{ref}, numpy oracle {want}")
+        out["steps"] += 1
+
+    with recorded_mask_calls() as calls, _env_set({"CSVPLUS_FLIGHT_DIR": str(workdir)}), \
+            tracer.trace("phase 13 views") as trace:
+        M.launches = 0  # the path's run starts here
+        t0 = time.perf_counter()
+        views = {name: srv.register_view(name, root, source="orders")
+                 for name, root in plans.items()}
+        out["register_s"] = time.perf_counter() - t0
+        parity("registered")
+        log(f"phase 13 registered {list(views)} in {out['register_s']:.2f}s "
+            f"({views['orders_enriched'].snapshot().nrows:,} and "
+            f"{views['orders_filtered'].snapshot().nrows:,} rows); checksums == recompute "
+            f"== numpy oracle")
+
+        def write(b: int) -> None:
+            rows, o, c, p = _view_batch(b, batch_rows)
+            mi.append_rows(rows)
+            oracle.append(o, c, p)
+
+        write(0)  # the warm-up batch: lowers the per-tier plans once
+        for view in views.values():
+            view.refresh()
+        parity("warm-up")
+        deletes = 0
+        for b in range(1, n_batches + 1):
+            write(b)
+            if b % 3 == 0:
+                key = _zf(b"w", np.array([(b - 1) * batch_rows]), 8)[0]
+                mi.delete((key.decode(),))
+                oracle.delete(key)
+                deletes += 1
+            with RecompileWatch(plancache=pc) as watch:
+                for name, view in views.items():
+                    t1 = time.perf_counter()
+                    applied = view.refresh()
+                    out["refresh_ms"][name].append((time.perf_counter() - t1) * 1e3)
+                    if applied < 1:
+                        raise AssertionError(f"phase 13 batch {b}: {name} applied nothing")
+            if watch.delta():
+                raise AssertionError(f"phase 13 batch {b}: warm refresh built, loaded or "
+                                     f"lowered {watch.delta()}")
+            parity(f"batch {b}")
+        out["deletes"] = deletes
+        out["reads"] = _view_reads(views["orders_enriched"], n_reads)
+
+        # through the server: each acked write is in both views by the next cycle
+        latencies = []
+        with _running(srv):
+            for s in range(server_batches + 1):
+                if s < server_batches:
+                    rows, o, c, p = _view_batch(n_batches + 1 + s, batch_rows)
+                    key, present = o[-1], True
+                    t1 = time.perf_counter()
+                    fut = srv.submit_append(rows, index="orders")
+                    ack = fut.result(timeout=120)
+                    oracle.append(o, c, p)
+                else:
+                    key, present = o[0], False
+                    t1 = time.perf_counter()
+                    ack = srv.submit_delete(key.decode(), index="orders").result(timeout=120)
+                    oracle.delete(key)
+                if ack != (batch_rows if present else 1):
+                    raise AssertionError(f"phase 13 server write {s}: ack {ack}")
+                view = views["orders_enriched"]
+                while bool(view.read(key.decode())) != present:
+                    if time.perf_counter() - t1 > 60:
+                        raise AssertionError(f"phase 13 server write {s} never reached the view")
+                    time.sleep(0.0002)
+                latencies.append(time.perf_counter() - t1)
+                srv.submit(key.decode(), index="orders").result(timeout=120)  # the next cycle
+                for name, v in views.items():
+                    if v.pending or len(v.read(key.decode())) != oracle.live(key, filt[name]):
+                        raise AssertionError(f"phase 13 server write {s}: {name} not fresh "
+                                             f"by the next cycle")
+                parity(f"server write {s}")
+            # one views:refresh fault: the prior snapshot stays live, the
+            # next cycle applies the queued event
+            view = views["orders_enriched"]
+            snap0, before = view.snapshot(), view.checksums()
+            rows, o, c, p = _view_batch(n_batches + 1 + server_batches, batch_rows)
+            with faults.active(faults.FaultPlan([
+                    {"site": "views:refresh", "at": [0], "error": "crash"}])):
+                if srv.submit_append(rows, index="orders").result(timeout=120) != batch_rows:
+                    raise AssertionError("phase 13: the faulted cycle's write was not acked")
+                oracle.append(o, c, p)
+                t1 = time.perf_counter()
+                while srv.snapshot()["by_view"]["orders_enriched"]["failures"] < 1:
+                    if time.perf_counter() - t1 > 60:
+                        raise AssertionError("phase 13: the injected refresh fault never fired")
+                    time.sleep(0.0002)
+                if view.snapshot() is not snap0 or view.checksums() != before or \
+                        view.pending != 1:
+                    raise AssertionError("phase 13: a failed refresh changed the live snapshot")
+                srv.submit(o[0].decode(), index="orders").result(timeout=120)
+            if view.pending or not view.read(o[0].decode()):
+                raise AssertionError("phase 13: the next cycle did not apply the queued event")
+            parity("after the refresh fault")
+            snap = srv.snapshot()
+        launches = M.launches  # ... and ends here
+    out["launches"] = launches
+    out["server"] = {"refresh_after_write_ms": [x * 1e3 for x in latencies],
+                     "cells": snap["by_view"]}
+    sizes = {}
+    for _, _, nrows, _ in calls:
+        sizes[nrows] = sizes.get(nrows, 0) + 1
+    out["mask_calls_by_n"] = {str(k): v for k, v in sorted(sizes.items())}
+    if device == "cuda" and launches <= 0:
+        raise AssertionError("phase 13: the views never launched the mask kernel")
+    if sum(v for k, v in sizes.items() if k <= 2 * batch_rows) < 1:
+        raise AssertionError("phase 13: no mask call at a write batch's size")
+    out["mask_check"] = check_path_masks(calls, "1M views")
+
+    ts = mi.tiers()
+    for what, ix in [("the source's base", ts.base), ("the cust dimension", cust),
+                     ("the prod dimension", prod)] + [
+            (f"tier {d.seq}", d.index) for d in ts.deltas if d.index is not None]:
+        for cname, col in ix._impl.dev.table.columns.items():
+            on_device(f"{what}'s column {cname}", col.storage)
+    cells = snap["by_view"]
+    if cells["orders_enriched"]["failures"] != 1 or cells["orders_filtered"]["failures"]:
+        raise AssertionError(f"phase 13: view failure cells {cells}")
+
+    trace_dir = workdir / "trace"
+    path = export_chrome_trace(str(trace_dir), [trace])
+    with open(path) as f:
+        events = json.load(f)
+    problems = validate_chrome_trace(events)
+    names = {}
+    for e in events["traceEvents"]:
+        if e["ph"] == "X":
+            names[e["name"]] = names.get(e["name"], 0) + 1
+    out["trace"] = {"events": len(events["traceEvents"]), "problems": problems,
+                    "view_spans": {k: v for k, v in names.items() if k.startswith("view:")}}
+    if problems or not names.get("view:refresh"):
+        raise AssertionError(f"phase 13 trace: {problems or 'no view:refresh span'}")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    mi.close()
+    shutil.rmtree(wal_dir, ignore_errors=True)
+
+    for name in plans:
+        r = out["refresh_ms"][name]
+        rec = out["recompute_s"][name]
+        out.setdefault("summary", {})[name] = {
+            "refresh_mean_ms": float(np.mean(r)), "refresh_max_ms": float(np.max(r)),
+            "recompute_mean_s": float(np.mean(rec)),
+            "incremental_speedup": float(np.mean(rec)) / (float(np.mean(r)) / 1e3),
+            "checksums_mean_s": float(np.mean(out["checksums_s"][name]))}
+        sm = out["summary"][name]
+        log(f"phase 13 {name}: refresh {sm['refresh_mean_ms']:.3f} ms mean, "
+            f"{sm['refresh_max_ms']:.3f} ms max per {batch_rows:,}-row batch; from-scratch "
+            f"recompute {sm['recompute_mean_s']:.3f}s; incremental speedup "
+            f"{sm['incremental_speedup']:,.1f}x; view checksums {sm['checksums_mean_s']:.3f}s")
+    rd = out["reads"]
+    log(f"phase 13 reads: p50 {rd['p50_ms']:.4f} ms, p99 {rd['p99_ms']:.4f} ms, max "
+        f"{rd['max_ms']:.4f} ms, {rd['reads_per_s']:,.0f} reads/s ({rd['n']:,} reads, "
+        f"{rd['hits']:,} found rows)")
+    lat = out["server"]["refresh_after_write_ms"]
+    log(f"phase 13 server: refresh-after-write {', '.join(f'{x:.2f}' for x in lat)} ms "
+        f"({server_batches} batches, 1 delete); one views:refresh fault kept the prior "
+        f"snapshot until the next cycle; parity after each of {out['steps']} steps; "
+        f"0 warm recompiles")
+    log(f"phase 13 mask kernel launches {launches}; calls by n {out['mask_calls_by_n']}; "
+        f"trace {out['trace']['events']} events, {out['trace']['view_spans']}, problems "
+        f"{problems}")
+    return out
+
+
+def run_plancert_path(n: int, device: str) -> dict:
+    """``certify(n, device=...)``: the rewriter's plan space over the
+    certifier's corpus on *device*, every obligation held.  The earlier
+    phases' joins filled the process-wide build-side sketches, under which
+    the rewriter and the certifier disagree (in the reference too), so the
+    registry is reset just before the call.  Every mask call is replayed
+    against the plain version after the launch count was read."""
+    from csvplus_tpu_torch.analysis.plancert import certify, summary_json
+    from csvplus_tpu_torch.obs.joinskew import joinskew
+    from csvplus_tpu_torch.ops import mask as M
+
+    joinskew.reset()
+    with recorded_mask_calls() as calls:
+        M.launches = 0  # the path's run starts here
+        t0 = time.perf_counter()
+        s = certify(n=n, budget_s=600.0, device=device)
+        secs = time.perf_counter() - t0
+        launches = M.launches  # ... and ends here
+    summary = summary_json(s)
+    log(f"phase 13 certify(n={n}, device={device!r}) after resetting the build-side sketch "
+        f"registry: {secs:.2f}s, {json.dumps(summary)}; mask kernel launches {launches}")
+    if not s.ok:
+        raise AssertionError(f"certify failed:\n{s.describe()}")
+    if device == "cuda" and launches <= 0:
+        raise AssertionError("certify never launched the mask kernel")
+    return {"summary": summary, "seconds": secs, "launches": launches,
+            "mask_check": check_path_masks(calls, "plancert")}
+
+
+def check_stage_diff(main_path: dict) -> dict:
+    """``diff_stage_tables`` of phase 4's warm (a) stage tables, A the
+    device-parsed leg, B the native-encoded leg; prints the flagged
+    stages."""
+    from csvplus_tpu_torch.obs.diff import diff_stage_tables
+
+    legs = main_path["legs"]
+    result = diff_stage_tables(legs["device-parsed"]["stage_table"]["stages"],
+                               legs["native-encoded"]["stage_table"]["stages"])
+    flagged = [(r["stage"], r["movement"], r["regressed_in"]) for r in result["flagged"]]
+    log(f"phase 13 obs diff of phase 4's warm (a) stage tables (A device-parsed, B "
+        f"native-encoded): flagged {flagged}; only in A {result['only_in_a']}, only in B "
+        f"{result['only_in_b']}")
+    return {"flagged": flagged, "only_in_a": result["only_in_a"],
+            "only_in_b": result["only_in_b"]}
+
+
+def kernels_line(mask: dict, pack: dict, paths: dict, streamed: dict, plancache: dict) -> list:
+    """The ``{"kernels": [...]}`` entries: each kernel's launches on this
+    slice's path (phase 13's views for the mask, phase 4's default leg for
+    the pack) and on every path by name, the worst error of its bitwise
+    checks, and its timings at the matrix shape."""
+    shape = mask["timings"][0]  # pipeline (a)'s shape: k = 2, "all", one target each
+    return [{
+        "name": "fused_equality_mask",
+        "route": "cuda",
+        "source": "csvplus_tpu_torch/csrc/mask.cu",
+        "replaces": "csvplus_tpu/ops/pallas_mask.py:41",
+        # the slice's path: the live views' refreshes, reads and server
+        # writes (phase 13); every other path is in launches_by_path
+        "launches": paths["1M views"]["launches"],
+        "launches_by_path": {
+            **{name: p["launches"] for name, p in paths.items()},
+            **{f"50M plan cache {leg}": v["launches"] for leg, v in plancache["legs"].items()},
+            "50M except_": plancache["except"]["launches"]},
+        "max_abs_err": max([mask["max_abs_err"]]
+                           + [p["mask_check"]["max_abs_err"] for p in paths.values()]),
+        "ms": shape["ms"],
+        "plain_ms": shape["plain_ms"],
+        "bound_ms": shape["bound_ms"],
+        "bound_by": shape["bound_by"],
+        "library_ms": shape["library_ms"],
+        "shape": f"n={shape['n']} k={shape['k']} mode={shape['mode']}",
+    }, {
+        "name": "pack_field_lanes",
+        "route": "cuda",
+        "source": "csvplus_tpu_torch/csrc/parse.cu",
+        "replaces": "csvplus_tpu/ops/parse.py:78",
+        # phase 4's default leg: one launch per column of the three files
+        "launches": paths["10M device-parsed"]["pack_launches"],
+        "launches_by_path": {
+            "10M device-parsed": paths["10M device-parsed"]["pack_launches"],
+            "10M native-encoded": paths["10M native-encoded"]["pack_launches"],
+            **{f"50M streamed {leg}": v["pack_launches"]
+               for leg, v in streamed["ingest"].items()},
+            **{name: paths[name]["pack_launches"] for name in (
+                "14M lane dictionary", "13M host dictionary", "50M config 4 dedup",
+                "10M config 1")}},
+        "max_abs_err": max([pack["max_abs_err"]] + [p["pack_check"]["max_abs_err"]
+                                                     for p in paths.values() if "pack_check" in p]),
+        "ms": pack["timing"]["ms"],
+        "plain_ms": pack["timing"]["plain_ms"],
+        "bound_ms": pack["timing"]["bound_ms"],
+        "bound_by": pack["timing"]["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
+        "shape": f"m={pack['timing']['m']} lanes={pack['timing']['lanes']}",
+    }]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20160914)
@@ -2738,6 +3204,10 @@ def main(argv=None) -> int:
         dedup = run_dedup_path(N_DEDUP_ROWS, N_DEDUP_DISTINCT, args.seed, "cuda", workdir)
         config1 = run_config1_path(N_PEOPLE, args.seed, "cuda", workdir)
         storage = run_storage_path(N_SERVE_ROWS, args.seed, "cuda", workdir)
+        views = run_views_path(VIEW_ROWS, args.seed, "cuda", workdir)
+        log(f"phase 13's numbers above: {kind} | nvidia-smi: {smi}")
+        plancert = run_plancert_path(3, "cuda")
+        stage_diff = check_stage_diff(main_path)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     plancache = streamed.pop("plancache")
@@ -2747,7 +3217,8 @@ def main(argv=None) -> int:
              "10M native-encoded": legs["native-encoded"], "50M streamed": streamed,
              "50M plan cache": plancache, "serving": serving,
              "14M lane dictionary": lane, "13M host dictionary": host_dict,
-             "50M config 4 dedup": dedup, "10M config 1": config1}
+             "50M config 4 dedup": dedup, "10M config 1": config1, "1M views": views,
+             "plancert": plancert}
     path_cases = sum(p["mask_check"]["cases"] for p in paths.values())
     log(f"mask kernel == plain version, bitwise, in {mask['cases']} matrix cases and "
         f"{path_cases} calls at the paths' own shapes")
@@ -2755,52 +3226,7 @@ def main(argv=None) -> int:
     log(f"pack kernel == plain version, bitwise, in {len(pack['cases'])} matrix cases and "
         f"{sum(c['cases'] for c in pack_paths)} launches at the paths' own shapes")
 
-    shape = mask["timings"][0]  # pipeline (a)'s shape: k = 2, "all", one target each
-    kernels = [{
-        "name": "fused_equality_mask",
-        "route": "cuda",
-        "source": "csvplus_tpu_torch/csrc/mask.cu",
-        "replaces": "csvplus_tpu/ops/pallas_mask.py:41",
-        # the slice's paths: BASELINE config 4's dedup (phase 10, counted in
-        # launches_by_path) runs no filter, so the count is config 1's
-        # Filter -> Map -> CSV (phase 11)
-        "launches": config1["launches"],
-        "launches_by_path": {
-            **{name: p["launches"] for name, p in paths.items()},
-            **{f"50M plan cache {leg}": v["launches"] for leg, v in plancache["legs"].items()},
-            "50M except_": plancache["except"]["launches"]},
-        "max_abs_err": max([mask["max_abs_err"]]
-                           + [p["mask_check"]["max_abs_err"] for p in paths.values()]),
-        "ms": shape["ms"],
-        "plain_ms": shape["plain_ms"],
-        "bound_ms": shape["bound_ms"],
-        "bound_by": shape["bound_by"],
-        "library_ms": shape["library_ms"],
-        "shape": f"n={shape['n']} k={shape['k']} mode={shape['mode']}",
-    }, {
-        "name": "pack_field_lanes",
-        "route": "cuda",
-        "source": "csvplus_tpu_torch/csrc/parse.cu",
-        "replaces": "csvplus_tpu/ops/parse.py:78",
-        # phase 4's default leg: one launch per column of the three files
-        "launches": legs["device-parsed"]["pack_launches"],
-        "launches_by_path": {
-            "10M device-parsed": legs["device-parsed"]["pack_launches"],
-            "10M native-encoded": legs["native-encoded"]["pack_launches"],
-            **{f"50M streamed {leg}": v["pack_launches"]
-               for leg, v in streamed["ingest"].items()},
-            "14M lane dictionary": lane["pack_launches"],
-            "13M host dictionary": host_dict["pack_launches"],
-            "50M config 4 dedup": dedup["pack_launches"],
-            "10M config 1": config1["pack_launches"]},
-        "max_abs_err": max([pack["max_abs_err"]] + [c["max_abs_err"] for c in pack_paths]),
-        "ms": pack["timing"]["ms"],
-        "plain_ms": pack["timing"]["plain_ms"],
-        "bound_ms": pack["timing"]["bound_ms"],
-        "bound_by": pack["timing"]["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes this function
-        "shape": f"m={pack['timing']['m']} lanes={pack['timing']['lanes']}",
-    }]
+    kernels = kernels_line(mask, pack, paths, streamed, plancache)
     log("pack kernel phase " + json.dumps(pack))
     log("main path phases " + json.dumps(main_path))
     log("streamed path phases " + json.dumps(streamed))
@@ -2811,6 +3237,9 @@ def main(argv=None) -> int:
     log("config 4 dedup path phases " + json.dumps(dedup))
     log("config 1 path phases " + json.dumps(config1))
     log("storage path phases " + json.dumps(storage))
+    log("views path phases " + json.dumps(views))
+    log("plancert path phases " + json.dumps(plancert))
+    log("obs stage diff " + json.dumps(stage_diff))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

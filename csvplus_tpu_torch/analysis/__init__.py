@@ -13,8 +13,12 @@ that the plan cache needs.
   provenance-proven rewrites, re-verifies, asserts the equivalence
   verdict (``CSVPLUS_OPTIMIZE=0`` disables).
 
-The reference's plan-space certifier, report tables and lints are not
-ported yet (``ROADMAP.md``).
+* :mod:`.plancert` — the plan-space certifier: every plan chain up to a
+  size bound through verify -> optimize, four obligations per plan
+  (imported as a module, as in the reference).
+
+The reference's report tables, ``explain`` CLI and lints are not ported
+yet (``ROADMAP.md``).
 """
 
 from .cost import (

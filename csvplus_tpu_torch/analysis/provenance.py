@@ -38,7 +38,9 @@ __all__ = [
     "ExprFacts",
     "StageFacts",
     "ProvenanceDiagnostic",
+    "delta_safe",
     "expr_facts",
+    "key_clobbers",
     "stage_facts",
     "plan_facts",
     "live_columns",
@@ -260,6 +262,39 @@ def stage_facts(pos: int, node: P.PlanNode) -> StageFacts:
 def plan_facts(root: P.PlanNode) -> List[StageFacts]:
     """Facts for every :func:`~csvplus_tpu_torch.plan.linearize` slot of *root*."""
     return [stage_facts(i, n) for i, n in enumerate(P.linearize(root))]
+
+
+# ---------------------------------------------------------------------------
+# Delta-rule facts (consumed by views/rules.py)
+
+
+def delta_safe(facts: StageFacts) -> bool:
+    """Does the stage admit a per-tier delta rule?  Exactly the
+    row-linear + order-preserving + non-aborting ops of the bag algebra
+    (``views/rules.py``'s module docstring): ``Filter``/``MapExpr``/
+    ``SelectCols``/``DropCols``/``Join``/``Except`` qualify; positional
+    windows and ``Validate`` do not.  (A Map with an unknown expr still
+    returns True here: the delta gate rejects it at the key-survival
+    level with its own diagnostic.)"""
+    return facts.row_linear and not facts.aborting
+
+
+def key_clobbers(facts: StageFacts,
+                 key_columns: Sequence[str]) -> Tuple[List[str], List[str]]:
+    """Which source key columns this stage fails to carry through:
+    ``(clobbered_by_write_or_remove, projected_away)``.  Join's
+    ``fallback_writes``/key writes do not count: the matched key VALUES
+    are the stream's own, so retraction by key still addresses the same
+    rows."""
+    keys = list(key_columns)
+    if facts.op in ("Join", "Except", "MultiwayJoin"):
+        return ([], [])
+    clobbered = [k for k in keys if k in facts.clobbers]
+    projected = []
+    if facts.keeps_only is not None:
+        projected = [k for k in keys
+                     if k not in facts.keeps_only and k not in clobbered]
+    return (clobbered, projected)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,174 @@
+"""CLI for the observability subsystem (port of ``csvplus_tpu/obs/__main__.py``).
+
+``python -m csvplus_tpu_torch.obs diff A.json B.json [--mode auto|stages|bench]
+[--threshold N] [--min-share 0.005] [--key stage_table] [--json]
+[--fail-on-flag]``
+    Compare two bench artifacts.  ``stages`` mode diffs embedded stage
+    tables; ``bench`` mode diffs ANY two same-family bench records leaf
+    by leaf (the
+    wal/delta/serve/view families, e.g. BENCH_WAL_r11.json vs
+    BENCH_WAL_r12.json).  ``auto`` (default) tries stage tables first
+    and falls back to the bench-record diff.  ``--fail-on-flag`` exits
+    2 when anything is flagged; load/shape errors exit 1.
+
+``python -m csvplus_tpu_torch.obs skew ARTIFACT.json [--top N] [--side
+probe|build] [--json]``
+    Render the heavy-hitter report from an artifact carrying sketch
+    snapshots — a flight-recorder dump, an ``obs-smoke`` record, or any
+    JSON embedding a ``skew`` section (``{probe: {index: snapshot},
+    build: {...}}``) or a bare sketch ``snapshot()`` dict.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Any, Dict, List, Tuple
+
+from .diff import (
+    DEFAULT_BENCH_THRESHOLD,
+    DEFAULT_MIN_SHARE,
+    DEFAULT_THRESHOLD,
+    diff_bench_files,
+    diff_files,
+    format_bench_diff,
+    format_diff,
+)
+from .sketch import skew_report
+
+
+def _run_diff(args) -> int:
+    result = None
+    if args.mode in ("auto", "stages"):
+        try:
+            result = diff_files(
+                args.artifact_a,
+                args.artifact_b,
+                threshold=args.threshold or DEFAULT_THRESHOLD,
+                min_share=args.min_share,
+                key=args.key,
+            )
+            label = format_diff
+        except ValueError:
+            if args.mode == "stages":
+                raise
+    if result is None:
+        result = diff_bench_files(
+            args.artifact_a,
+            args.artifact_b,
+            threshold=args.threshold or DEFAULT_BENCH_THRESHOLD,
+        )
+        label = format_bench_diff
+        if (
+            not result["rows"]
+            and result["family_a"] is None
+            and result["family_b"] is None
+        ):
+            raise ValueError(
+                "nothing comparable: no stage tables, no shared numeric"
+                " leaves, and neither artifact declares a metric family"
+            )
+    if args.json:
+        print(json.dumps(result))
+    else:
+        print(label(result, args.artifact_a, args.artifact_b))
+    if args.fail_on_flag and result["flagged"]:
+        return 2
+    return 0
+
+
+def _find_sketches(obj: Any) -> List[Tuple[str, Dict[str, Any]]]:
+    """Locate sketch snapshots in an arbitrary artifact: a bare
+    snapshot (``k``/``observed``/``top`` keys), or a ``skew`` section
+    mapping side -> index -> snapshot (the :meth:`TelemetryPlane
+    .skew_snapshot` shape), searched one level deep under common
+    wrapper keys."""
+    out: List[Tuple[str, Dict[str, Any]]] = []
+    if not isinstance(obj, dict):
+        return out
+    if {"k", "observed", "top"} <= set(obj):
+        return [("sketch", obj)]
+    skew = obj.get("skew") or obj
+    for side in ("probe", "build"):
+        sides = skew.get(side)
+        if isinstance(sides, dict):
+            for index, snap in sorted(sides.items()):
+                if isinstance(snap, dict) and {"observed", "top"} <= set(snap):
+                    out.append((f"{side}:{index}", snap))
+    if not out:
+        for wrapper in ("context", "obs", "telemetry"):
+            inner = obj.get(wrapper)
+            if isinstance(inner, dict):
+                out.extend(
+                    (f"{wrapper}.{name}", snap)
+                    for name, snap in _find_sketches(inner)
+                )
+    return out
+
+
+def _run_skew(args) -> int:
+    with open(args.artifact) as f:
+        obj = json.load(f)
+    found = _find_sketches(obj)
+    if args.side:
+        found = [(n, s) for n, s in found if n.startswith(args.side)]
+    if not found:
+        raise ValueError(
+            f"{args.artifact}: no sketch snapshots found"
+            " (expected a `skew` section or a {k, observed, top} dict)"
+        )
+    if args.json:
+        print(json.dumps({name: snap for name, snap in found}))
+        return 0
+    for i, (name, snap) in enumerate(found):
+        if i:
+            print()
+        print(f"[{name}]")
+        print(skew_report(snap, top=args.top))
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="python -m csvplus_tpu_torch.obs")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    d = sub.add_parser("diff", help="diff two bench artifacts")
+    d.add_argument("artifact_a")
+    d.add_argument("artifact_b")
+    d.add_argument(
+        "--mode", choices=("auto", "stages", "bench"), default="auto",
+        help="stage-table diff, bench-record diff, or auto-detect",
+    )
+    d.add_argument(
+        "--threshold", type=float, default=None,
+        help=f"flag ratio (default {DEFAULT_THRESHOLD} for stages,"
+             f" {DEFAULT_BENCH_THRESHOLD} for bench)",
+    )
+    d.add_argument("--min-share", type=float, default=DEFAULT_MIN_SHARE)
+    d.add_argument("--key", default=None, help="artifact key holding the table")
+    d.add_argument("--json", action="store_true", help="machine output")
+    d.add_argument(
+        "--fail-on-flag",
+        action="store_true",
+        help="exit 2 when anything is flagged",
+    )
+
+    s = sub.add_parser("skew", help="heavy-hitter report from sketch snapshots")
+    s.add_argument("artifact")
+    s.add_argument("--top", type=int, default=10)
+    s.add_argument("--side", choices=("probe", "build"), default=None)
+    s.add_argument("--json", action="store_true", help="machine output")
+
+    args = parser.parse_args(argv)
+    try:
+        if args.cmd == "diff":
+            return _run_diff(args)
+        return _run_skew(args)
+    except (OSError, ValueError) as e:
+        print(f"obs {args.cmd}: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

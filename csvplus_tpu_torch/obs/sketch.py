@@ -1,8 +1,8 @@
 """Space-Saving top-K heavy-hitter sketch over observed keys.
 
-A copy of ``csvplus_tpu/obs/sketch.py`` (the sketch only; the text
-report of the reference's ``obs`` CLI is not ported).  The build side of
-every join offers a bounded sample of its sorted keys into one of these
+A copy of ``csvplus_tpu/obs/sketch.py``, with the text report
+(:func:`skew_report`) behind ``python -m csvplus_tpu_torch.obs skew``.
+The build side of every join offers a bounded sample of its sorted keys into one of these
 (:mod:`.joinskew`), and the cost model (``analysis/cost.py``) reads the
 tracked shares to price joins and predicates.  :class:`SpaceSaving`
 implements the Metwally/Agrawal/El Abbadi stream-summary sketch: at
@@ -27,7 +27,7 @@ import heapq
 import threading
 from typing import Dict, Hashable, Iterable, List, Optional, Tuple
 
-__all__ = ["SpaceSaving"]
+__all__ = ["SpaceSaving", "skew_report"]
 
 
 def _json_key(key: Hashable) -> object:
@@ -160,3 +160,29 @@ class SpaceSaving:
                 for key, c, e in top
             ],
         }
+
+
+def skew_report(snapshot: Dict[str, object], *, top: int = 10) -> str:
+    """Render one sketch snapshot as an aligned text table with
+    frequency shares and the guaranteed-lower-bound share — the body of
+    ``python -m csvplus_tpu_torch.obs skew``."""
+    observed = int(snapshot.get("observed", 0) or 0)
+    rows = list(snapshot.get("top", []))[:top]
+    lines = [f"observed={observed} tracked<=k={snapshot.get('k')}"]
+    if not rows:
+        lines.append("  (no keys observed)")
+        return "\n".join(lines)
+    width = max(len(str(r["key"])) for r in rows)
+    lines.append(
+        f"  {'key':<{width}}  {'count':>10}  {'err':>8}  "
+        f"{'share':>7}  {'min_share':>9}"
+    )
+    for r in rows:
+        c, e = int(r["count"]), int(r["err"])
+        share = c / observed if observed else 0.0
+        floor = (c - e) / observed if observed else 0.0
+        lines.append(
+            f"  {str(r['key']):<{width}}  {c:>10}  {e:>8}  "
+            f"{share:>6.2%}  {floor:>8.2%}"
+        )
+    return "\n".join(lines)

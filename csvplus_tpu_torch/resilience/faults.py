@@ -32,9 +32,9 @@ Copy of ``csvplus_tpu/resilience/faults.py``.  A process-global
   WAL write and segment seal, either side of the manifest's rename and of
   the prune sidecar's write.
 
-:data:`SITES` also names the reference's views site (``views:refresh``),
-so a plan valid there is valid here; its module is not ported yet and
-nothing fires it.
+* ``views:refresh`` — the top of every live view's refresh pass
+  (:meth:`csvplus_tpu_torch.views.MaterializedView.refresh`): a crash
+  there leaves the prior snapshot live and the events queued.
 
 The disarmed path is one module-global ``None`` check per site
 (:func:`inject`).

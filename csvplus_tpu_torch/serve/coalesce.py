@@ -12,9 +12,11 @@ caller futures.  Independent single-key clients ride the same
 one-searchsorted-pass / one-amortized-decode path as ``find_many``: the
 server is how callers that cannot batch still get batched execution.
 Writes drained in one cycle apply in submission order before its lookups,
-and their futures complete only after the index's WAL is synced.  The
-reference's live views (``register_view``/``view``/``view_names``) come
-with the ``views`` slice.
+and their futures complete only after the index's WAL is synced.  Live
+materialized views (``register_view``/``view``/``view_names``) of a plan
+over a registered mutable index refresh in every cycle after its writes
+and before its lookups; ``view(name).read(key)`` answers on the caller's
+thread from the view's epoch-pinned snapshot.
 
 Coalescing policy (``tick_us``):
 
@@ -208,6 +210,9 @@ class LookupServer:
         if not regs:
             raise ValueError("LookupServer needs at least one index")
         self._indexes = regs
+        # registered live views (name -> MaterializedView), swapped
+        # whole under self._cv like the index registry
+        self._views: dict = {}
         default = regs.get(DEFAULT_INDEX) or regs[next(iter(regs))]
         self._default_name = default.name
         self.max_batch = int(max_batch)
@@ -255,6 +260,53 @@ class LookupServer:
         """Snapshot of the index registry as ``{name: impl}`` — the
         surface the telemetry plane's collectors walk."""
         return {name: reg.impl for name, reg in self._indexes.items()}
+
+    def register_view(self, name: str, root, *, source: Optional[str] = None):
+        """Register a live materialized view of plan *root* over the
+        MUTABLE index registered as *source* (default route when
+        omitted) and return it.
+
+        Registration gates the plan (the delta-rule check,
+        :class:`~csvplus_tpu_torch.views.ViewRejected`, and static
+        verification through this server's plan cache,
+        :class:`~csvplus_tpu_torch.serve.plancache.PlanRejected`), both
+        raising HERE, never later; then it builds the initial snapshot
+        and subscribes to the source's tier events.  From then on every
+        dispatch cycle refreshes the view AFTER the cycle's writes land
+        (and before its lookups), so a reader that saw an append future
+        complete sees the view contents include it by the next cycle.
+        The view runs on the source's device (``"cuda"`` for a source
+        with none)."""
+        from ..views import MaterializedView
+
+        reg = self._registered(source)
+        if not reg.mutable or not hasattr(reg.impl, "subscribe"):
+            raise TypeError(
+                f"index {reg.name!r} is not a MutableIndex — views need "
+                f"a tier-event source"
+            )
+        view = MaterializedView(
+            str(name), root, reg.impl,
+            plancache=self.plancache, metrics=self.metrics,
+        )
+        with self._cv:
+            views = dict(self._views)
+            views[str(name)] = view
+            self._views = views
+        return view
+
+    def view(self, name: str):
+        """The registered :class:`~csvplus_tpu_torch.views.MaterializedView`."""
+        v = self._views.get(str(name))
+        if v is None:
+            raise KeyError(
+                f"no view registered as {name!r} "
+                f"(have: {', '.join(sorted(self._views))})"
+            )
+        return v
+
+    def view_names(self) -> List[str]:
+        return sorted(self._views)
 
     def _registered(self, name: Optional[str]) -> "_Registered":
         regs = self._indexes
@@ -511,10 +563,12 @@ class LookupServer:
                 writes.setdefault(req.index_name, []).append(req)
             else:
                 lookups.setdefault(req.index_name, []).append(req)
-        # writes land BEFORE the cycle's lookups: a lookup coalesced into
-        # the same dispatch cycle as a write observes it
+        # writes land BEFORE the cycle's view refresh and lookups: a
+        # lookup (or view read) coalesced into the same dispatch cycle
+        # as a write observes it
         for name, reqs in writes.items():
             self._run_writes(regs[name], reqs, samples)
+        self._refresh_views()
         for name, reqs in lookups.items():
             self._run_lookups(regs[name], reqs, samples)
         for req in plans:
@@ -610,6 +664,36 @@ class LookupServer:
             deltas_live=getattr(reg.impl, "delta_count", None),
             wal=wal_stats,
         )
+
+    def _refresh_views(self) -> None:
+        """Refresh every registered view with pending tier events,
+        ordered AFTER the cycle's writes, BEFORE its lookups; each view
+        runs its device work under ``torch.cuda.device`` of its source
+        (``MaterializedView.refresh``).  A failing refresh (the
+        ``views:refresh`` fault site) leaves that view's prior snapshot
+        live and its events queued: readers keep the last consistent
+        epoch, the failure is counted, and the next cycle retries; a
+        crashed refresh never takes the dispatcher down with it."""
+        views = self._views
+        for name, view in views.items():
+            if not view.pending:
+                continue
+            try:
+                view.refresh()
+            except Exception as err:
+                self.metrics.on_view_refresh(name, failures=1)
+                sys.stderr.write(
+                    f"csvplus-serve: view {name!r} refresh failed "
+                    f"({type(err).__name__}: {err}); prior snapshot "
+                    f"stays live, retrying next cycle\n"
+                )
+                # post-mortem evidence for the views:refresh crash
+                # window: note + atomic flight dump (never raises)
+                self.plane.flight.note(
+                    "views:refresh-failed", view=name,
+                    error=type(err).__name__,
+                )
+                self.plane.flight_dump(f"views:refresh:{name}", err)
 
     def _run_lookups(
         self, reg: _Registered, lookups: List[ServeFuture], samples: List[tuple]

@@ -1,8 +1,9 @@
 """Serving metrics: counters, batch histogram, latency reservoir.
 
 Copy of ``csvplus_tpu/serve/metrics.py``; the snapshot has the
-reference's keys (the write- and view-side cells stay zero until those
-surfaces are ported).
+reference's keys.  The per-index write cells are fed by the server's
+writes, the per-view cells by each live view's refresh and reads
+(:meth:`ServingMetrics.on_view_refresh`, :meth:`ServingMetrics.on_view_read`).
 
 The serving tier's observability surface, built on the
 :mod:`csvplus_tpu_torch.utils.observe` conventions: cheap always-on counters

@@ -65,7 +65,9 @@ def checksum_host_rows(
         present = np.array([v is not None for v in vals], dtype=bool)
         hashes = np.zeros(len(vals), dtype=np.uint32)
         if present.any():
-            arr = np.array([v for v in vals if v is not None], dtype=np.str_)
+            # UTF-8 bytes straight into an 'S' array: the bytes a 'U'
+            # array would encode to, without numpy's per-element encode
+            arr = np.array([v.encode("utf-8") for v in vals if v is not None], dtype="S")
             hashes[present] = fnv1a_values(arr)
         if positional and hashes.size:
             with np.errstate(over="ignore"):

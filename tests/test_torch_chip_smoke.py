@@ -1,4 +1,4 @@
-"""``chip_smoke.py``'s phases 4-12 and its stage tables rehearsed on the
+"""``chip_smoke.py``'s phases 4-13 and its stage tables rehearsed on the
 CPU at a small size.
 
 Each phase drives the port's public API on ``device="cpu"`` and holds it
@@ -19,9 +19,12 @@ the mirror cap patched below its small table.  Phase 10 (BASELINE
 config 4's dedup, write and reload) streams 200,000 rows with 180,000
 distinct ids over a lane threshold of 50,000; phase 11 (config 1) runs
 200,000 people; phase 12 (the mutable index and the server's writes)
-10,000 rows in batches of 100.  The stage tables printed by phases 4, 5,
-9 and 10 must hold the stages of what they time, and warm (a) must
-synchronize nowhere with telemetry off."""
+10,000 rows in batches of 100; phase 13 (the live views) 2,000 rows, two
+batches of 1,000 and two through the server, and ``certify(n=3)``.  The
+stage tables printed by phases 4, 5, 9 and 10 must hold the stages of
+what they time (phase 4's two feed the stage diff), and warm (a) must
+synchronize nowhere with telemetry off; the ``kernels`` line names every
+path."""
 
 import importlib.util
 from pathlib import Path
@@ -49,6 +52,8 @@ PHASES = {
     "10-dedup": (True, lambda C, d: _dedup(C, d)),
     "11-config1": (False, lambda C, d: C.run_config1_path(200_000, 1, "cpu", d)),
     "12-storage": (False, lambda C, d: _storage(C, d)),
+    "13-views": (False, lambda C, d: _views(C, d)),
+    "13-plancert": (False, lambda C, d: _plancert(C)),
 }
 
 NO_FILTER = {"10-dedup", "12-storage"}  # no filter: checked in their own helper
@@ -89,6 +94,31 @@ def _storage(C, workdir):
     assert out["steps"]["append_csv"]["deltas"] == out["steps"]["recovered"]["deltas"] + 1
     assert out["steps"]["quiet full merge"]["deltas"] == 0
     assert out["compaction"]["readers"] == 2 and out["compaction"]["quiet_full_merge_s"] > 0
+    return out
+
+
+def _views(C, workdir):
+    out = C.run_views_path(2_000, 1, "cpu", workdir, batch_rows=1_000, n_batches=2,
+                           n_reads=200, server_batches=2)
+    # registration, warm-up, 2 batches, 2 server batches, a delete, the fault
+    assert out["steps"] == 8 and out["deletes"] == 0
+    assert out["launches"] == 0  # the plain version counts no launch
+    # the filtered view's mask at a write batch's size and at the source's
+    assert out["mask_calls_by_n"]["1000"] >= 4 and "2000" in out["mask_calls_by_n"]
+    assert out["trace"]["problems"] == [] and out["trace"]["view_spans"]["view:refresh"] > 0
+    cells = out["server"]["cells"]
+    assert cells["orders_enriched"]["failures"] == 1 and cells["orders_filtered"]["failures"] == 0
+    assert len(out["server"]["refresh_after_write_ms"]) == 3
+    for name in ("orders_enriched", "orders_filtered"):
+        assert out["summary"][name]["refresh_max_ms"] > 0
+    assert out["reads"]["n"] == 200
+    return out
+
+
+def _plancert(C):
+    out = C.run_plancert_path(3, "cpu")
+    assert out["summary"]["ok"] and out["summary"]["plans_total"] == 366
+    assert out["launches"] == 0
     return out
 
 
@@ -181,7 +211,35 @@ def test_chip_smoke_phase_rehearses_on_the_cpu(phase, tmp_path, monkeypatch):
             assert leg["pack_check"]["max_abs_err"] == 0
             assert {"Filter", "Join", "join:translate", "join:probe", "join:expand",
                     "join:merge"} <= _stages(leg["stage_table"])
+        diff = _chip_smoke().check_stage_diff(out)
+        assert set(diff) == {"flagged", "only_in_a", "only_in_b"}
         warm = legs["native-encoded"]["stage_table"]
         assert "join:pack" in _stages(warm)
         assert warm["counters"]["verify.plans"] >= 1
         assert legs["native-encoded"]["telemetry_cost"]["synchronizes"]["off"] == 0
+
+
+def test_kernels_line_lists_every_path():
+    """The ``kernels`` line's keys and its paths, the views and plancert
+    paths among them, from stand-in phase results."""
+    C = _chip_smoke()
+    timing = {"ms": 1.0, "plain_ms": 2.0, "bound_ms": 0.5, "bound_by": "bytes"}
+    mask = {"max_abs_err": 0, "timings": [dict(timing, n=10, k=2, mode="all", library_ms=None)]}
+    pack = {"max_abs_err": 0, "timing": dict(timing, m=10, lanes=2)}
+    names = ["10M device-parsed", "10M native-encoded", "50M streamed", "50M plan cache",
+             "serving", "14M lane dictionary", "13M host dictionary", "50M config 4 dedup",
+             "10M config 1", "1M views", "plancert"]
+    paths = {n: {"launches": i, "pack_launches": 0, "mask_check": {"max_abs_err": 0}}
+             for i, n in enumerate(names)}
+    streamed = {"ingest": {"default": {"pack_launches": 0}, "auto": {"pack_launches": 0}}}
+    plancache = {"legs": {"cascaded": {"launches": 4}, "fused": {"launches": 4}},
+                 "except": {"launches": 1}}
+    kernels = C.kernels_line(mask, pack, paths, streamed, plancache)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms"}
+    for k in kernels:
+        assert keys <= set(k) and k["route"] == "cuda" and (ROOT / k["source"]).exists()
+    by_path = kernels[0]["launches_by_path"]
+    assert by_path["1M views"] == kernels[0]["launches"] == names.index("1M views")
+    assert by_path["plancert"] == names.index("plancert")
+    assert set(names) <= set(by_path)

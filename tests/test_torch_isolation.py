@@ -4,7 +4,8 @@ whole-file and on the streamed ingest tier, with lane dictionaries and
 the vectorized CSV/JSON sinks, and through the plan cache with every
 module the plan-analysis slice added, and through the serving tier with
 every module the serving slice added, and through the device-parse tier
-and the mutable indexes with their server writes), its ingest loads its own build of the
+and the mutable indexes with their server writes, and through live views,
+plan-space certification and the obs tools), its ingest loads its own build of the
 native scanner and never the JAX package's, its device entry points
 refuse ``"cuda"`` where no card is present instead of running on the CPU
 (the streamed tier and the JSON sink's source too), and ``chip_smoke.py``
@@ -228,6 +229,55 @@ def test_device_parse_and_storage_load_no_jax_and_no_reference_module(tmp_path):
     assert out["foreign"] == []
     assert out["tiers"] == ["device-parsed", "streamed"] and out["workers"] == 1
     assert out["acks"] == [1, 1] and out["found"] == 1 and out["same"] is True
+
+
+VIEWS_PATH = r"""
+import json, sys, tempfile
+import csvplus_tpu_torch as T
+import csvplus_tpu_torch.obs, csvplus_tpu_torch.obs.__main__, csvplus_tpu_torch.obs.diff
+import csvplus_tpu_torch.obs.export, csvplus_tpu_torch.analysis.plancert
+from csvplus_tpu_torch import plan as P
+from csvplus_tpu_torch.analysis.plancert import certify
+from csvplus_tpu_torch.obs.export import export_chrome_trace
+from csvplus_tpu_torch.obs.span import tracer
+from csvplus_tpu_torch.serve import LookupServer
+from csvplus_tpu_torch.storage import MutableIndex
+from csvplus_tpu_torch.views import MaterializedView
+
+rows = [T.Row({"oid": f"o{i:03d}", "c": f"c{i % 5}"}) for i in range(40)]
+mi = MutableIndex.create(T.take_rows(rows), ["oid"], ingest_device="cpu")
+dim = T.take_rows([T.Row({"c": f"c{i}", "n": f"n{i}"}) for i in range(5)]).on_device("cpu") \
+    .index_on("c")
+srv = LookupServer(indexes={"o": mi})
+with tracer.trace("views") as tr:
+    view = srv.register_view("v", P.Filter(P.Join(P.Scan(None), dim, ("c",)),
+                                           T.Like({"c": "c1"})), source="o")
+    with srv:
+        srv.submit_append([{"oid": "o999", "c": "c1"}], index="o").result(timeout=30)
+        srv.submit("o999", index="o").result(timeout=30)
+same = view.checksums() == view.recompute_checksums()
+export_chrome_trace(tempfile.mkdtemp(), [tr])
+ok = certify(n=2, device="cpu").ok
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+             or m == "csvplus_tpu" or m.startswith("csvplus_tpu."))
+print(json.dumps({"rows": len(view.rows()), "read": len(view.read("o999")), "same": same,
+                  "certified": ok, "foreign": bad}))
+"""
+
+
+def test_views_plancert_and_obs_tools_load_no_jax_and_no_reference_module(tmp_path):
+    """This slice's entry points: a live view registered on a server and
+    refreshed by a served write, a traced run exported, ``certify``, with
+    the views, plan-certification and obs tool modules imported."""
+    res = subprocess.run(
+        [sys.executable, "-c", VIEWS_PATH], cwd=tmp_path, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["foreign"] == []
+    assert out == {"rows": 9, "read": 1, "same": True, "certified": True, "foreign": []}
 
 
 def test_pack_kernel_wrapper_never_falls_back_off_the_cpu():
