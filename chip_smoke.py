@@ -172,7 +172,40 @@ Phases; any failure raises, exits non-zero and prints no result line:
    refresh ms per batch (mean, max), recompute seconds and their ratio,
    read p50/p99/max and reads/s, the server's refresh-after-write
    latency, and the mask launches with their n.
-14. A ``{"kernels": [...]}`` line, then the last line
+14. The flagship and the multi-device primitives.  (a) runs at the end
+   of each of phase 4's legs, on its 10M orders, 100,000 customers and
+   1,000 products: ``models.flagship.ThreewayJoin.build(...).run()``
+   (the fused route) equal to the plain API's join on the same tables,
+   bitwise, and to the numpy oracle; a run against a customers index over
+   a seeded 99 % of the customers (the compaction route) likewise;
+   ``step()``, ``gather_columns`` and ``_fused_direct_probe`` on the 10M
+   probes against numpy; the warm ``run()`` beside the warm plain-API
+   join (medians of 7).  (b)-(d) run on a mesh of 8 shards all on
+   ``cuda:0`` (``make_mesh(8, devices=["cuda:0"] * 8)``): what they
+   measure is the partitioned code on one card, not NVLink or scaling.
+   (b) the partitioned probe over 8,000,000 sorted int32 build keys (~10 %
+   of the distinct keys repeated): (b1) 100,000,000 uniform probes, ~9 %
+   absent and ~0.5 % -1; (b2) 50,000,000 Zipf(1.1) probes at
+   ``CSVPLUS_JOIN_SKEW_THRESHOLD=0.002`` (the hot tier must engage), then
+   again with ``CSVPLUS_JOIN_SKEW=0``; (b3) 25,000,000 62-bit probes over
+   4,000,000 int64 keys, uniform, then Zipf(1.1) at the same threshold
+   (the wide hot tier).  Every answer equals ``np.searchsorted`` left and
+   right; prints seconds (cold and warm), probes/s, capacity, retries,
+   hot keys, rows broadcast, host-sync elements and peak device memory.
+   (c) the sample sort: 100,000,000 int32 values and 25,000,000 62-bit
+   values with the iota payload, and 10,000,000 values 90 % of them one
+   value, which must retry; values equal ``np.sort`` and the permutation a
+   stable ``np.argsort``; prints seconds, rows/s, capacity and retries.
+   (d) ``graft.entry()``'s step on the card against numpy, and
+   ``graft.dryrun_multichip(8, devices=["cuda:0"] * 8)`` with its 2-D
+   part.  (e) where more than one card is visible, (b1) and (c)'s int32
+   sort again over ``min(count, 8)`` distinct cards and
+   ``dryrun_multichip`` over them; else it prints that it did not run.
+   The calls of the ported jitted functions in phase 14 are counted and
+   timed (``counted_calls``); each one's calls, its time at its largest
+   shape and its byte bound are printed.  Every number names the card and
+   its power limit.
+15. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phases 6, 7, 10 and 11 run under the default too (the device-parse tier
@@ -198,12 +231,12 @@ the automatic K (phase 5), one served batch of 32 lookups (phase 9,
 
 Writes its CSVs under ``.chip_smoke_data/`` beside this file and removes
 them at the end.  Needs one card; imports nothing of JAX or csvplus_tpu.
-Phases 4-13 run on the CPU too, at a small size, as a rehearsal:
-``run_main_path``, ``run_streamed_path`` (with phases 8 and 9 at its
-end), ``run_lane_path``, ``run_host_dict_path``, ``run_plancache_path``,
-``run_serving_path``, ``run_dedup_path``, ``run_config1_path``,
-``run_storage_path``, ``run_views_path`` and ``run_plancert_path`` with
-``device="cpu"`` (set ``CSVPLUS_DEVICE_PARSE=1``
+Phases 4-14 run on the CPU too, at a small size, as a rehearsal:
+``run_main_path`` (with phase 14 (a) in each leg), ``run_streamed_path``
+(with phases 8 and 9 at its end), ``run_lane_path``, ``run_host_dict_path``,
+``run_plancache_path``, ``run_serving_path``, ``run_dedup_path``,
+``run_config1_path``, ``run_storage_path``, ``run_views_path``,
+``run_plancert_path`` and ``run_multidevice_path`` with ``device="cpu"`` (set ``CSVPLUS_DEVICE_PARSE=1``
 to take the tier the card takes by default).
 """
 
@@ -720,7 +753,7 @@ def generate(root: Path, n_orders: int, seed: int, name: str = "orders.csv") -> 
                 _lit(m, b"\n"),
             ]))
     return {"paths": paths, "cust": cust, "prod": prod, "qty": qty, "cols": cols,
-            "n": n_orders}
+            "n": n_orders, "seed": seed}
 
 
 def oracle(data: dict, keep: np.ndarray, columns) -> "tuple[int, dict, list]":
@@ -923,7 +956,8 @@ MAIN_LEGS = {"device-parsed": None, "native-encoded": {"CSVPLUS_DEVICE_PARSE": "
 
 
 def run_main_path(
-    n_orders: int, seed: int, device: str, workdir: Path, profile: bool = False
+    n_orders: int, seed: int, device: str, workdir: Path, profile: bool = False,
+    stats: "dict | None" = None, card: str = "",
 ) -> dict:
     """Phase 4: drive both pipelines through the public API on *device*
     and hold them against the oracle, in two legs: the default, where all
@@ -932,19 +966,22 @@ def run_main_path(
     ``CSVPLUS_DEVICE_PARSE=0``, where they take ``native-encoded`` with the
     orders columns as typed lanes and no demotion.  Returns each leg's
     launches and times; *profile* adds a ``torch.profiler`` breakdown of
-    one more warm run of the native leg."""
+    one more warm run of the native leg.  Each leg ends with phase 14 (a),
+    the flagship on the leg's tables (:func:`run_flagship`), its calls
+    counted into *stats*."""
+    stats = {} if stats is None else stats
     t0 = time.perf_counter()
     data = generate(workdir, n_orders, seed)
     log(f"generated {n_orders:,} orders in {time.perf_counter() - t0:.1f}s")
     out = {"rows": n_orders, "cpu_count": os.cpu_count(), "legs": {}}
     for leg, env in MAIN_LEGS.items():
         with _env_set(_default_parse_env(device) if env is None else env):
-            out["legs"][leg] = _main_leg(data, device, leg, profile)
+            out["legs"][leg] = _main_leg(data, device, leg, profile, stats, card)
         gc.collect()  # the leg's tables; a source and its run function form a cycle
     return out
 
 
-def _main_leg(data: dict, device: str, leg: str, profile: bool) -> dict:
+def _main_leg(data: dict, device: str, leg: str, profile: bool, stats: dict, card: str) -> dict:
     import csvplus_tpu_torch as T
     from csvplus_tpu_torch.columnar import typed
     from csvplus_tpu_torch.ops import parse as P
@@ -1010,6 +1047,8 @@ def _main_leg(data: dict, device: str, leg: str, profile: bool) -> dict:
         out["telemetry_cost"] = telemetry_cost(src_a, device)
         if profile:
             profile_pipelines(run["srcs"])
+    out["flagship"] = run_flagship(orders, cust, prod, data, device, leg,
+                                   data["paths"]["orders"].parent, stats, card)
     return out
 
 
@@ -3100,7 +3139,521 @@ def check_stage_diff(main_path: dict) -> dict:
             "only_in_b": result["only_in_b"]}
 
 
-def kernels_line(mask: dict, pack: dict, paths: dict, streamed: dict, plancache: dict) -> list:
+# -- phase 14: the flagship and the multi-device primitives -----------------
+
+N_MD_SHARDS = 8  # BASELINE.json config 5's 8-way sharding
+N_MD_KEYS = 8_000_000  # over DeviceIndex.PARTITION_MIN_KEYS (4M)
+N_MD_PROBES = 100_000_000
+N_MD_ZIPF = 50_000_000
+N_MD_WIDE = 25_000_000
+N_MD_WIDE_KEYS = 4_000_000
+N_MD_SORT = 100_000_000
+N_MD_SORT_WIDE = 25_000_000
+N_MD_SORT_SKEW = 10_000_000
+ZIPF_S = 1.1
+ZIPF_THRESHOLD = "0.002"  # the reference's skew bench setting
+FLAGSHIP_CUST_KEEP = 0.99
+
+#: The reference's jitted functions this slice ports, by port module, with
+#: the reference's file:line: phase 14 counts each one's calls and times
+#: each call (device work drained before and after).
+XLA_FUNCS = {
+    "csvplus_tpu_torch.models.flagship": {
+        "threeway_step": "csvplus_tpu/models/flagship.py:39",
+        "gather_columns": "csvplus_tpu/models/flagship.py:59",
+        "_fused_unique_join": "csvplus_tpu/models/flagship.py:69",
+        "_fused_direct_probe": "csvplus_tpu/models/flagship.py:99",
+    },
+    "csvplus_tpu_torch.parallel.pjoin": {
+        "_probe_spmd": "csvplus_tpu/parallel/pjoin.py:336",
+        "_probe_spmd2": "csvplus_tpu/parallel/pjoin.py:319",
+        "_probe_spmd_dev": "csvplus_tpu/parallel/pjoin.py:444",
+        "_probe_spmd_dev2": "csvplus_tpu/parallel/pjoin.py:493",
+        "broadcast_probe": "csvplus_tpu/parallel/pjoin.py:949",
+    },
+    "csvplus_tpu_torch.parallel.dsort": {
+        "_dsort_spmd": "csvplus_tpu/parallel/dsort.py:190",
+    },
+}
+
+
+def _nbytes(obj, seen: set) -> int:
+    """Bytes of the distinct tensors in *obj* (tensors, ShardedRows,
+    tuples, lists, dicts; anything else counts 0)."""
+    import torch
+
+    from csvplus_tpu_torch.parallel.mesh import ShardedRows
+
+    if isinstance(obj, torch.Tensor):
+        key = (obj.device, obj.data_ptr(), obj.nbytes)
+        if key in seen:
+            return 0
+        seen.add(key)
+        return obj.nbytes
+    if isinstance(obj, ShardedRows):
+        obj = obj.shards
+    if isinstance(obj, dict):
+        obj = list(obj.values())
+    if isinstance(obj, (tuple, list)):
+        return sum(_nbytes(x, seen) for x in obj)
+    return 0
+
+
+@contextlib.contextmanager
+def counted_calls(stats: dict, device: str):
+    """Wrap each function of ``XLA_FUNCS`` inside the block: count its
+    calls, time each call between two drains of the device, and record
+    the bytes of its tensor inputs and outputs (the byte bound's
+    numerator: each input read once, each output written once)."""
+    import importlib
+
+    patched = []
+    for mod_name, funcs in XLA_FUNCS.items():
+        mod = importlib.import_module(mod_name)
+        for name in funcs:
+            real = getattr(mod, name)
+
+            def wrapper(*a, _real=real, _name=name, **k):
+                _sync(device)
+                t0 = time.perf_counter()
+                out = _real(*a, **k)
+                _sync(device)
+                dt = time.perf_counter() - t0
+                seen = set()
+                nbytes = _nbytes(a, seen) + _nbytes(k, seen) + _nbytes(out, seen)
+                st = stats.setdefault(_name, {"calls": 0, "runs": []})
+                st["calls"] += 1
+                st["runs"].append((nbytes, dt))
+                return out
+
+            setattr(mod, name, wrapper)
+            patched.append((mod, name, real))
+    try:
+        yield stats
+    finally:
+        for mod, name, real in patched:
+            setattr(mod, name, real)
+
+
+def xla_rows(stats: dict) -> list:
+    """One row per ported function: its calls in phase 14 and, at its
+    largest shape there, the median time of those calls after the first
+    (the first pays the allocator's growth) and the byte bound."""
+    rows = []
+    for funcs in XLA_FUNCS.values():
+        for name, ref in funcs.items():
+            st = stats.get(name, {"calls": 0, "runs": []})
+            row = {"name": name, "replaces": ref, "launches": st["calls"], "ms": None,
+                   "bound_ms": None, "bytes": None}
+            if st["runs"]:
+                top = max(b for b, _ in st["runs"])
+                times = [dt for b, dt in st["runs"] if b == top]
+                times = sorted(times[1:] or times)
+                row.update(bytes=top, ms=1e3 * times[len(times) // 2],
+                           bound_ms=1e3 * top / HBM_BYTES_PER_S)
+            rows.append(row)
+    return rows
+
+
+def _wall(fn, device: str, reps: int = 7) -> float:
+    """Median wall seconds of *reps* runs of *fn*, each ending in a drain
+    of the device."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    return sorted(times)[reps // 2]
+
+
+def _sorted_rank(values: np.ndarray) -> np.ndarray:
+    """Position of each value in the byte order of *values* (the row of a
+    unique index over them)."""
+    rank = np.empty(values.size, np.int64)
+    rank[np.argsort(values, kind="stable")] = np.arange(values.size)
+    return rank
+
+
+def run_flagship(orders, cust, prod, data: dict, device: str, leg: str, workdir: Path,
+                 stats: dict, card: str) -> dict:
+    """Phase 14 (a): config 3 through ``models.flagship`` on phase 4's
+    tables.  ``ThreewayJoin.run()`` on the all-matched tables (the fused
+    route) must equal the plain API's join on the same tables, bitwise,
+    and the numpy oracle; a run against a customers index over a seeded
+    99 % of the customers (the compaction route) likewise; ``step()``,
+    ``gather_columns`` and ``_fused_direct_probe`` on the probes against
+    numpy.  Prints the warm ``run()`` beside the warm plain-API join
+    (medians of 7)."""
+    import torch
+
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.columnar.table import DeviceTable
+    from csvplus_tpu_torch.models import flagship as F
+    from csvplus_tpu_torch.utils.checksum import checksum_device_table
+
+    what = f"phase 14 (a) [{leg}]"
+    n = data["n"]
+    c, p = data["cols"]["cust"], data["cols"]["prod"]
+    rank_c, rank_p = _sorted_rank(c["id"]), _sorted_rank(p["prod_id"])
+    out = {}
+    with counted_calls(stats, device):
+        orders_t = orders.to_device_table()
+        tw = F.ThreewayJoin.build(orders_t, cust.device_table, prod.device_table)
+
+        def fused_calls():
+            return stats.get("_fused_unique_join", {}).get("calls", 0)
+
+        before = fused_calls()
+        table = tw.run()
+        if fused_calls() != before + 1:
+            raise AssertionError(f"{what}: run() did not take the fused route")
+        plain_src = orders.join(cust, "cust_id").join(prod)
+        plain = plain_src.to_device_table()
+        sums = _table_sums(table, device, what)
+        if sums != _table_sums(plain, device, what) or table.nrows != plain.nrows:
+            raise AssertionError(f"{what}: run() != the plain API's join")
+        _check_oracle(table, sums, oracle(data, np.ones(n, bool), sorted(table.columns)),
+                      f"{what} run()")
+        out["run_warm_s"] = _wall(tw.run, device)
+        out["plain_warm_s"] = _wall(plain_src.to_device_table, device)
+
+        # the three probe-side functions on the 10M probes, against numpy
+        lo_c, lo_p, valid = tw.step()
+        want_c, want_p = rank_c[data["cust"]], rank_p[data["prod"]]
+        if not (np.array_equal(lo_c.cpu().numpy(), want_c)
+                and np.array_equal(lo_p.cpu().numpy(), want_p) and bool(valid.all())):
+            raise AssertionError(f"{what}: step() != numpy")
+        d_c, d_p, d_valid = F._fused_direct_probe(
+            tw.cust.direct_cum, tw.prod.direct_cum, tw.qk_cust, tw.qk_prod)
+        if not (np.array_equal(d_c.cpu().numpy(), want_c)
+                and np.array_equal(d_p.cpu().numpy(), want_p) and bool(d_valid.all())):
+            raise AssertionError(f"{what}: _fused_direct_probe != numpy")
+        name_col = tw.cust.table.columns["name"]
+        (g,) = F.gather_columns(lo_c, valid, name_col.storage)
+        got = checksum_device_table(DeviceTable({"name": name_col.with_storage(g)}, n,
+                                                g.device), ["name"], positional=True)
+        if got["name"] != _positional_sum(_fnv32(c["name"])[data["cust"]]):
+            raise AssertionError(f"{what}: gather_columns != numpy")
+        for _ in range(6):  # seven timed calls of each
+            tw.step()
+            F._fused_direct_probe(tw.cust.direct_cum, tw.prod.direct_cum, tw.qk_cust,
+                                  tw.qk_prod)
+            F.gather_columns(lo_c, valid, name_col.storage)
+
+        # the compaction route: a customers index over a seeded 99 %
+        rng = np.random.default_rng(data["seed"] + 14)
+        kept = np.sort(rng.permutation(N_CUST)[: int(FLAGSHIP_CUST_KEEP * N_CUST)])
+        path = workdir / "customers_99.csv"
+        with open(path, "wb") as f:
+            f.write(b"id,name\n" + b"\n".join(
+                np.char.add(np.char.add(c["id"][kept], b","), c["name"][kept]).tolist()) + b"\n")
+        cust99 = T.from_file(str(path)).on_device(device).unique_index_on("id")
+        tw99 = F.ThreewayJoin.build(orders_t, cust99.device_table, prod.device_table)
+        part = tw99.run()
+        keep = np.isin(data["cust"], kept)
+        sums99 = _table_sums(part, device, what)
+        plain99 = orders.join(cust99, "cust_id").join(prod).to_device_table()
+        if sums99 != _table_sums(plain99, device, what):
+            raise AssertionError(f"{what}: partial run() != the plain API's join")
+        _check_oracle(part, sums99, oracle(data, keep, sorted(part.columns)),
+                      f"{what} partial run()")
+        out["partial_rows"] = part.nrows
+        out["partial_warm_s"] = _wall(tw99.run, device)
+    log(f"{what}: run() == plain join == oracle ({table.nrows:,} rows, checksums of "
+        f"{len(sums)} columns, first rows); partial (99 % of customers): {part.nrows:,} rows "
+        f"== plain join == oracle; step / _fused_direct_probe / gather_columns == numpy; "
+        f"warm run() {out['run_warm_s']:.4f}s vs warm plain-API join {out['plain_warm_s']:.4f}s "
+        f"(medians of 7), partial run() {out['partial_warm_s']:.4f}s | {card}")
+    return out
+
+
+def _md_keys(rng, n_keys: int, wide: bool) -> "tuple[np.ndarray, np.ndarray]":
+    """(sorted build keys with ~10 % of the distinct keys repeated, the
+    distinct keys).  Gaps of at least 2 leave every ``key - 1`` absent."""
+    limit = (1 << 62) - 2 if wide else (1 << 31) - 2
+    u = max(int(n_keys / 1.1), 1)
+    uniq = np.cumsum(rng.integers(2, max(3, int(1.6 * limit / u)), u, dtype=np.int64))
+    if uniq[-1] > limit:
+        raise AssertionError("build keys past their width")
+    rep = 1 + (rng.random(u) < 0.1) * rng.integers(1, 3, u)
+    keys = np.repeat(uniq, rep)[:n_keys]
+    dtype = np.int64 if wide else np.int32
+    return keys.astype(dtype), uniq[uniq <= keys[-1]].astype(dtype)
+
+
+def _md_probes(rng, uniq: np.ndarray, m: int, zipf: bool = False) -> np.ndarray:
+    """*m* probes: uniform over the distinct keys with ~9 % absent values
+    and ~0.5 % -1, or Zipf(s = 1.1) ranks over a seeded permutation of
+    them."""
+    if zipf:
+        ranks = rng.zipf(ZIPF_S, m)
+        perm = rng.permutation(uniq.size)
+        return uniq[perm[(ranks - 1) % uniq.size]]
+    q = uniq[rng.integers(0, uniq.size, m)]
+    r = rng.random(m, dtype=np.float32)
+    q[r < 0.09] -= 1
+    q[r >= 0.995] = -1
+    return q
+
+
+def _stable_argsort(values: np.ndarray) -> np.ndarray:
+    """``np.argsort(values, kind="stable")``; int32 values sort as one
+    int64 key ``value << 32 | row`` (distinct keys, so any sort gives the
+    stable order, and numpy's default int64 sort is several times faster
+    than its stable one at 100M)."""
+    if values.dtype != np.int32:
+        return np.argsort(values, kind="stable")
+    key = (values.astype(np.int64) << 32) | np.arange(values.size, dtype=np.int64)
+    key.sort()
+    return key & 0xFFFFFFFF
+
+
+def _check_probe(keys: np.ndarray, q: np.ndarray, lo: np.ndarray, ct: np.ndarray,
+                 what: str) -> dict:
+    """Every answer against ``np.searchsorted`` left and right (over the
+    sorted probes, then compared through the sort order)."""
+    order = _stable_argsort(q)
+    sq = q[order]
+    want_lo = np.searchsorted(keys, sq, side="left")
+    want_ct = np.searchsorted(keys, sq, side="right") - want_lo
+    want_ct[sq < 0] = 0
+    got_ct = ct[order]
+    if not np.array_equal(got_ct, want_ct):
+        raise AssertionError(f"{what}: counts != np.searchsorted")
+    hit = want_ct > 0
+    if not np.array_equal(lo[order][hit], want_lo[hit]):
+        raise AssertionError(f"{what}: lower bounds != np.searchsorted")
+    return {"hits": int(hit.sum()), "invalid": int((sq < 0).sum()),
+            "absent": int((~hit & (sq >= 0)).sum()), "max_count": int(want_ct.max(initial=0))}
+
+
+def _peak_reset(device: str) -> None:
+    if device == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gib(device: str) -> "float | None":
+    if device != "cuda":
+        return None
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _stage_extras(merged) -> dict:
+    by = {r.stage: r.extra for r in merged}
+    x = by.get("join:all_to_all", {})
+    return {"capacity": x.get("capacity"), "retries": x.get("retries"),
+            "hot_keys": by.get("join:skew-detect", {}).get("hot_keys", 0),
+            "rows_broadcast": by.get("join:skew", {}).get("rows_broadcast", 0)}
+
+
+def _probe_leg(mesh, keys: np.ndarray, q: np.ndarray, device: str, what: str,
+               card: str) -> dict:
+    """Partition the build keys once, probe the row-sharded *q* twice
+    (cold, warm) under ``telemetry.collect()``, hold the warm answers
+    against numpy.  Returns the leg's numbers."""
+    from csvplus_tpu_torch.parallel import pjoin as PJ
+    from csvplus_tpu_torch.parallel.mesh import shard_rows
+    from csvplus_tpu_torch.utils.observe import telemetry
+
+    wide = q.dtype == np.int64
+    t0 = time.perf_counter()
+    prepared = PJ.prepare_partitioned(mesh, keys)
+    _sync(device)
+    prep_s = time.perf_counter() - t0
+    args = [shard_rows(mesh, x) for x in (PJ.split_lanes(q) if wide else (q,))]
+    probe = PJ.partitioned_probe_device_wide if wide else PJ.partitioned_probe_device
+    runs = []
+    for _ in range(2):  # cold, then warm
+        _peak_reset(device)
+        with telemetry.collect():
+            t0 = time.perf_counter()
+            lo, ct = probe(mesh, *args, prepared)
+            _sync(device)
+            secs = time.perf_counter() - t0
+            runs.append(dict(seconds=secs, syncs=telemetry.host_sync_elements,
+                             **_stage_extras(telemetry.merged_stages())))
+        runs[-1]["peak_gib"] = _peak_gib(device)
+    check = _check_probe(keys, q, lo.numpy(), ct.numpy(), what)
+    warm = runs[-1]
+    res = {"probes": int(q.size), "keys": int(keys.size), "shards": mesh.size,
+           "prepare_s": prep_s, "cold_s": runs[0]["seconds"], **warm,
+           "probes_per_s": q.size / warm["seconds"], **check}
+    peak = f"{warm['peak_gib']:.2f} GiB" if warm["peak_gib"] is not None else "not measured"
+    log(f"{what}: {q.size:,} probes over {keys.size:,} keys on {mesh.size} shards == "
+        f"np.searchsorted ({check['hits']:,} hits, {check['absent']:,} absent, "
+        f"{check['invalid']:,} invalid); warm {warm['seconds']:.3f}s "
+        f"({res['probes_per_s']:,.0f} probes/s), cold {runs[0]['seconds']:.3f}s, partition + "
+        f"upload {prep_s:.2f}s; capacity {warm['capacity']}, retries {warm['retries']}, hot keys "
+        f"{warm['hot_keys']}, rows broadcast {warm['rows_broadcast']:,}, host-sync elements "
+        f"{warm['syncs']}, peak device memory {peak} | {card}")
+    return res
+
+
+def _sort_leg(mesh, values: np.ndarray, device: str, what: str, card: str) -> dict:
+    """Sort *values* with the iota payload on the mesh, cold then warm;
+    the values must equal ``np.sort`` and the permutation a stable
+    ``np.argsort``."""
+    import torch
+
+    from csvplus_tpu_torch.parallel import dsort as DS
+    from csvplus_tpu_torch.parallel.mesh import shard_rows
+    from csvplus_tpu_torch.parallel.pjoin import split_lanes
+    from csvplus_tpu_torch.utils.observe import telemetry
+
+    wide = values.dtype == np.int64
+    n = int(values.size)
+    lanes = tuple(shard_rows(mesh, x) for x in (split_lanes(values) if wide else (values,)))
+    iota = torch.arange(n, dtype=torch.int32, device=mesh.devices[0])
+    runs = []
+    for _ in range(2):
+        _peak_reset(device)
+        with telemetry.collect():
+            t0 = time.perf_counter()
+            out, perm = DS.distributed_sort_device(mesh, lanes, iota)
+            _sync(device)
+            runs.append({"seconds": time.perf_counter() - t0,
+                         "attempts": telemetry.host_sync_elements})
+        runs[-1]["peak_gib"] = _peak_gib(device)
+    got = out[0].numpy().astype(np.int64) << 31 | out[1].numpy() if wide else out[0].numpy()
+    order = _stable_argsort(values)
+    if not np.array_equal(got, values[order]):
+        raise AssertionError(f"{what}: values != np.sort")
+    if not np.array_equal(perm.numpy(), order):
+        raise AssertionError(f"{what}: permutation != stable np.argsort")
+    warm = runs[-1]
+    cap0 = DS._capacity_plan(n, mesh.size, None)[0]
+    res = {"rows": n, "cold_s": runs[0]["seconds"], "seconds": warm["seconds"],
+           "rows_per_s": n / warm["seconds"], "retries": warm["attempts"] - 1,
+           "capacity": cap0 << (warm["attempts"] - 1), "peak_gib": warm["peak_gib"]}
+    peak = f"{warm['peak_gib']:.2f} GiB" if warm["peak_gib"] is not None else "not measured"
+    log(f"{what}: {n:,} {values.dtype} values on {mesh.size} shards == np.sort, permutation == "
+        f"stable np.argsort; warm {warm['seconds']:.3f}s ({res['rows_per_s']:,.0f} rows/s), cold "
+        f"{runs[0]['seconds']:.3f}s; capacity {res['capacity']}, retries {res['retries']}, peak "
+        f"device memory {peak} | {card}")
+    return res
+
+
+def _entry_check(device: str) -> dict:
+    """``graft.entry()``'s step on *device* against numpy."""
+    from csvplus_tpu_torch import graft
+
+    step, args = graft.entry(device)
+    ck, pk, qc, qp = (a.cpu().numpy() for a in args)
+    lo_c, lo_p, valid = (x.cpu().numpy() for x in step(*args))
+    want_c = np.minimum(np.searchsorted(ck, qc), ck.size - 1)
+    want_p = np.minimum(np.searchsorted(pk, qp), pk.size - 1)
+    want_v = (ck[want_c] == qc) & (qc >= 0) & (pk[want_p] == qp) & (qp >= 0)
+    if not (np.array_equal(lo_c, want_c) and np.array_equal(lo_p, want_p)
+            and np.array_equal(valid, want_v)):
+        raise AssertionError("graft.entry() step != numpy")
+    return {"rows": int(qc.size), "valid": int(want_v.sum())}
+
+
+def run_multidevice_path(seed: int, device: str, stats: dict, card: str, shards: int = N_MD_SHARDS,
+                         n_keys: int = N_MD_KEYS, n_probes: int = N_MD_PROBES,
+                         n_zipf: int = N_MD_ZIPF, n_wide: int = N_MD_WIDE,
+                         n_wide_keys: int = N_MD_WIDE_KEYS, n_sort: int = N_MD_SORT,
+                         n_sort_wide: int = N_MD_SORT_WIDE,
+                         n_sort_skew: int = N_MD_SORT_SKEW) -> dict:
+    """Phase 14 (b)-(e) on a mesh of *shards* shards all on *device*'s
+    first device (``make_mesh(shards, devices=[...] * shards)``): the
+    partitioned probe in BASELINE config 5's shape, its skew tier and its
+    wide tier, the sample sort, the graft entry and its dry run, and (b1)
+    again over distinct cards where more than one is visible."""
+    import torch
+
+    from csvplus_tpu_torch import graft
+    from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.ops import parse as P
+    from csvplus_tpu_torch.parallel.mesh import make_mesh
+
+    first = "cuda:0" if device == "cuda" else "cpu"
+    mesh = make_mesh(shards, devices=[first] * shards)
+    rng = np.random.default_rng(seed + 1400)
+    out = {"shards": shards, "device": first}
+    M.launches = P.launches = 0  # the phase's run starts here
+    with counted_calls(stats, device):
+        t0 = time.perf_counter()
+        keys, uniq = _md_keys(rng, n_keys, wide=False)
+        q = _md_probes(rng, uniq, n_probes)
+        log(f"phase 14 data: {n_keys:,} build keys, {n_probes:,} probes in "
+            f"{time.perf_counter() - t0:.1f}s")
+        out["b1"] = _probe_leg(mesh, keys, q, device, "phase 14 (b1) uniform", card)
+        del q
+        qz = _md_probes(rng, uniq, n_zipf, zipf=True)
+        with _env_set({"CSVPLUS_JOIN_SKEW_THRESHOLD": ZIPF_THRESHOLD}):
+            out["b2"] = _probe_leg(mesh, keys, qz, device, "phase 14 (b2) Zipf(1.1), skew tier",
+                                   card)
+            if not out["b2"]["hot_keys"]:
+                raise AssertionError("phase 14 (b2): the hot tier never engaged")
+            with _env_set({"CSVPLUS_JOIN_SKEW": "0"}):
+                out["b2_naive"] = _probe_leg(mesh, keys, qz, device,
+                                             "phase 14 (b2) Zipf(1.1), CSVPLUS_JOIN_SKEW=0", card)
+        del qz, keys, uniq
+        wkeys, wuniq = _md_keys(rng, n_wide_keys, wide=True)
+        qw = _md_probes(rng, wuniq, n_wide)
+        out["b3"] = _probe_leg(mesh, wkeys, qw, device, "phase 14 (b3) wide 62-bit keys", card)
+        del qw
+        qw = _md_probes(rng, wuniq, n_wide, zipf=True)  # the wide tier's hot path
+        with _env_set({"CSVPLUS_JOIN_SKEW_THRESHOLD": ZIPF_THRESHOLD}):
+            out["b3_zipf"] = _probe_leg(mesh, wkeys, qw, device,
+                                        "phase 14 (b3) wide keys, Zipf(1.1), skew tier", card)
+        if not out["b3_zipf"]["hot_keys"]:
+            raise AssertionError("phase 14 (b3): the wide hot tier never engaged")
+        del qw, wkeys, wuniq
+        gc.collect()
+
+        sort_in = rng.integers(-(2**31), 2**31 - 1, n_sort, dtype=np.int64).astype(np.int32)
+        out["c1"] = _sort_leg(mesh, sort_in, device, "phase 14 (c1) int32 sample sort", card)
+        del sort_in
+        wide_in = rng.integers(0, 1 << 62, n_sort_wide, dtype=np.int64)
+        out["c2"] = _sort_leg(mesh, wide_in, device, "phase 14 (c2) 62-bit sample sort", card)
+        del wide_in
+        skew_in = rng.integers(0, 1 << 30, n_sort_skew, dtype=np.int64).astype(np.int32)
+        skew_in[rng.random(n_sort_skew) < 0.9] = 123_456
+        out["c3"] = _sort_leg(mesh, skew_in, device, "phase 14 (c3) 90 % one value", card)
+        if out["c3"]["retries"] < 1:
+            raise AssertionError("phase 14 (c3): the skewed sort never retried")
+        del skew_in
+        gc.collect()
+
+        out["d_entry"] = _entry_check(device)
+        t0 = time.perf_counter()
+        out["d_dryrun"] = graft.dryrun_multichip(shards, devices=[first] * shards)
+        out["d_dryrun"]["seconds"] = time.perf_counter() - t0
+        log(f"phase 14 (d): graft.entry() step == numpy ({out['d_entry']['valid']:,} of "
+            f"{out['d_entry']['rows']:,} valid); dryrun_multichip({shards}) on {first} in "
+            f"{out['d_dryrun']['seconds']:.2f}s | {card}")
+
+        count = torch.cuda.device_count() if device == "cuda" else 0
+        if count > 1:
+            # the same over distinct cards: every exchange crosses cards
+            cards = make_mesh(min(count, shards))
+            k2, u2 = _md_keys(np.random.default_rng(seed + 1401), n_keys, wide=False)
+            q2 = _md_probes(np.random.default_rng(seed + 1402), u2, n_probes)
+            out["e"] = {"probe": _probe_leg(
+                cards, k2, q2, device, f"phase 14 (e) uniform over {cards.size} distinct cards",
+                card)}
+            del q2, k2, u2
+            out["e"]["sort"] = _sort_leg(
+                cards, rng.integers(-(2**31), 2**31 - 1, n_sort, dtype=np.int64).astype(np.int32),
+                device, f"phase 14 (e) int32 sample sort over {cards.size} distinct cards", card)
+            out["e"]["dryrun"] = graft.dryrun_multichip(cards.size)  # cuda:0 .. cuda:n-1
+        else:
+            out["e"] = None
+            log(f"phase 14 (e) did not run: {count} CUDA card(s) visible, and (e) spreads (b1), "
+                f"the int32 sort and the dry run over distinct cards")
+    out["launches"] = {"mask": M.launches, "pack": P.launches}  # ... and ends here
+    return out
+
+
+def kernels_line(mask: dict, pack: dict, paths: dict, streamed: dict, plancache: dict,
+                 multidevice: dict) -> list:
     """The ``{"kernels": [...]}`` entries: each kernel's launches on this
     slice's path (phase 13's views for the mask, phase 4's default leg for
     the pack) and on every path by name, the worst error of its bitwise
@@ -3117,7 +3670,8 @@ def kernels_line(mask: dict, pack: dict, paths: dict, streamed: dict, plancache:
         "launches_by_path": {
             **{name: p["launches"] for name, p in paths.items()},
             **{f"50M plan cache {leg}": v["launches"] for leg, v in plancache["legs"].items()},
-            "50M except_": plancache["except"]["launches"]},
+            "50M except_": plancache["except"]["launches"],
+            "phase 14 multi-device": multidevice["launches"]["mask"]},
         "max_abs_err": max([mask["max_abs_err"]]
                            + [p["mask_check"]["max_abs_err"] for p in paths.values()]),
         "ms": shape["ms"],
@@ -3140,7 +3694,8 @@ def kernels_line(mask: dict, pack: dict, paths: dict, streamed: dict, plancache:
                for leg, v in streamed["ingest"].items()},
             **{name: paths[name]["pack_launches"] for name in (
                 "14M lane dictionary", "13M host dictionary", "50M config 4 dedup",
-                "10M config 1")}},
+                "10M config 1")},
+            "phase 14 multi-device": multidevice["launches"]["pack"]},
         "max_abs_err": max([pack["max_abs_err"]] + [p["pack_check"]["max_abs_err"]
                                                      for p in paths.values() if "pack_check" in p]),
         "ms": pack["timing"]["ms"],
@@ -3196,8 +3751,10 @@ def main(argv=None) -> int:
 
     workdir = here / ".chip_smoke_data"
     workdir.mkdir(exist_ok=True)
+    xla = {}  # phase 14's calls of the ported jitted functions
     try:
-        main_path = run_main_path(N_ORDERS, args.seed, "cuda", workdir, args.profile)
+        main_path = run_main_path(N_ORDERS, args.seed, "cuda", workdir, args.profile,
+                                  stats=xla, card=smi)
         streamed = run_streamed_path(N_ORDERS_STREAMED, args.seed, "cuda", workdir)
         lane = run_lane_path(N_LANE_ROWS, N_PROBE_REFS, args.seed, "cuda", workdir)
         host_dict = run_host_dict_path(N_HOST_DICT_ROWS, args.seed, "cuda", workdir)
@@ -3210,6 +3767,13 @@ def main(argv=None) -> int:
         stage_diff = check_stage_diff(main_path)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    multidevice = run_multidevice_path(args.seed, "cuda", xla, smi)
+    xla_table = xla_rows(xla)
+    for row in xla_table:
+        log(f"phase 14 torch port of {row['replaces']}: {row['name']} x{row['launches']}, "
+            + (f"{row['ms']:.3f} ms at its largest shape ({row['bytes']:,} bytes, byte bound "
+               f"{row['bound_ms']:.3f} ms)" if row["ms"] is not None else "not called")
+            + f" | {smi}")
     plancache = streamed.pop("plancache")
     serving = streamed.pop("serving")
     legs = main_path["legs"]
@@ -3226,7 +3790,7 @@ def main(argv=None) -> int:
     log(f"pack kernel == plain version, bitwise, in {len(pack['cases'])} matrix cases and "
         f"{sum(c['cases'] for c in pack_paths)} launches at the paths' own shapes")
 
-    kernels = kernels_line(mask, pack, paths, streamed, plancache)
+    kernels = kernels_line(mask, pack, paths, streamed, plancache, multidevice)
     log("pack kernel phase " + json.dumps(pack))
     log("main path phases " + json.dumps(main_path))
     log("streamed path phases " + json.dumps(streamed))
@@ -3240,6 +3804,8 @@ def main(argv=None) -> int:
     log("views path phases " + json.dumps(views))
     log("plancert path phases " + json.dumps(plancert))
     log("obs stage diff " + json.dumps(stage_diff))
+    log("phase 14 multi-device path " + json.dumps(multidevice))
+    log("phase 14 ported jitted functions " + json.dumps(xla_table))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

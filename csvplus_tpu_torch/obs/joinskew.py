@@ -6,10 +6,12 @@ strided sample of its sorted build keys once, on its first probe
 (``ops/join.DeviceIndex.offer_build_sample``), into the sketch under its
 key label; ``analysis/cost.py`` reads :meth:`JoinSkewStats.build_sketches`
 when no sketches are passed, so join order and fusion decisions follow
-the same evidence as in the reference.  ``on_multiway`` / ``on_fused``
-count the single-pass multiway joins and fused probe passes that ran.
-(The reference's ``on_join``, the partitioned tier's routing counters,
-comes with the multi-GPU slice.)
+the same evidence as in the reference.  ``on_join`` counts the
+partitioned probe's routing split (``parallel/pjoin.py``: hot keys
+detected, rows answered by the broadcast tier, rows that crossed the
+exchange), and ``on_multiway`` / ``on_fused`` the single-pass multiway
+joins and fused probe passes that ran; the metrics plane exports them as
+the ``csvplus_join_*`` families.
 
 It is process-global because joins run on pipelines that never attach a
 serving tier.  Thread model: a monitor; every registry mutation sits
@@ -28,7 +30,7 @@ __all__ = ["JoinSkewStats", "joinskew"]
 
 
 class JoinSkewStats:
-    """Per-index-label join counters + build-side key sketches."""
+    """Per-index-label join routing counters + build-side key sketches."""
 
     def __init__(self, sketch_k: int = 32):
         self.sketch_k = int(sketch_k)
@@ -37,6 +39,28 @@ class JoinSkewStats:
         self._build_sketches: Dict[str, SpaceSaving] = {}
 
     # -- ingest ------------------------------------------------------------
+
+    def on_join(
+        self,
+        label: str,
+        hot_keys: int,
+        rows_broadcast: int,
+        rows_repartitioned: int,
+    ) -> None:
+        """Fold one partitioned-probe execution's routing split into the
+        label's counters; one lock round per join.  A label may already
+        hold only another family's keys, so every key has an absent
+        default."""
+        with self._lock:
+            c = self._counters.get(label)
+            if c is None:
+                c = self._counters[label] = {}
+            c["joins"] = c.get("joins", 0) + 1
+            c["hot_keys_detected"] = c.get("hot_keys_detected", 0) + int(hot_keys)
+            c["rows_broadcast"] = c.get("rows_broadcast", 0) + int(rows_broadcast)
+            c["rows_repartitioned"] = (
+                c.get("rows_repartitioned", 0) + int(rows_repartitioned)
+            )
 
     def on_multiway(
         self,

@@ -101,11 +101,14 @@ def pack_lanes(codes, shifts, bits) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
-def _searchsorted2(keys_hi, keys_lo, q_hi, q_lo) -> torch.Tensor:
-    """Left searchsorted over (hi, lo) lane pairs: a branchless binary
-    search with a fixed trip count of bit_length(n)."""
+def _searchsorted2(keys_hi, keys_lo, q_hi, q_lo, side: str = "left") -> torch.Tensor:
+    """searchsorted over (hi, lo) lane pairs: a branchless binary search
+    with a fixed trip count of bit_length(n).  *side* follows numpy's
+    searchsorted semantics."""
     n = int(keys_hi.shape[0])
     lo_idx = torch.zeros(q_hi.shape, dtype=torch.int64, device=q_hi.device)
+    if n == 0:  # nothing to gather from; every probe lands at 0
+        return lo_idx
     hi_idx = torch.full(q_hi.shape, n, dtype=torch.int64, device=q_hi.device)
     for _ in range(max(n.bit_length(), 1)):
         active = lo_idx < hi_idx
@@ -113,7 +116,10 @@ def _searchsorted2(keys_hi, keys_lo, q_hi, q_lo) -> torch.Tensor:
         safe = mid.clamp(0, max(n - 1, 0))
         kh = torch.index_select(keys_hi, 0, safe)
         kl = torch.index_select(keys_lo, 0, safe)
-        descend = (kh < q_hi) | ((kh == q_hi) & (kl < q_lo))
+        if side == "left":
+            descend = (kh < q_hi) | ((kh == q_hi) & (kl < q_lo))
+        else:
+            descend = (kh < q_hi) | ((kh == q_hi) & (kl <= q_lo))
         lo_idx = torch.where(active & descend, mid + 1, lo_idx)
         hi_idx = torch.where(active & ~descend, mid, hi_idx)
     return lo_idx

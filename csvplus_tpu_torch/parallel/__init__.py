@@ -1,3 +1,14 @@
-"""Multi-device joins.  Only the tier-choice predicate is ported so far
-(:mod:`.pjoin`); the partitioned probe itself comes with the multi-GPU
-slice."""
+"""Multi-device execution: a single-process mesh of torch devices,
+row-sharded values, the range-partitioned lookup join whose key shuffle
+is an all-to-all exchange (:mod:`.pjoin`, BASELINE.json config 5) and
+the distributed sample sort (:mod:`.dsort`).
+
+One process drives every shard, as in the reference: a mesh is an
+ordered list of devices, and several shards may share one card
+(``make_mesh(8, devices=["cuda:0"] * 8)``).  Sharded tables behind the
+public API are not ported yet.
+"""
+
+from .mesh import make_mesh, replicate, shard_rows
+
+__all__ = ["make_mesh", "shard_rows", "replicate"]

@@ -1,4 +1,4 @@
-"""``chip_smoke.py``'s phases 4-13 and its stage tables rehearsed on the
+"""``chip_smoke.py``'s phases 4-14 and its stage tables rehearsed on the
 CPU at a small size.
 
 Each phase drives the port's public API on ``device="cpu"`` and holds it
@@ -20,7 +20,11 @@ config 4's dedup, write and reload) streams 200,000 rows with 180,000
 distinct ids over a lane threshold of 50,000; phase 11 (config 1) runs
 200,000 people; phase 12 (the mutable index and the server's writes)
 10,000 rows in batches of 100; phase 13 (the live views) 2,000 rows, two
-batches of 1,000 and two through the server, and ``certify(n=3)``.  The
+batches of 1,000 and two through the server, and ``certify(n=3)``; phase
+14 (the flagship on phase 4's legs, then the partitioned probe, its skew
+and wide tiers, the sample sort and the graft entry) an 8-shard CPU mesh
+(eight shards, so the 90 %-one-value sort must retry as on the card) with
+tens of thousands of probes.  The
 stage tables printed by phases 4, 5, 9 and 10 must hold the stages of
 what they time (phase 4's two feed the stage diff), and warm (a) must
 synchronize nowhere with telemetry off; the ``kernels`` line names every
@@ -54,9 +58,10 @@ PHASES = {
     "12-storage": (False, lambda C, d: _storage(C, d)),
     "13-views": (False, lambda C, d: _views(C, d)),
     "13-plancert": (False, lambda C, d: _plancert(C)),
+    "14-multidevice": (False, lambda C, d: _multidevice(C)),
 }
 
-NO_FILTER = {"10-dedup", "12-storage"}  # no filter: checked in their own helper
+NO_FILTER = {"10-dedup", "12-storage", "14-multidevice"}  # no filter: checked in their helper
 DEVICE_PARSED = {"6-lane", "7-host-dict", "10-dedup", "11-config1", "12-storage"}
 
 
@@ -113,6 +118,29 @@ def _views(C, workdir):
         assert out["summary"][name]["refresh_max_ms"] > 0
     assert out["reads"]["n"] == 200
     return out
+
+
+def _multidevice(C):
+    """Phase 14 (b)-(e) on an 8-shard CPU mesh, thousands of probes: every
+    leg against its numpy oracle inside the script; here its evidence."""
+    stats = {}
+    out = C.run_multidevice_path(1, "cpu", stats, "cpu", shards=8, n_keys=40_000,
+                                 n_probes=80_000, n_zipf=40_000, n_wide=24_000,
+                                 n_wide_keys=10_000, n_sort=40_000, n_sort_wide=24_000,
+                                 n_sort_skew=24_000)
+    assert out["b1"]["hits"] > 0 and out["b1"]["absent"] > 0 and out["b1"]["invalid"] > 0
+    assert out["b1"]["max_count"] > 1  # repeated build keys
+    assert out["b2"]["hot_keys"] > 0 and out["b2"]["rows_broadcast"] > 0
+    assert out["b2_naive"]["hot_keys"] == 0 and out["b2_naive"]["syncs"] == 1
+    assert out["b3_zipf"]["hot_keys"] > 0
+    assert out["c3"]["retries"] >= 1 and out["c1"]["retries"] == 0
+    assert len(out["d_dryrun"]["paths"]) == 6 and out["e"] is None
+    assert out["launches"] == {"mask": 0, "pack": 0}
+    rows = {r["name"]: r for r in C.xla_rows(stats)}
+    for name in ("threeway_step", "_probe_spmd", "_probe_spmd2", "_probe_spmd_dev",
+                 "_probe_spmd_dev2", "broadcast_probe", "_dsort_spmd"):
+        assert rows[name]["launches"] > 0 and rows[name]["bound_ms"] > 0, name
+    return {"mask_check": {"cases": 0, "max_abs_err": 0}, **out}
 
 
 def _plancert(C):
@@ -217,6 +245,10 @@ def test_chip_smoke_phase_rehearses_on_the_cpu(phase, tmp_path, monkeypatch):
         assert "join:pack" in _stages(warm)
         assert warm["counters"]["verify.plans"] >= 1
         assert legs["native-encoded"]["telemetry_cost"]["synchronizes"]["off"] == 0
+        for leg in legs.values():  # phase 14 (a): the flagship on each leg's tables
+            flag = leg["flagship"]
+            assert 0 < flag["partial_rows"] < 20_000
+            assert flag["run_warm_s"] > 0 and flag["plain_warm_s"] > 0
 
 
 def test_kernels_line_lists_every_path():
@@ -234,7 +266,8 @@ def test_kernels_line_lists_every_path():
     streamed = {"ingest": {"default": {"pack_launches": 0}, "auto": {"pack_launches": 0}}}
     plancache = {"legs": {"cascaded": {"launches": 4}, "fused": {"launches": 4}},
                  "except": {"launches": 1}}
-    kernels = C.kernels_line(mask, pack, paths, streamed, plancache)
+    multidevice = {"launches": {"mask": 0, "pack": 0}}
+    kernels = C.kernels_line(mask, pack, paths, streamed, plancache, multidevice)
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for k in kernels:
@@ -243,3 +276,5 @@ def test_kernels_line_lists_every_path():
     assert by_path["1M views"] == kernels[0]["launches"] == names.index("1M views")
     assert by_path["plancert"] == names.index("plancert")
     assert set(names) <= set(by_path)
+    assert by_path["phase 14 multi-device"] == 0
+    assert kernels[1]["launches_by_path"]["phase 14 multi-device"] == 0

@@ -5,7 +5,9 @@ the vectorized CSV/JSON sinks, and through the plan cache with every
 module the plan-analysis slice added, and through the serving tier with
 every module the serving slice added, and through the device-parse tier
 and the mutable indexes with their server writes, and through live views,
-plan-space certification and the obs tools), its ingest loads its own build of the
+plan-space certification and the obs tools, and through the multi-device
+primitives, the flagship and the graft entry: ``parallel``, ``models`` and
+``graft``), its ingest loads its own build of the
 native scanner and never the JAX package's, its device entry points
 refuse ``"cuda"`` where no card is present instead of running on the CPU
 (the streamed tier and the JSON sink's source too), and ``chip_smoke.py``
@@ -278,6 +280,51 @@ def test_views_plancert_and_obs_tools_load_no_jax_and_no_reference_module(tmp_pa
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["foreign"] == []
     assert out == {"rows": 9, "read": 1, "same": True, "certified": True, "foreign": []}
+
+
+MULTIDEVICE_PATH = r"""
+import json, sys
+import numpy as np
+import csvplus_tpu_torch as T
+import csvplus_tpu_torch.models, csvplus_tpu_torch.models.workloads
+from csvplus_tpu_torch import graft
+from csvplus_tpu_torch.models.flagship import ThreewayJoin
+from csvplus_tpu_torch.parallel import make_mesh
+from csvplus_tpu_torch.parallel.dsort import distributed_sort
+from csvplus_tpu_torch.parallel.pjoin import partitioned_probe
+
+mesh = make_mesh(4, devices=["cpu"] * 4)
+keys = np.sort(np.arange(0, 2000, 3, dtype=np.int32))
+lo, ct = partitioned_probe(mesh, np.arange(-1, 999, dtype=np.int32), keys)
+vals, perm = distributed_sort(mesh, np.arange(500, 0, -1, dtype=np.int32))
+orders = T.take_rows([T.Row({"c": f"c{i % 7}", "p": f"p{i % 5}"}) for i in range(50)]) \
+    .on_device("cpu").to_device_table()
+cust = T.take_rows([T.Row({"c": f"c{i}", "n": f"n{i}"}) for i in range(7)]).on_device("cpu") \
+    .unique_index_on("c")
+prod = T.take_rows([T.Row({"p": f"p{i}", "x": f"x{i}"}) for i in range(5)]).on_device("cpu") \
+    .unique_index_on("p")
+rows = ThreewayJoin.build(orders, cust.device_table, prod.device_table, "c", "p").run().nrows
+dry = graft.dryrun_multichip(4, devices=["cpu"] * 4)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+             or m == "csvplus_tpu" or m.startswith("csvplus_tpu."))
+print(json.dumps({"hits": int((ct > 0).sum()), "sorted": bool((np.diff(vals) >= 0).all()),
+                  "rows": rows, "paths": len(dry["paths"]), "foreign": bad}))
+"""
+
+
+def test_multidevice_flagship_and_graft_load_no_jax_and_no_reference_module(tmp_path):
+    """This slice's entry points: the partitioned probe and the sample sort
+    on a 4-shard CPU mesh, the flagship's ``ThreewayJoin``, and
+    ``graft.dryrun_multichip``, with ``parallel``, ``models`` and ``graft``
+    imported."""
+    res = subprocess.run(
+        [sys.executable, "-c", MULTIDEVICE_PATH], cwd=tmp_path, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"hits": 333, "sorted": True, "rows": 50, "paths": 6, "foreign": []}
 
 
 def test_pack_kernel_wrapper_never_falls_back_off_the_cpu():
