@@ -205,7 +205,38 @@ Phases; any failure raises, exits non-zero and prints no result line:
    timed (``counted_calls``); each one's calls, its time at its largest
    shape and its byte bound are printed.  Every number names the card and
    its power limit.
-15. A ``{"kernels": [...]}`` line, then the last line
+15. Sharded tables behind the public API: BASELINE config 5 ("8-way
+   sharded 100M-row orders.csv join"), every shard on ``cuda:0`` unless
+   said otherwise.  (a) 100,000,000 orders in phase 4's layout (~2.45 GB,
+   the streamed tier) through ``from_file(...).on_device(mesh=make_mesh(8,
+   devices=["cuda:0"] * 8))``: the chunks land on their shards
+   (``ingest:shard-assemble`` with 8 shards, pre-sharded); the plain
+   ``orders.join(cust, "cust_id").join(prod)`` (the broadcast tier per
+   shard: 100,000 keys are under ``PARTITION_MIN_KEYS``) against the
+   oracle, cold and warm (median of 5), assembling no array;
+   ``workloads.sharded_join`` equal to the join's first hop; phase 4's
+   pipelines (a) and (b) (the mask kernel once per shard per filter, every
+   launch replayed bitwise); ``ThreewayJoin.run()`` (fused, per shard)
+   equal to the plain join.  (b) 20,000,005 orders whose ``cust_id`` is
+   Zipf(1.1) over a permuted rank of 1,500,000 customers (``bench.py``'s
+   layout), padded on 8 shards, with ``PARTITION_MIN_KEYS`` set to
+   1,000,000 and ``CSVPLUS_JOIN_SKEW_THRESHOLD=0.002`` (the reference's
+   mesh bench): the three-way join takes the partitioned tier with the
+   skew tier, again with ``CSVPLUS_JOIN_SKEW=0``, and fused through
+   ``PlanCache`` (one ``part_info``), each equal to the oracle.  (c), at
+   the end of each phase-4 leg: the leg's 10M file on 7 shards (padded:
+   the device-parse tier or the typed lanes, then ``with_sharding``),
+   pipelines (a) and (b), the join against phase 14 (a)'s 99 % customers
+   index (unique-partial per shard), ``ThreewayJoin.run()``'s padded branch and
+   ``unique_index_on("order_id")`` through the sample sort with 1,000
+   seeded ``find_many`` probes.  (d) phase 14 (d)'s dry run must list
+   paths 1-5 as run.  (e) where more than one card is visible, (a)'s
+   ingest and join over ``min(count, 8)`` distinct cards; else it prints
+   that (e) did not run.  Prints ingest seconds, K, shard rows, join
+   times, capacities, retries, hot keys, rows broadcast, host-sync
+   elements, assemblies and peak device memory per leg, each beside the
+   card and its power limit.
+16. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phases 6, 7, 10 and 11 run under the default too (the device-parse tier
@@ -231,12 +262,12 @@ the automatic K (phase 5), one served batch of 32 lookups (phase 9,
 
 Writes its CSVs under ``.chip_smoke_data/`` beside this file and removes
 them at the end.  Needs one card; imports nothing of JAX or csvplus_tpu.
-Phases 4-14 run on the CPU too, at a small size, as a rehearsal:
+Phases 4-15 run on the CPU too, at a small size, as a rehearsal:
 ``run_main_path`` (with phase 14 (a) in each leg), ``run_streamed_path``
 (with phases 8 and 9 at its end), ``run_lane_path``, ``run_host_dict_path``,
 ``run_plancache_path``, ``run_serving_path``, ``run_dedup_path``,
 ``run_config1_path``, ``run_storage_path``, ``run_views_path``,
-``run_plancert_path`` and ``run_multidevice_path`` with ``device="cpu"`` (set ``CSVPLUS_DEVICE_PARSE=1``
+``run_plancert_path``, ``run_multidevice_path`` and ``run_config5_path`` with ``device="cpu"`` (set ``CSVPLUS_DEVICE_PARSE=1``
 to take the tier the card takes by default).
 """
 
@@ -281,6 +312,13 @@ _FNV_PRIME = np.uint32(16777619)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def storage_device(storage):
+    """A column storage's device (a row-sharded one's first shard's)."""
+    from csvplus_tpu_torch.columnar.table import storage_device as _sd
+
+    return _sd(storage)
 
 
 # -- phase 3: the mask kernel against its plain version ---------------------
@@ -709,10 +747,34 @@ def _lines(pieces) -> bytes:
     return flat[flat != 0].tobytes()
 
 
+def _write_rows(f, n: int, lines, chunk: int = 2_000_000) -> None:
+    """Write ``lines(lo, hi)`` (the bytes of rows [lo, hi)) for every
+    *chunk* rows of *n*, in order: the chunks are built on a few threads
+    (numpy releases the interpreter lock in its loops), at most a window
+    of them held at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    starts = list(range(0, n, chunk))
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with ThreadPoolExecutor(workers) as pool:
+        for w in range(0, len(starts), 2 * workers):
+            window = starts[w:w + 2 * workers]
+            for data in pool.map(lambda lo: lines(lo, min(lo + chunk, n)), window):
+                f.write(data)
+
+
 def _fnv_affix(prefix: bytes, v: np.ndarray) -> np.ndarray:
     """FNV-1a of ``prefix + decimal(v)`` per row, for nonnegative ints."""
     n = v.size
     return _fnv32_mat(np.hstack([_lit(n, prefix), _digits(v)]) if prefix else _digits(v))
+
+
+def _orders_lines(lo: int, hi: int, cust, prod, qty) -> bytes:
+    """Orders rows [lo, hi) in phase 4's layout: ``o<row>,c<cust>,p<prod>,<qty>``."""
+    m = hi - lo
+    return _lines([_lit(m, b"o"), _digits(np.arange(lo, hi)), _lit(m, b",c"),
+                   _digits(cust[lo:hi]), _lit(m, b",p"), _digits(prod[lo:hi]), _lit(m, b","),
+                   _digits(qty[lo:hi]), _lit(m, b"\n")])
 
 
 def generate(root: Path, n_orders: int, seed: int, name: str = "orders.csv") -> dict:
@@ -743,15 +805,7 @@ def generate(root: Path, n_orders: int, seed: int, name: str = "orders.csv") -> 
                                        p["price"]).tolist()) + b"\n")
     with open(paths["orders"], "wb") as f:
         f.write(b"order_id,cust_id,prod_id,qty\n")
-        chunk = 2_000_000
-        for lo in range(0, n_orders, chunk):
-            hi = min(lo + chunk, n_orders)
-            m = hi - lo
-            f.write(_lines([
-                _lit(m, b"o"), _digits(np.arange(lo, hi)), _lit(m, b",c"), _digits(cust[lo:hi]),
-                _lit(m, b",p"), _digits(prod[lo:hi]), _lit(m, b","), _digits(qty[lo:hi]),
-                _lit(m, b"\n"),
-            ]))
+        _write_rows(f, n_orders, lambda lo, hi: _orders_lines(lo, hi, cust, prod, qty))
     return {"paths": paths, "cust": cust, "prod": prod, "qty": qty, "cols": cols,
             "n": n_orders, "seed": seed}
 
@@ -902,12 +956,15 @@ def run_pipelines(orders, cust, prod, data: dict, device: str, label: str,
     out = {"pipelines": {}, "srcs": srcs}
     for name, (table, first_rows, times) in results.items():
         cols = sorted(table.columns)
+        t0 = time.perf_counter()
         n_want, want_sums, want_first = oracle(data, pipelines[name][1], cols)
+        t_oracle = time.perf_counter() - t0
         if table.nrows != n_want:
             raise AssertionError(f"{label} pipeline {name}: {table.nrows} rows, oracle {n_want}")
         for c in table.columns.values():
-            if c.storage.device.type != device:
-                raise AssertionError(f"{label} pipeline {name}: result column on {c.storage.device}")
+            if storage_device(c.storage).type != device:
+                raise AssertionError(
+                    f"{label} pipeline {name}: result column on {storage_device(c.storage)}")
         got_sums = checksum_device_table(table, cols, positional=True)
         if got_sums != want_sums:
             raise AssertionError(
@@ -917,10 +974,10 @@ def run_pipelines(orders, cust, prod, data: dict, device: str, label: str,
                 f"{label} pipeline {name}: first rows {first_rows} != {want_first}")
         out["pipelines"][name] = {"rows_out": table.nrows, "join_cold_s": times[0],
                                   "join_warm_s": times[1],
-                                  "rows_per_s_warm": n_orders / times[1]}
+                                  "rows_per_s_warm": n_orders / times[1], "oracle_s": t_oracle}
         log(f"{label} pipeline {name}: {table.nrows:,} rows == oracle (count, positional "
-            f"checksums of {len(cols)} columns, first rows); filter+join cold "
-            f"{times[0]:.3f}s, warm {times[1]:.3f}s ({n_orders / times[1]:,.0f} rows/s)")
+            f"checksums of {len(cols)} columns, first rows; oracle {t_oracle:.1f}s); filter+join "
+            f"cold {times[0]:.3f}s, warm {times[1]:.3f}s ({n_orders / times[1]:,.0f} rows/s)")
     # the orders side keeps its kind end to end: in the ingested table and
     # in both pipelines' results, after the checksums and top(3)
     for where, cols in [("ingested orders", orders.plan.table.columns)] + [
@@ -1049,6 +1106,9 @@ def _main_leg(data: dict, device: str, leg: str, profile: bool, stats: dict, car
             profile_pipelines(run["srcs"])
     out["flagship"] = run_flagship(orders, cust, prod, data, device, leg,
                                    data["paths"]["orders"].parent, stats, card)
+    plain_src = orders.join(cust, "cust_id").join(prod)
+    plain = plain_src.to_device_table()
+    out["sharded"] = run_sharded_leg(data, cust, prod, plain_src, plain, device, leg, card)
     return out
 
 
@@ -1600,8 +1660,8 @@ def _table_sums(table, device: str, what: str) -> dict:
     from csvplus_tpu_torch.utils.checksum import checksum_device_table
 
     for c in table.columns.values():
-        if c.storage.device.type != device:
-            raise AssertionError(f"{what}: result column on {c.storage.device}")
+        if storage_device(c.storage).type != device:
+            raise AssertionError(f"{what}: result column on {storage_device(c.storage)}")
     return checksum_device_table(table, sorted(table.columns), positional=True)
 
 
@@ -2156,12 +2216,10 @@ def _dedup_data(workdir: Path, n: int, n_distinct: int, seed: int) -> dict:
     path = workdir / "dedup.csv"
     with open(path, "wb") as f:
         f.write(b"order_id,cust_id,qty,ts\n")
-        for lo in range(0, n, 2_000_000):
-            hi = min(lo + 2_000_000, n)
-            m = hi - lo
-            f.write(_lines([_lit(m, b"o"), _digits(ids[lo:hi], 8), _lit(m, b",c"),
-                            _digits(cust[lo:hi]), _lit(m, b","), _digits(qty[lo:hi]),
-                            _lit(m, b","), _digits(np.arange(lo, hi)), _lit(m, b"\n")]))
+        _write_rows(f, n, lambda lo, hi: _lines([
+            _lit(hi - lo, b"o"), _digits(ids[lo:hi], 8), _lit(hi - lo, b",c"),
+            _digits(cust[lo:hi]), _lit(hi - lo, b","), _digits(qty[lo:hi]), _lit(hi - lo, b","),
+            _digits(np.arange(lo, hi)), _lit(hi - lo, b"\n")]))
     return {"path": path, "ids": ids, "cust": cust, "qty": qty, "n": n,
             "n_distinct": n_distinct}
 
@@ -3349,6 +3407,7 @@ def run_flagship(orders, cust, prod, data: dict, device: str, leg: str, workdir:
             f.write(b"id,name\n" + b"\n".join(
                 np.char.add(np.char.add(c["id"][kept], b","), c["name"][kept]).tolist()) + b"\n")
         cust99 = T.from_file(str(path)).on_device(device).unique_index_on("id")
+        data["cust99"] = {"index": cust99, "kept": kept}  # phase 15 (c) joins it too
         tw99 = F.ThreewayJoin.build(orders_t, cust99.device_table, prod.device_table)
         part = tw99.run()
         keep = np.isin(data["cust"], kept)
@@ -3626,6 +3685,10 @@ def run_multidevice_path(seed: int, device: str, stats: dict, card: str, shards:
         t0 = time.perf_counter()
         out["d_dryrun"] = graft.dryrun_multichip(shards, devices=[first] * shards)
         out["d_dryrun"]["seconds"] = time.perf_counter() - t0
+        ran = [p.split()[0] for p in out["d_dryrun"]["paths"]]
+        if ran != ["1", "2", "3", "3b", "3c", "4", "5"][: len(ran)] or "4" not in ran or (
+                shards % 2 == 0 and shards >= 4 and "5" not in ran):
+            raise AssertionError(f"phase 14 (d) / 15 (d): the dry run ran paths {ran}")
         log(f"phase 14 (d): graft.entry() step == numpy ({out['d_entry']['valid']:,} of "
             f"{out['d_entry']['rows']:,} valid); dryrun_multichip({shards}) on {first} in "
             f"{out['d_dryrun']['seconds']:.2f}s | {card}")
@@ -3652,21 +3715,491 @@ def run_multidevice_path(seed: int, device: str, stats: dict, card: str, shards:
     return out
 
 
+# -- phase 15: sharded tables behind the public API (BASELINE config 5) -------
+
+N_CONFIG5 = 100_000_000  # BASELINE.json config 5: "8-way sharded 100M-row orders.csv join"
+C5_SHARDS = 8
+C5_PADDED_SHARDS = 7  # 10,000,000 = 7 x 1,428,571 + 3: the tail is padded
+N_C5_SKEW = 20_000_005  # not a multiple of 8: the skew leg's stream is padded
+N_C5_SKEW_CUST = 1_500_000  # over C5_PARTITION_MIN_KEYS: the partitioned tier
+C5_PARTITION_MIN_KEYS = 1_000_000  # NORTHSTAR_MESH_r08.json's env_overrides
+N_C5_FIND = 1_000
+C5_REPS = 5
+C5_MAIN_PATH = "phase 15 (a) 100M, 8 shards"  # the slice's path in the kernels line
+C5_PACK_PATH = "phase 15 (c) 10M device-parsed, 7 shards"
+
+
+def _assembled() -> "tuple[int, int]":
+    from csvplus_tpu_torch.parallel.mesh import assemblies
+
+    return assemblies["count"], assemblies["bytes"]
+
+
+def _shard_mesh(device: str, shards: int):
+    from csvplus_tpu_torch.parallel.mesh import make_mesh
+
+    first = "cuda:0" if device == "cuda" else "cpu"
+    return make_mesh(shards, devices=[first] * shards)
+
+
+def run_sharded_leg(data: dict, cust, prod, plain_src, plain_table, device: str, leg: str,
+                    card: str, shards: int = C5_PADDED_SHARDS) -> dict:
+    """Phase 15 (c), at the end of each phase-4 leg: the leg's 10M-order
+    file through ``on_device(mesh=...)`` on *shards* shards of one device
+    (the whole-file tier, then ``with_sharding``: the tail padded), the
+    leg's pipelines (a) and (b), the join against phase 14 (a)'s 99 %
+    customers index (unique-partial per shard), ``ThreewayJoin.run()``
+    (the padded branch) and ``unique_index_on("order_id")`` (the dsort
+    route, the index left sharded) with ``find_many`` on seeded ids, each
+    against its oracle.  Then the unfiltered three-way join on a 1-shard
+    mesh (the sharded code on one block) against *plain_src*, the same
+    join on the unsharded orders (*plain_table* its result), timed in
+    turn."""
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.models import flagship as F
+    from csvplus_tpu_torch.ops import parse as P
+    from csvplus_tpu_torch.utils.observe import telemetry
+
+    what = f"phase 15 (c) [{leg}]"
+    n = data["n"]
+    mesh = _shard_mesh(device, shards)
+    _peak_reset(device)
+    a0 = _assembled()
+    with recorded_pack_calls() as pack_calls:
+        P.launches = 0  # the sharded ingest starts here
+        t0 = time.perf_counter()
+        orders = T.from_file(str(data["paths"]["orders"])).on_device(mesh=mesh)
+        _sync(device)
+        t_ingest = time.perf_counter() - t0
+        pack_launches = P.launches  # ... and ends here
+    pack_check = check_path_packs(pack_calls, what, pack_launches, device)
+    table = orders.plan.table
+    kinds = {c: table.columns[c].kind for c in ORDERS_COLS}
+    if table.ingest_tier != leg or table.mesh is not mesh or table.stored_len <= n:
+        raise AssertionError(f"{what}: tier {table.ingest_tier}, mesh {table.mesh}, stored "
+                             f"{table.stored_len} for {n} rows (a padded {shards}-shard table "
+                             f"of the {leg} tier expected)")
+    if leg == "device-parsed" and device == "cuda" and pack_launches < len(ORDERS_COLS):
+        raise AssertionError(f"{what}: the pack kernel ran {pack_launches} times")
+    log(f"{what}: {n:,} orders on {shards} shards of {mesh.devices[0]} in {t_ingest:.2f}s "
+        f"({leg} tier, then with_sharding; shard rows {table.shard_row_counts()}, stored "
+        f"{table.stored_len:,}); kinds {kinds}; pack launches {pack_launches}")
+    run = run_pipelines(orders, cust, prod, data, device, what,
+                        typed_lanes=leg == "native-encoded")
+    out = {"ingest_s": t_ingest, "pack_launches": pack_launches, "pack_check": pack_check,
+           "pipelines": run["pipelines"],
+           "launches": run["launches"], "mask_check": run["mask_check"],
+           "shard_rows": table.shard_row_counts()}
+
+    # a partial join per shard: a customers index over 99 % of them
+    from csvplus_tpu_torch.ops import join as TJ
+
+    partial0 = TJ.expand_paths["unique-partial"]
+    c99 = data["cust99"]
+    part = orders.join(c99["index"], "cust_id").join(prod).to_device_table()
+    if TJ.expand_paths["unique-partial"] != partial0 + 1:
+        raise AssertionError(f"{what}: the 99 % customers join did not take unique-partial")
+    _check_oracle(part, _table_sums(part, device, what),
+                  oracle(data, np.isin(data["cust"], c99["kept"]), sorted(part.columns)),
+                  f"{what} 99 % customers join")
+    out["partial_rows"] = part.nrows
+    del part
+
+    # the flagship's padded branch
+    paths0 = dict(F.run_paths)
+    tw = F.ThreewayJoin.build(table, cust.device_table, prod.device_table)
+    joined = tw.run()
+    if F.run_paths["padded"] != paths0.get("padded", 0) + 1:
+        raise AssertionError(f"{what}: ThreewayJoin.run() did not take the padded branch")
+    sums = _table_sums(joined, device, what)
+    if sums != _table_sums(plain_table, device, what):
+        raise AssertionError(f"{what}: padded run() != the plain API's join")
+    _check_oracle(joined, sums, oracle(data, np.ones(n, bool), sorted(joined.columns)),
+                  f"{what} padded run()")
+    out["flagship_warm_s"] = _wall(tw.run, device, reps=3)
+    del joined, tw
+
+    # the index build through the sample sort, then seeded point lookups
+    t0 = time.perf_counter()
+    with telemetry.collect():
+        idx = orders.unique_index_on("order_id")
+        _sync(device)
+        stages = [r.stage for r in telemetry.records]
+    t_index = time.perf_counter() - t0
+    if "dsort" not in stages:
+        raise AssertionError(f"{what}: the index build did not take the dsort route: {stages}")
+    from csvplus_tpu_torch.parallel.mesh import ShardedRows
+
+    itab = idx.device_table.table
+    if not all(isinstance(c.storage, ShardedRows) and c.storage.mesh is mesh
+               for c in itab.columns.values()):
+        raise AssertionError(f"{what}: the dsort-built index is not sharded over the mesh")
+    out["index_shard_rows"] = itab.shard_row_counts()
+    rng = np.random.default_rng(data["seed"] + 1503)
+    ids = rng.integers(0, n, N_C5_FIND)
+    probes = [f"o{i}" for i in ids.tolist()]
+    got = T.to_rows_many(idx.find_many(probes))
+    c, p = data["cols"]["cust"], data["cols"]["prod"]
+    for i, rows in zip(ids.tolist(), got):
+        want = {"order_id": f"o{i}", "cust_id": c["id"][data["cust"][i]].decode(),
+                "prod_id": p["prod_id"][data["prod"][i]].decode(), "qty": str(data["qty"][i])}
+        if [dict(r) for r in rows] != [want]:
+            raise AssertionError(f"{what}: find_many({i}) gave {rows}, want {want}")
+    a1 = _assembled()
+    out.update(index_s=t_index, assemblies=a1[0] - a0[0], assembled_bytes=a1[1] - a0[1],
+               peak_gib=_peak_gib(device), flagship_paths=dict(F.run_paths))
+    log(f"{what}: the 99 % customers join (unique-partial per shard) == oracle "
+        f"({out['partial_rows']:,} rows); ThreewayJoin.run() took the padded branch == plain "
+        f"join == oracle (warm "
+        f"{out['flagship_warm_s']:.4f}s); unique_index_on(order_id) through dsort in "
+        f"{t_index:.2f}s, the index sharded {out['index_shard_rows']}, {N_C5_FIND:,} "
+        f"find_many == numpy; assemblies {out['assemblies']} ({out['assembled_bytes']:,} bytes: "
+        f"the flagship's compaction ids, the sort's gather copies, the index's key and its "
+        f"demotion); peak {out['peak_gib']} GiB | {card}")
+    del idx, itab, orders, table
+
+    # one shard against none: what the sharded code costs where no split
+    # is needed (each timed in turn, the same join, the same card)
+    one = T.from_file(str(data["paths"]["orders"])).on_device(mesh=_shard_mesh(device, 1))
+    src1 = one.join(cust, "cust_id").join(prod)
+    if _table_sums(src1.to_device_table(), device, what) != _table_sums(plain_table, device,
+                                                                        what):
+        raise AssertionError(f"{what}: the 1-shard join != the unsharded join")
+    out["one_shard_ms"] = 1e3 * _wall(src1.to_device_table, device, reps=C5_REPS)
+    out["unsharded_ms"] = 1e3 * _wall(plain_src.to_device_table, device, reps=C5_REPS)
+    del one, src1
+    log(f"{what}: the three-way join on a 1-shard mesh == the unsharded join; warm "
+        f"{out['one_shard_ms']:.2f} ms against {out['unsharded_ms']:.2f} ms unsharded (median "
+        f"of {C5_REPS} each) | {card}")
+    return out
+
+
+def zipf_data(root: Path, n_orders: int, n_cust: int, seed: int) -> dict:
+    """Phase 15 (b)'s files, ``bench.py``'s Zipf fact-table layout: each
+    order's ``cust_id`` a Zipf(1.1) draw over a seeded permutation of the
+    customers (truncated at *n_cust* ranks), products and quantities
+    uniform.  Returns the arrays in :func:`generate`'s form."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n_cust)
+    w = np.arange(1, n_cust + 1, dtype=np.float64) ** -ZIPF_S
+    w /= w.sum()
+    cust = perm[rng.choice(n_cust, size=n_orders, p=w)]
+    prod = rng.integers(0, N_PROD, n_orders)
+    qty = rng.integers(1, 101, n_orders)
+    ci = np.arange(n_cust)
+    pi = np.arange(N_PROD)
+    price = np.array([f"{(i % 9900) / 100 + 0.99:.2f}".encode() for i in pi])
+    cols = {"cust": {"id": _sbytes(b"c", ci), "name": _sbytes(b"name", ci % 9973)},
+            "prod": {"prod_id": _sbytes(b"p", pi), "product": _sbytes(b"prod", pi),
+                     "price": price}}
+    paths = {"orders": root / "orders_zipf.csv", "cust": root / "customers_zipf.csv",
+             "prod": root / "products_zipf.csv"}
+    with open(paths["cust"], "wb") as f:
+        f.write(b"id,name\n" + b"\n".join(np.char.add(np.char.add(cols["cust"]["id"], b","),
+                                                       cols["cust"]["name"]).tolist()) + b"\n")
+    with open(paths["prod"], "wb") as f:
+        pc = cols["prod"]
+        f.write(b"prod_id,product,price\n" + b"\n".join(np.char.add(np.char.add(np.char.add(
+            pc["prod_id"], b","), np.char.add(pc["product"], b",")), pc["price"]).tolist())
+            + b"\n")
+    with open(paths["orders"], "wb") as f:
+        f.write(b"order_id,cust_id,prod_id,qty\n")
+        _write_rows(f, n_orders, lambda lo, hi: _orders_lines(lo, hi, cust, prod, qty))
+    return {"paths": paths, "cust": cust, "prod": prod, "qty": qty, "cols": cols,
+            "n": n_orders, "seed": seed}
+
+
+def _timed_join(src, device: str, reps: int) -> dict:
+    """Cold, then the median of *reps* warm runs of *src* (seconds), the
+    result of the last run, and the columns assembled across them."""
+    a0 = _assembled()
+    t0 = time.perf_counter()
+    table = src.to_device_table()
+    _sync(device)
+    cold = time.perf_counter() - t0
+    warm = []
+    for _ in range(reps):
+        del table
+        t0 = time.perf_counter()
+        table = src.to_device_table()
+        _sync(device)
+        warm.append(time.perf_counter() - t0)
+    a1 = _assembled()
+    return {"table": table, "cold_s": cold, "warm_s": float(np.median(warm)),
+            "assemblies": a1[0] - a0[0], "assembled_bytes": a1[1] - a0[1]}
+
+
+def _config5_join(orders, cust, prod, data: dict, device: str, what: str, card: str,
+                  reps: int) -> dict:
+    """The plain three-way join on the sharded *orders*, cold and warm,
+    against the oracle; it must assemble nothing."""
+    src = orders.join(cust, "cust_id").join(prod)
+    run = _timed_join(src, device, reps)
+    table = run.pop("table")
+    sums = _table_sums(table, device, what)
+    t0 = time.perf_counter()
+    _check_oracle(table, sums, oracle(data, np.ones(data["n"], bool), sorted(table.columns)),
+                  what)
+    run["oracle_s"] = time.perf_counter() - t0
+    if run["assemblies"]:
+        raise AssertionError(f"{what}: the join assembled {run['assemblies']} arrays")
+    n = data["n"]
+    log(f"{what}: {table.nrows:,} rows == oracle (positional checksums of "
+        f"{len(sums)} columns, first rows; oracle {run['oracle_s']:.1f}s); cold "
+        f"{run['cold_s']:.3f}s, warm {run['warm_s']:.3f}s (median of {reps}, "
+        f"{n / run['warm_s']:,.0f} rows/s); assemblies 0 | {card}")
+    run.update(rows=table.nrows, sums=sums)
+    return run, table
+
+
+def run_config5_path(seed: int, device: str, workdir: Path, card: str,
+                     n_orders: int = N_CONFIG5, shards: int = C5_SHARDS,
+                     n_skew: int = N_C5_SKEW, n_skew_cust: int = N_C5_SKEW_CUST,
+                     partition_min_keys: int = C5_PARTITION_MIN_KEYS,
+                     reps: int = C5_REPS) -> dict:
+    """Phase 15 (a), (b) and (e): BASELINE config 5 end to end through the
+    public API, the shards on one device (``make_mesh(8, devices=[...] *
+    8)``) unless (e) spreads them over distinct cards."""
+    import torch
+
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.models import flagship as F
+    from csvplus_tpu_torch.models import workloads as W
+    from csvplus_tpu_torch.ops import join as TJ
+    from csvplus_tpu_torch.parallel.mesh import make_mesh
+    from csvplus_tpu_torch.utils.observe import telemetry
+
+    out = {}
+    mesh = _shard_mesh(device, shards)
+    if device == "cuda":
+        log(f"phase 15 start: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+            f"(earlier phases' tables freed)")
+
+    # (a) config 5 at its published size, streamed onto 8 shards
+    t0 = time.perf_counter()
+    data = generate(workdir, n_orders, seed, name="orders_c5.csv")
+    out["gen_s"] = time.perf_counter() - t0
+    log(f"phase 15 (a): generated {n_orders:,} orders "
+        f"({data['paths']['orders'].stat().st_size / 1e9:.2f} GB) in {out['gen_s']:.1f}s")
+    _peak_reset(device)
+    with telemetry.collect():
+        t0 = time.perf_counter()
+        orders = T.from_file(str(data["paths"]["orders"])).on_device(mesh=mesh)
+        _sync(device)
+        t_ingest = time.perf_counter() - t0
+        assemble = [r for r in telemetry.records if r.stage == "ingest:shard-assemble"]
+    table = orders.plan.table
+    if (table.ingest_tier != "streamed" or not table._pre_sharded or len(assemble) != 1
+            or assemble[0].extra["n_shards"] != shards):
+        raise AssertionError(f"phase 15 (a): tier {table.ingest_tier}, pre-sharded "
+                             f"{table._pre_sharded}, shard-assemble stages {assemble}")
+    secs = table.ingest_seconds
+    out["ingest"] = {"seconds": t_ingest, "rows_per_s": n_orders / t_ingest,
+                     "workers": secs["workers"], "chunks": secs["chunks"],
+                     "scan_wait_s": secs["scan_wait"], "place_s": secs["place"],
+                     "seal_s": secs.get("seal"), "shard_rows": table.shard_row_counts(),
+                     "max_shard_rows": assemble[0].extra["max_shard_rows"],
+                     "peak_gib": _peak_gib(device)}
+    log(f"phase 15 (a): ingest {t_ingest:.2f}s ({n_orders / t_ingest:,.0f} rows/s) on the "
+        f"streamed tier, K = {secs['workers']}, {secs['chunks']} chunks, scan-wait "
+        f"{secs['scan_wait']:.2f}s, place {secs['place']:.2f}s, seal {secs.get('seal', 0):.2f}s; "
+        f"shard rows {table.shard_row_counts()}; peak {out['ingest']['peak_gib']} GiB | {card}")
+    dims, cust, prod = _index_dims(data, device)
+    _peak_reset(device)
+    out["join"], plain = _config5_join(orders, cust, prod, data, device,
+                                       "phase 15 (a) config 5 three-way join", card, reps)
+    out["join"]["peak_gib"] = _peak_gib(device)
+    out["join"].pop("sums")
+    src = orders.join(cust, "cust_id").join(prod)
+    # the result is dropped here: held, its 8 columns of 100M rows would
+    # stay live through (b)
+    out["stage_table"] = stage_table(
+        f"phase 15 (a) warm config 5 join, {n_orders:,} orders on {shards} shards",
+        lambda: (src.to_device_table(), _sync(device)))[1]
+    del src
+
+    # workloads.sharded_join == the same join's first hop
+    first_hop = orders.join(cust, "cust_id").to_device_table()
+    t0 = time.perf_counter()
+    sj = W.sharded_join(T.from_file(str(data["paths"]["orders"])), cust, shards,
+                        mesh=mesh).to_device_table()
+    _sync(device)
+    out["sharded_join_s"] = time.perf_counter() - t0
+    if _table_sums(sj, device, "sharded_join") != _table_sums(first_hop, device, "first hop"):
+        raise AssertionError("phase 15 (a): workloads.sharded_join != the join's first hop")
+    log(f"phase 15 (a): workloads.sharded_join (ingest + join) in {out['sharded_join_s']:.2f}s "
+        f"== orders.join(cust)'s {first_hop.nrows:,} rows | {card}")
+    del sj, first_hop
+
+    # phase 4's pipelines on the sharded stream; their mask launches replayed
+    run = run_pipelines(orders, cust, prod, data, device, "phase 15 (a) 100M 8 shards")
+    out.update(pipelines=run["pipelines"], launches=run["launches"], mask_check=run["mask_check"])
+    del run
+
+    # the flagship on the sharded stream: the fused route per shard (100M
+    # rows split evenly over 8 shards; a padded stream takes the padded one)
+    branch = "fused" if table.stored_len == n_orders else "padded"
+    paths0 = dict(F.run_paths)
+    tw = F.ThreewayJoin.build(table, cust.device_table, prod.device_table)
+    joined = tw.run()
+    if F.run_paths[branch] != paths0.get(branch, 0) + 1:
+        raise AssertionError(f"phase 15 (a): ThreewayJoin.run() did not take the {branch} route")
+    if (_table_sums(joined, device, "flagship") != _table_sums(plain, device, "plain")
+            or joined.nrows != plain.nrows):
+        raise AssertionError("phase 15 (a): ThreewayJoin.run() != the plain join")
+    out["flagship_warm_s"] = _wall(tw.run, device, reps=reps)
+    out["flagship_branch"] = branch
+    log(f"phase 15 (a): ThreewayJoin.run() ({branch}, per shard) == the plain join; warm "
+        f"{out['flagship_warm_s']:.4f}s (median of {reps}) | {card}")
+    del joined, tw
+
+    # (e) the same join over distinct cards
+    count = torch.cuda.device_count() if device == "cuda" else 0
+    if count > 1:
+        cards = make_mesh(min(count, shards))
+        t0 = time.perf_counter()
+        orders_e = T.from_file(str(data["paths"]["orders"])).on_device(mesh=cards)
+        _sync(device)
+        t_e = time.perf_counter() - t0
+        run_e, table_e = _config5_join(
+            orders_e, cust, prod, data, device,
+            f"phase 15 (e) config 5 over {cards.size} distinct cards", card, reps)
+        out["e"] = {"cards": cards.size, "ingest_s": t_e, **{k: v for k, v in run_e.items()
+                                                             if k != "sums"}}
+        del orders_e, table_e
+    else:
+        out["e"] = None
+        log(f"phase 15 (e) did not run: {count} CUDA card(s) visible; (e) spreads (a)'s "
+            f"ingest and join over distinct cards")
+    del orders, table, plain, dims, cust, prod, data
+    gc.collect()
+
+    # (b) the partitioned tier end to end on a padded Zipf stream
+    t0 = time.perf_counter()
+    zdata = zipf_data(workdir, n_skew, n_skew_cust, seed + 1502)
+    out["skew_gen_s"] = time.perf_counter() - t0
+    saved = TJ.DeviceIndex.PARTITION_MIN_KEYS
+    TJ.DeviceIndex.PARTITION_MIN_KEYS = partition_min_keys  # read at import: set for the leg
+    try:
+        with _env_set({"CSVPLUS_JOIN_SKEW_THRESHOLD": ZIPF_THRESHOLD}):
+            out["b"] = _skew_leg(zdata, device, mesh, card, reps)
+    finally:
+        TJ.DeviceIndex.PARTITION_MIN_KEYS = saved
+    out["b"]["gen_s"] = out["skew_gen_s"]
+    return out
+
+
+def _skew_leg(zdata: dict, device: str, mesh, card: str, reps: int) -> dict:
+    """Phase 15 (b)'s runs: the plain join (the partitioned tier, skew on),
+    again with ``CSVPLUS_JOIN_SKEW=0``, and fused through ``PlanCache``
+    (one ``part_info``); each equal to the oracle."""
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.serve import PlanCache
+    from csvplus_tpu_torch.utils.observe import telemetry
+
+    n = zdata["n"]
+    what = f"phase 15 (b) {n:,} Zipf orders"
+    _peak_reset(device)
+    t0 = time.perf_counter()
+    orders = T.from_file(str(zdata["paths"]["orders"])).on_device(mesh=mesh)
+    _sync(device)
+    t_ingest = time.perf_counter() - t0
+    table = orders.plan.table
+    if table.stored_len <= n or not table._pre_sharded:
+        raise AssertionError(f"{what}: stored {table.stored_len} rows, pre-sharded "
+                             f"{table._pre_sharded} (a padded streamed table expected)")
+    dims, cust, prod = _index_dims(zdata, device)
+    want = oracle(zdata, np.ones(n, bool), sorted(
+        ["order_id", "cust_id", "prod_id", "qty", "id", "name", "product", "price"]))
+    out = {"ingest_s": t_ingest, "stored_rows": table.stored_len, "runs": {}}
+    legs = {"skew on": ({}, False), "skew off": ({"CSVPLUS_JOIN_SKEW": "0"}, False),
+            "plan cache fused": ({}, True)}
+    M.launches = 0
+    for leg, (env, fused) in legs.items():
+        with _env_set(env):
+            src = orders.join(cust, "cust_id").join(prod)
+            if fused:
+                cache = PlanCache()
+
+                def fn():
+                    return cache.execute(src.plan)
+            else:
+                def fn():
+                    return src.to_device_table()
+            _peak_reset(device)
+            a0 = _assembled()
+            with telemetry.collect():
+                t0 = time.perf_counter()
+                result = fn()
+                _sync(device)
+                cold = time.perf_counter() - t0
+                recs = list(telemetry.records)
+                syncs = telemetry.host_sync_elements
+            warm = []
+            for _ in range(reps):
+                del result
+                t0 = time.perf_counter()
+                result = fn()
+                _sync(device)
+                warm.append(time.perf_counter() - t0)
+            assembled = _assembled()[0] - a0[0]
+        # the customers' dimension partitions; the 1,000 products stay
+        # under the threshold and broadcast
+        x = [r for r in recs if r.stage == "join:all_to_all"]
+        skew = [r.extra for r in recs if r.stage == "join:skew"]
+        probes = [r.extra.get("tier") for r in recs if r.stage == "join:probe"]
+        if len(x) != 1 or probes != ["direct"]:
+            raise AssertionError(f"{what} [{leg}]: {len(x)} partitioned probes and broadcast "
+                                 f"tiers {probes}; one of each expected")
+        if (leg != "skew off") != bool(skew):
+            raise AssertionError(f"{what} [{leg}]: join:skew stages {skew}")
+        sums = _table_sums(result, device, what)
+        _check_oracle(result, sums, want, f"{what} [{leg}]")
+        run = {"cold_s": cold, "warm_s": float(np.median(warm)), "host_sync_elements": syncs,
+               "capacity": [r.extra["capacity"] for r in x],
+               "retries": [r.extra["retries"] for r in x],
+               "hot_keys": [s["hot_keys"] for s in skew],
+               "rows_broadcast": [s["rows_broadcast"] for s in skew],
+               "peak_gib": _peak_gib(device), "assemblies": assembled}
+        if assembled:
+            raise AssertionError(f"{what} [{leg}]: the join assembled {assembled} arrays")
+        if fused:
+            st = cache.stats()
+            if st["fused_chains"] != 1 and st["fused"] != 1:
+                raise AssertionError(f"{what} [{leg}]: the plan cache did not fuse: {st}")
+            run["expand_path"] = [r.extra.get("path") for r in recs if r.stage == "join:expand"]
+        out["runs"][leg] = run
+        log(f"{what} [{leg}]: {result.nrows:,} rows == oracle; customers partitioned, products "
+            f"broadcast ({probes[0]}), "
+            f"capacity {run['capacity']}, retries {run['retries']}, hot keys {run['hot_keys']}, "
+            f"rows broadcast {run['rows_broadcast']}, host-sync elements {syncs}, assemblies 0; cold "
+            f"{cold:.3f}s, warm {run['warm_s']:.3f}s (median of {reps}); peak "
+            f"{run['peak_gib']} GiB | {card}")
+        del result
+    out["launches"] = M.launches  # no filter on this leg
+    log(f"{what}: ingest {t_ingest:.2f}s onto {mesh.size} shards (stored "
+        f"{table.stored_len:,}: padded) | {card}")
+    return out
+
+
 def kernels_line(mask: dict, pack: dict, paths: dict, streamed: dict, plancache: dict,
                  multidevice: dict) -> list:
     """The ``{"kernels": [...]}`` entries: each kernel's launches on this
-    slice's path (phase 13's views for the mask, phase 4's default leg for
-    the pack) and on every path by name, the worst error of its bitwise
-    checks, and its timings at the matrix shape."""
+    slice's path (phase 15: (a)'s 100M sharded pipelines for the mask,
+    (c)'s device-parsed sharded ingest for the pack) and on every path by
+    name, the worst error of its bitwise checks, and its timings at the
+    matrix shape."""
     shape = mask["timings"][0]  # pipeline (a)'s shape: k = 2, "all", one target each
     return [{
         "name": "fused_equality_mask",
         "route": "cuda",
         "source": "csvplus_tpu_torch/csrc/mask.cu",
         "replaces": "csvplus_tpu/ops/pallas_mask.py:41",
-        # the slice's path: the live views' refreshes, reads and server
-        # writes (phase 13); every other path is in launches_by_path
-        "launches": paths["1M views"]["launches"],
+        # the slice's path: config 5's pipelines on 8 shards, one launch
+        # per shard per filter (phase 15 (a)); every other path is in
+        # launches_by_path
+        "launches": paths[C5_MAIN_PATH]["launches"],
         "launches_by_path": {
             **{name: p["launches"] for name, p in paths.items()},
             **{f"50M plan cache {leg}": v["launches"] for leg, v in plancache["legs"].items()},
@@ -3685,8 +4218,9 @@ def kernels_line(mask: dict, pack: dict, paths: dict, streamed: dict, plancache:
         "route": "cuda",
         "source": "csvplus_tpu_torch/csrc/parse.cu",
         "replaces": "csvplus_tpu/ops/parse.py:78",
-        # phase 4's default leg: one launch per column of the three files
-        "launches": paths["10M device-parsed"]["pack_launches"],
+        # phase 15 (c)'s device-parsed leg: one launch per column of the
+        # sharded orders file
+        "launches": paths[C5_PACK_PATH]["pack_launches"],
         "launches_by_path": {
             "10M device-parsed": paths["10M device-parsed"]["pack_launches"],
             "10M native-encoded": paths["10M native-encoded"]["pack_launches"],
@@ -3694,7 +4228,7 @@ def kernels_line(mask: dict, pack: dict, paths: dict, streamed: dict, plancache:
                for leg, v in streamed["ingest"].items()},
             **{name: paths[name]["pack_launches"] for name in (
                 "14M lane dictionary", "13M host dictionary", "50M config 4 dedup",
-                "10M config 1")},
+                "10M config 1", C5_PACK_PATH, "phase 15 (c) 10M native-encoded, 7 shards")},
             "phase 14 multi-device": multidevice["launches"]["pack"]},
         "max_abs_err": max([pack["max_abs_err"]] + [p["pack_check"]["max_abs_err"]
                                                      for p in paths.values() if "pack_check" in p]),
@@ -3768,6 +4302,15 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     multidevice = run_multidevice_path(args.seed, "cuda", xla, smi)
+    log(f"phase 15 (d): dryrun_multichip ran paths "
+        f"{[p.split()[0] for p in multidevice['d_dryrun']['paths']]} (every path) | {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir.mkdir(exist_ok=True)
+    try:
+        config5 = run_config5_path(args.seed, "cuda", workdir, smi)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     xla_table = xla_rows(xla)
     for row in xla_table:
         log(f"phase 14 torch port of {row['replaces']}: {row['name']} x{row['launches']}, "
@@ -3790,6 +4333,9 @@ def main(argv=None) -> int:
     log(f"pack kernel == plain version, bitwise, in {len(pack['cases'])} matrix cases and "
         f"{sum(c['cases'] for c in pack_paths)} launches at the paths' own shapes")
 
+    for leg in legs:
+        paths[f"phase 15 (c) 10M {leg}, 7 shards"] = legs[leg]["sharded"]
+    paths[C5_MAIN_PATH] = config5
     kernels = kernels_line(mask, pack, paths, streamed, plancache, multidevice)
     log("pack kernel phase " + json.dumps(pack))
     log("main path phases " + json.dumps(main_path))
@@ -3806,6 +4352,7 @@ def main(argv=None) -> int:
     log("obs stage diff " + json.dumps(stage_diff))
     log("phase 14 multi-device path " + json.dumps(multidevice))
     log("phase 14 ported jitted functions " + json.dumps(xla_table))
+    log("phase 15 config 5 path " + json.dumps(config5))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -17,9 +17,9 @@ Port of ``csvplus_tpu/analysis/schema.py``.  The lattices the verifier
   lanes (``"int"``).  Placeholder columns (installed by ``SelectCols``
   of a missing name over an empty selection) are tracked explicitly.
 * **Placement** — WHERE the column's backing array lives: ``host``
-  (numpy) or ``device`` (a torch tensor, see
-  :func:`placement_of_array`); ``sharded`` is kept in the lattice for
-  the multi-GPU slice.  The lattice bottom is ``unknown`` (synthetic
+  (numpy), ``device`` (a torch tensor) or ``sharded`` (a row-sharded
+  ``ShardedRows`` over a mesh of several shards), see
+  :func:`placement_of_array`.  The lattice bottom is ``unknown`` (synthetic
   states, fakes): unknown placements are never diagnosed.
 
 States are built from table/column *metadata* only (no device syncs — a
@@ -83,13 +83,20 @@ def placement_of_array(arr) -> Placement:
 
     The port's rule: a ``torch.Tensor`` is ``PLACE_DEVICE``, on "cuda"
     and on "cpu" alike (CPU tensors play the device in the tests, as
-    single-device jax CPU arrays do in the reference); a numpy array (or
-    any other object with a ``dtype``) is ``PLACE_HOST``; anything else
-    is unknown.  One process drives one card, so nothing is sharded."""
+    single-device jax CPU arrays do in the reference); a ``ShardedRows``
+    over a mesh of more than one shard is ``sharded`` over the mesh's
+    axes (one shard is ``PLACE_DEVICE``); a numpy array (or any other
+    object with a ``dtype``) is ``PLACE_HOST``; anything else is
+    unknown.  The test is the shard count, not the device set: eight
+    shards on one card are sharded, as the reference's eight devices
+    are."""
     if arr is None:
         return PLACE_UNKNOWN
     if isinstance(arr, torch.Tensor):
         return PLACE_DEVICE
+    mesh = getattr(arr, "mesh", None)
+    if mesh is not None and hasattr(arr, "shards"):
+        return sharded_placement(mesh.axis_names) if mesh.size > 1 else PLACE_DEVICE
     return PLACE_HOST if hasattr(arr, "dtype") else PLACE_UNKNOWN
 
 
@@ -107,7 +114,7 @@ def placement_of_column(column) -> Placement:
     if isinstance(explicit, str):
         return Placement(explicit)
     if getattr(column, "kind", "str") == "int":
-        return placement_of_array(getattr(column, "values", None))
+        return placement_of_array(getattr(column, "storage", None))
     state = getattr(column, "_codes_state", None)
     if state:
         return placement_of_array(state[0])

@@ -26,7 +26,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .table import DeviceTable
+from .table import DeviceTable, host_array
 
 
 def _escape_dictionary(d_str: np.ndarray, delimiter: str = ",") -> np.ndarray:
@@ -54,9 +54,10 @@ def _escape_dictionary(d_str: np.ndarray, delimiter: str = ",") -> np.ndarray:
 
 def _host_codes(col) -> np.ndarray:
     """A dictionary column's codes on the host, read after a deferred
-    lane dictionary is sorted (its host dictionary needs sorted codes)."""
+    lane dictionary is sorted (its host dictionary needs sorted codes); a
+    row-sharded column downloads shard by shard, in row order."""
     col._ensure_sorted_lanes()
-    return col.codes.cpu().numpy()
+    return host_array(col.storage)
 
 
 def encode_json_body(table: DeviceTable) -> Optional[str]:
@@ -85,7 +86,7 @@ def encode_json_body(table: DeviceTable) -> Optional[str]:
             # '"<escaped prefix><digits>"': digits and '-' never need
             # escaping, the constant prefix escapes once
             body = go_json_string(col.prefix.decode("utf-8"))[1:-1]
-            digits = col.values.cpu().numpy().astype(np.str_)
+            digits = host_array(col.storage).astype(np.str_)
             vals = np.char.add(np.char.add('"' + body, digits), '"')
         else:
             codes = _host_codes(col)

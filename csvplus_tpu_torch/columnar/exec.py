@@ -21,6 +21,16 @@ leaf of ``Index.find``/``find_many`` results):
 Execution keeps a selection vector (int64 row ids on the device) over
 full-length columns and gathers as late as possible.
 
+A row-sharded table (``on_device(shards=N)`` / ``mesh=``) runs every
+stage per shard: the selection is a
+:class:`~csvplus_tpu_torch.parallel.mesh.ShardedRows` of shard-local row
+ids (uneven after a filter), global row order is shard order, and the
+padded tail of a table cut into equal blocks is never selected.  Where
+the reference's semantics cross shards, they are taken across shards
+here: ``Top``/``DropRows``/``TakeWhile`` cut the selection at a global
+position, and ``Validate`` and the missing-cell errors name the first
+failing global row.
+
 Before lowering, the static verifier (:mod:`..analysis.verify`) runs, as
 the reference's executor runs it by default (``CSVPLUS_VERIFY=1``): a
 plan it finds unlowerable raises :class:`UnsupportedPlan` before any
@@ -41,9 +51,10 @@ import torch
 
 from .. import plan as P
 from ..errors import CsvPlusError, DataSourceError
+from ..parallel.mesh import ShardedRows, smap
 from ..resilience import faults
 from ..row import MissingColumnError, Row
-from .table import DeviceTable, StringColumn, merge_with_fallback
+from .table import DeviceTable, StringColumn, host_or_storage, merge_with_fallback
 
 
 class UnsupportedPlan(Exception):
@@ -61,7 +72,7 @@ class _View:
     the columns through ungathered."""
 
     __slots__ = ("cols", "_sel", "device", "full_len", "scan_base",
-                 "deferred_error", "identity")
+                 "deferred_error", "identity", "lens")
 
     def __init__(
         self,
@@ -79,6 +90,9 @@ class _View:
         self.scan_base = scan_base
         self.identity = identity
         self.deferred_error = None
+        # a sharded view: the scanned table's stored rows per shard (the
+        # layout its shard-local row ids index), else None
+        self.lens = None
 
     @property
     def sel(self) -> torch.Tensor:
@@ -90,24 +104,107 @@ class _View:
         self.identity = False  # any rewrite of the selection ends identity
 
     def materialize(self) -> DeviceTable:
+        n = int(self.sel.shape[0])
         if self.identity:
-            table = DeviceTable(dict(self.cols), self.full_len, self.device)
+            # every row in order: the columns pass through (a padded
+            # sharded table drops its tail per shard, as views)
+            cols = dict(self.cols)
+            if n != self.full_len:
+                cols = {name: c.with_storage(host_or_storage(c.storage, n))
+                        for name, c in cols.items()}
+            table = DeviceTable(cols, n, self.device)
         else:
-            gathered = {n: c.gather(self.sel) for n, c in self.cols.items()}
-            table = DeviceTable(gathered, int(self.sel.shape[0]), self.device)
+            gathered = {name: c.gather(self.sel) for name, c in self.cols.items()}
+            table = DeviceTable(gathered, n, self.device)
         table.deferred_error = self.deferred_error
         return table
 
 
+def _range_sel(table: DeviceTable, lower: int, upper: int):
+    """The selection of rows [lower, upper) of *table*; a sharded table's
+    holds each shard's rows of that range, below its padding."""
+    lens = table.shard_lens()
+    if lens is None:
+        return torch.arange(lower, upper, dtype=torch.int64, device=table.device)
+    parts, off = [], 0
+    for n, d in zip(lens, table.mesh.devices):
+        parts.append(torch.arange(min(max(lower - off, 0), n), min(max(upper - off, 0), n),
+                                  dtype=torch.int64, device=d))
+        off += n
+    return ShardedRows(table.mesh, parts)
+
+
+def _sharded_view(view: _View, table: DeviceTable) -> _View:
+    """*view* with the stored rows per shard of a sharded *table*."""
+    if table.mesh is not None:
+        view.lens = next(c.storage for c in table.columns.values()).lens
+    return view
+
+
 def _scan_view(table: DeviceTable, scan_base: int = 0) -> _View:
-    return _View(
-        dict(table.columns),
-        torch.arange(table.nrows, dtype=torch.int64, device=table.device),
-        table.device,
-        table.nrows,
-        scan_base=scan_base,
-        identity=True,
-    )
+    """Every row of *table*, in order."""
+    return _sharded_view(_View(dict(table.columns), _range_sel(table, 0, table.nrows),
+                               table.device, table.stored_len, scan_base=scan_base,
+                               identity=True), table)
+
+
+# -- the selection of a sharded view ----------------------------------------
+
+
+def _apply_mask(sel, mask):
+    """The selected rows where *mask* (aligned to *sel*) holds."""
+    if isinstance(sel, ShardedRows):
+        return smap(sel.mesh, lambda s, m: s[m], sel, mask)
+    return sel[mask]
+
+
+def _slice_sel(sel, start: int, stop: "int | None" = None):
+    """``sel[start:stop]`` over the global order (shard order)."""
+    if not isinstance(sel, ShardedRows):
+        return sel[start:stop]
+    n = sel.nrows
+    stop = n if stop is None else min(stop, n)
+    out, off = [], 0
+    for s in sel.shards:
+        m = int(s.shape[0])
+        out.append(s[max(0, min(m, start - off)):max(0, min(m, stop - off))])
+        off += m
+    return ShardedRows(sel.mesh, out)
+
+
+def _first_true(mask) -> int:
+    """Position of the first True of *mask* in global order, or -1: one
+    scalar transfer (one small vector for a sharded mask)."""
+    if not isinstance(mask, ShardedRows):
+        if not mask.shape[0]:
+            return -1
+        return int(torch.where(mask.any(), torch.argmax(mask.to(torch.uint8)), -1).item())
+    dev0 = mask.mesh.devices[0]
+    parts = [torch.where(m.any(), torch.argmax(m.to(torch.uint8)), -1).to(dev0)
+             if m.shape[0] else torch.tensor(-1, device=dev0) for m in mask.shards]
+    firsts = torch.stack(parts).tolist()
+    off = 0
+    for f, m in zip(firsts, mask.shards):
+        if f >= 0:
+            return off + int(f)
+        off += int(m.shape[0])
+    return -1
+
+
+def _row_id(view: _View, pos: int) -> int:
+    """The stored row id of the *pos*-th selected row (global: a shard's
+    block offset plus its local id, for a sharded view)."""
+    sel = view.sel
+    if not isinstance(sel, ShardedRows):
+        return int(sel[pos].item())
+    off = 0
+    for n_stored, s in zip(view.lens, sel.shards):
+        m = int(s.shape[0])
+        if pos < m:
+            return off + int(s[pos].item())
+        pos -= m
+        off += n_stored
+    raise IndexError(pos)
 
 
 def execute_plan(root: P.PlanNode) -> DeviceTable:
@@ -141,16 +238,16 @@ def execute_plan_view(root: P.PlanNode, preverified: bool = False) -> _View:
         # a Scan restricted to a statically-known contiguous row range:
         # the selection starts as arange(lower, upper) over the index's
         # sorted table; every downstream stage lowers unchanged
-        view = _View(
+        view = _sharded_view(_View(
             dict(table.columns),
-            torch.arange(leaf.lower, leaf.upper, dtype=torch.int64, device=table.device),
+            _range_sel(table, leaf.lower, leaf.upper),
             table.device,
-            table.nrows,
+            table.stored_len,
             # host parity: streaming a find result numbers rows 0-based
             # within the matched slice, so shift the base by -lower
             scan_base=table.row_base - leaf.lower,
             identity=leaf.lower == 0 and leaf.upper == table.nrows,
-        )
+        ), table)
     else:
         view = _scan_view(table, scan_base=table.row_base)
     from ..obs.span import tracer
@@ -194,35 +291,30 @@ def _exec_stage(view: _View, node: P.PlanNode) -> _View:
     from ..ops import join as J
 
     if isinstance(node, P.Filter):
-        view.sel = view.sel[_sel_mask(view, node.pred)]
+        view.sel = _apply_mask(view.sel, _sel_mask(view, node.pred))
     elif isinstance(node, P.Validate):
-        bad = ~_sel_mask(view, node.pred)
         # one scalar transfer on the happy path: the first failing
-        # position, or -1 (an empty selection has nothing to check, and
-        # torch's argmax refuses an empty tensor)
-        first = (
-            int(torch.where(bad.any(), torch.argmax(bad.to(torch.uint8)), -1).item())
-            if view.sel.shape[0] else -1
-        )
+        # position, or -1 (an empty selection has nothing to check)
+        first = _first_true(_negate(_sel_mask(view, node.pred)))
         if first >= 0:
-            rowno = view.scan_base + int(view.sel[first].item())
+            rowno = view.scan_base + _row_id(view, first)
             # deferred: it fires only if streaming reaches row `first`
             view.deferred_error = (
                 first, DataSourceError(rowno, CsvPlusError(node.message))
             )
     elif isinstance(node, (P.TakeWhile, P.DropWhile)):
-        stop = ~_sel_mask(view, node.pred)
         # the first false row, or the whole selection: one scalar transfer
         n = int(view.sel.shape[0])
-        cut = int(torch.where(stop.any(), torch.argmax(stop.to(torch.uint8)), n).item()) if n else 0
+        cut = _first_true(_negate(_sel_mask(view, node.pred))) if n else 0
+        cut = n if cut < 0 else cut
         if isinstance(node, P.TakeWhile):
-            view.sel = view.sel[:cut]  # stop at the first false row
+            view.sel = _slice_sel(view.sel, 0, cut)  # stop at the first false row
         else:
-            view.sel = view.sel[cut:]  # pass from the first false row on
+            view.sel = _slice_sel(view.sel, cut)  # pass from the first false row on
     elif isinstance(node, P.Top):
-        view.sel = view.sel[: node.n]
+        view.sel = _slice_sel(view.sel, 0, node.n)
     elif isinstance(node, P.DropRows):
-        view.sel = view.sel[node.n:]
+        view.sel = _slice_sel(view.sel, node.n)
     elif isinstance(node, P.SelectCols):
         _apply_select(view, node.columns)
     elif isinstance(node, P.DropCols):
@@ -245,7 +337,7 @@ def _exec_stage(view: _View, node: P.PlanNode) -> _View:
         rows_full = int(view.sel.shape[0])
         for kind, payload in node.ops:
             if kind == "filter":
-                view.sel = view.sel[_sel_mask(view, payload)]
+                view.sel = _apply_mask(view.sel, _sel_mask(view, payload))
             elif kind == "map":
                 _apply_map(view, payload)
             elif kind == "select":
@@ -283,7 +375,7 @@ def _exec_stage(view: _View, node: P.PlanNode) -> _View:
         )
         keep = J.except_mask(key_view.materialize(), dev_index, list(node.columns))
         # rows pass through 1:1, so the row space and its numbering stay
-        view.sel = view.sel[keep]
+        view.sel = _apply_mask(view.sel, keep)
     else:
         raise UnsupportedPlan(f"no device lowering for {type(node).__name__}")
     return view
@@ -315,6 +407,8 @@ def _sel_mask(view: _View, pred) -> torch.Tensor:
     instead of all rows."""
     from ..ops.filter import UnsupportedPredicate, build_mask
 
+    if isinstance(view.sel, ShardedRows):
+        return _sel_mask_sharded(view, pred)
     nrows = view.full_len
     sel_n = int(view.sel.shape[0])
     if sel_n == 0:
@@ -326,6 +420,57 @@ def _sel_mask(view: _View, pred) -> torch.Tensor:
     except UnsupportedPredicate as e:
         raise UnsupportedPlan(str(e)) from e
     return mask if view.identity else mask[view.sel]
+
+
+def _sel_mask_sharded(view: _View, pred) -> ShardedRows:
+    """:func:`_sel_mask` per shard, each on its shard's device: the mask
+    kernel runs once per shard that has selected rows, over that shard's
+    block (or over its gathered sub-columns when its selection is
+    narrow)."""
+    from ..ops.filter import UnsupportedPredicate, build_mask
+
+    sel = view.sel
+    mesh = sel.mesh
+    out = []
+    try:
+        for i, (s, n_stored) in enumerate(zip(sel.shards, view.lens)):
+            n = int(s.shape[0])
+            dev = mesh.devices[i]
+            with mesh.on(i):
+                if n == 0:
+                    out.append(torch.zeros(0, dtype=torch.bool, device=dev))
+                    continue
+                cols = _ShardCols(view.cols, i)
+                if 4 * n < n_stored:
+                    out.append(build_mask(_SelView(cols, s), n, pred, dev))
+                    continue
+                mask = build_mask(cols, n_stored, pred, dev)
+                # the identity selection of a block is its leading rows
+                out.append(mask[:n] if view.identity else mask[s])
+    except UnsupportedPredicate as e:
+        raise UnsupportedPlan(str(e)) from e
+    return ShardedRows(mesh, out)
+
+
+class _ShardCols:
+    """Column mapping over shard *i* of a sharded view's columns, made
+    only for the columns a predicate references."""
+
+    def __init__(self, cols, i: int):
+        self._cols = cols
+        self._i = i
+
+    def __contains__(self, name) -> bool:
+        return name in self._cols
+
+    def __getitem__(self, name):
+        return self._cols[name].shard(self._i)
+
+
+def _negate(mask):
+    if isinstance(mask, ShardedRows):
+        return mask.map(lambda m: ~m)
+    return ~mask
 
 
 def _check_key_cells(view: _View, columns) -> None:
@@ -348,10 +493,17 @@ def first_missing_cell(view: _View, columns):
         if col is None:
             pos = 0  # missing from the schema: every streamed row lacks it
         elif col.has_absent:
-            bad = torch.index_select(col.codes, 0, view.sel) < 0
-            if not bool(bad.any()):
-                continue
-            pos = int(torch.argmax(bad.to(torch.uint8)))
+            if isinstance(view.sel, ShardedRows):
+                bad = smap(view.sel.mesh, lambda a, i: torch.index_select(a, 0, i) < 0,
+                           col.storage, view.sel)
+                pos = _first_true(bad)
+                if pos < 0:
+                    continue
+            else:
+                bad = torch.index_select(col.codes, 0, view.sel) < 0
+                if not bool(bad.any()):
+                    continue
+                pos = int(torch.argmax(bad.to(torch.uint8)))
         else:
             continue
         if best is None or pos < best[0]:
@@ -361,7 +513,7 @@ def first_missing_cell(view: _View, columns):
     if best is None:
         return None
     pos, c = best
-    return view.scan_base + int(view.sel[pos].item()), c
+    return view.scan_base + _row_id(view, pos), c
 
 
 def _apply_select(view: _View, columns) -> None:
@@ -369,6 +521,11 @@ def _apply_select(view: _View, columns) -> None:
     a cell raises, so an empty selection never errors."""
     if view.sel.shape[0] == 0:
         empty = torch.zeros(0, dtype=torch.int32, device=view.device)
+        if view.lens is not None:
+            # a column missing from the schema: absent on every stored row
+            empty = ShardedRows(view.sel.mesh, [
+                torch.full((n,), -1, dtype=torch.int32, device=d)
+                for n, d in zip(view.lens, view.sel.mesh.devices)])
         view.cols = {
             c: view.cols.get(c, StringColumn(np.empty(0, dtype="S1"), empty))
             for c in columns
@@ -388,9 +545,15 @@ def _apply_map(view: _View, expr) -> None:
             _apply_map(view, e)
         return
     if isinstance(expr, SetValue):
-        view.cols[expr.column] = StringColumn.constant(
-            expr.value, view.full_len, view.device
-        )
+        if view.lens is not None:  # laid out as the view's sharded columns
+            mesh = view.sel.mesh
+            like = ShardedRows(mesh, [torch.empty(n, dtype=torch.int32, device=d)
+                                      for n, d in zip(view.lens, mesh.devices)])
+            view.cols[expr.column] = StringColumn.constant_like(expr.value, like)
+        else:
+            view.cols[expr.column] = StringColumn.constant(
+                expr.value, view.full_len, view.device
+            )
         return
     if isinstance(expr, Rename):
         # sequential pop/overwrite, as the host expr does it: a rename onto

@@ -1,10 +1,11 @@
 """CSV / Index -> DeviceTable ingestion.
 
-Port of ``csvplus_tpu/columnar/ingest.py`` without its sharded (mesh)
-ingest.  ``from_file(...).on_device("cuda")`` parses the CSV with the
-Reader's exact header and field-count policies and row-numbered errors,
-encodes each column and places it on the device.  The tiers, in the
-reference's order:
+Port of ``csvplus_tpu/columnar/ingest.py``.
+``from_file(...).on_device("cuda")`` parses the CSV with the Reader's
+exact header and field-count policies and row-numbered errors, encodes
+each column and places it on the device; with ``shards=`` or ``mesh=``
+the table is row-sharded over a mesh (:func:`resolve_mesh`).  The tiers,
+in the reference's order:
 
 0. ``streamed``, for files of ``CSVPLUS_STREAM_MIN_BYTES`` (256 MiB) and
    more: the file is read in chunks of ``CSVPLUS_STREAM_CHUNK_BYTES``
@@ -33,6 +34,13 @@ A tier declines only for the reference's reasons of semantics (see
 :mod:`~csvplus_tpu_torch.native.scanner`); a scanner or kernel that
 cannot be built or loaded raises.  The tier that ran is recorded on the
 table as ``ingest_tier``.
+
+Under a mesh the streamed tier places each chunk straight on the shard
+that will own its rows and stitches the shards' blocks at the end
+(``ingest:seal``, ``ingest:shard-assemble``); its chunk encoder stays off
+(codes are born on their shard on the host), and a column that would
+need a device-lane dictionary falls back to the whole-file tiers, whose
+table is then cut into shards (``DeviceTable.with_sharding``).
 """
 
 from __future__ import annotations
@@ -66,9 +74,46 @@ def _encoded_nrows(value) -> int:
     return int(value[1].shape[0])
 
 
-def _ingest(reader, device) -> DeviceTable:
-    """The first tier that accepts *reader*'s input, as a DeviceTable.
-    Each tier that ran records one telemetry stage (``ingest:streamed``,
+def resolve_mesh(device, shards: "int | None" = None, mesh=None):
+    """The mesh an ``on_device(device, shards=, mesh=)`` call places its
+    shards on, or None for an unsharded table.  *mesh* wins (the table is
+    then made on the mesh's first device, whatever *device* says).  Otherwise
+    *shards* shards go on the one device *device* names (``"cpu"``,
+    ``"cuda:0"``), or over ``cuda:0`` .. ``cuda:N-1`` for a bare
+    ``"cuda"``, which raises when fewer cards are visible.  Nothing falls
+    back to another device."""
+    if mesh is not None:
+        return mesh
+    if not shards:
+        return None
+    from ..parallel.mesh import make_mesh
+
+    dev = torch.device(device)
+    shards = int(shards)
+    if dev.type == "cuda" and dev.index is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < shards:
+            raise RuntimeError(
+                f"on_device: shards={shards} over cuda:0..cuda:{shards - 1} needs {shards} "
+                f"cards, {count} visible; pass mesh=make_mesh({shards}, devices=['cuda:0'] * "
+                f"{shards}) to place the shards on one card")
+        return make_mesh(shards)
+    return make_mesh(shards, devices=[device] * shards)
+
+
+def _maybe_shard(table: DeviceTable, mesh) -> DeviceTable:
+    """*table* row-sharded over *mesh* (already so when its chunks landed
+    on their shards at ingest)."""
+    if mesh is None or table._pre_sharded:
+        return table
+    return table.with_sharding(mesh)
+
+
+def _ingest(reader, device, mesh=None) -> DeviceTable:
+    """The first tier that accepts *reader*'s input, as a DeviceTable (the
+    streamed tier places its chunks on *mesh*'s shards when one is given;
+    the caller shards the other tiers' tables).  Each tier that ran
+    records one telemetry stage (``ingest:streamed``,
     ``ingest:device-parsed``, ``ingest:native-encoded``, or
     ``ingest:python`` for both string tiers, as the reference names
     them); a tier that declines records nothing."""
@@ -80,7 +125,7 @@ def _ingest(reader, device) -> DeviceTable:
 
         try:
             with telemetry.stage("ingest:streamed", 0) as _t:
-                table = _stream_to_table(reader, path, device)
+                table = _stream_to_table(reader, path, device, mesh=mesh)
                 _t["rows_out"] = table.nrows
             table.ingest_tier = "streamed"
             return table
@@ -124,10 +169,19 @@ def _ingest(reader, device) -> DeviceTable:
     return table
 
 
-def reader_to_device(reader, device: str = "cuda") -> DataSource:
+def reader_to_device(reader, device: str = "cuda", shards: "int | None" = None,
+                     mesh=None) -> DataSource:
     """Parse *reader*'s CSV into a DeviceTable on *device* and wrap it as
-    a plan-capable source.  Errors carry the Reader's record numbers."""
-    table = _ingest(reader, device)
+    a plan-capable source.  Errors carry the Reader's record numbers.
+
+    ``shards=N`` (or an explicit *mesh*) lays the columns row-sharded over
+    a mesh (:func:`resolve_mesh`), so every downstream stage runs per
+    shard.  The mesh is resolved before the ingest, so a streamed file's
+    chunks land on their shards directly."""
+    mesh = resolve_mesh(device, shards, mesh)
+    if mesh is not None:
+        device = mesh.devices[0]  # the mesh places the table, first shard first
+    table = _maybe_shard(_ingest(reader, device, mesh), mesh)
     # source row number of data record 0, as the host Reader numbers it
     # (record 1 is the header when one is read)
     table.row_base = 2 if reader._header_from_first_row else 1
@@ -190,7 +244,7 @@ def _narrow_values(vals: np.ndarray) -> np.ndarray:
     return vals
 
 
-def _stream_to_table(reader, path: str, device) -> DeviceTable:
+def _stream_to_table(reader, path: str, device, mesh=None) -> DeviceTable:
     """Consume the native chunk generator into one DeviceTable.
 
     Each chunk's int32 codes or typed values are uploaded at once,
@@ -220,7 +274,20 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
     The table records ``ingest_seconds``: the time this thread waited on
     the scan pipeline (what the prefetch did not hide) and the time it
     spent placing chunks (uploads, dictionary bookkeeping), the chunk
-    count and K."""
+    count and K.
+
+    Under *mesh* (sharded ingest) each chunk's arrays upload straight to
+    the shard that will own its rows: chunk i goes to shard ``i * chunk
+    bytes * k // file bytes``, monotone, so every shard holds one
+    contiguous row range.  When the assignment passes a shard, its typed
+    chunks are sealed into one int32 segment on it (``ingest:seal``).
+    The end (:func:`_finalize_sharded`) cuts the shards' rows into the
+    equal blocks of ``with_sharding``, moving only the slivers at block
+    boundaries between shards; no device ever holds the whole table.  A
+    column that would switch to device-lane dictionaries raises
+    :class:`StreamFallback` (the whole-file tiers and ``with_sharding``
+    take the file), and the device chunk encoder stays off, so K is not
+    forced to 1."""
     from ..native.scanner import StreamFallback, _ingest_workers, stream_encoded_chunks
     from ..ops.lanes import lanes_for_width, pack_host
     from ..utils.env import env_int
@@ -228,17 +295,34 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
     from .typed import IntColumn, format_affix
 
     dev = resolve_device(device)
-    encoder = _device_chunk_encoder(dev) if _device_parse_enabled(dev) else None
+    shard_devs = None
+    fsize = cb = 1
+    if mesh is not None:
+        from ..native.scanner import _stream_chunk_bytes
+
+        shard_devs = list(mesh.devices)
+        fsize = max(os.path.getsize(path), 1)
+        cb = _stream_chunk_bytes()
+    # under a mesh the codes are born on their shard: host encode only
+    encoder = (_device_chunk_encoder(dev)
+               if shard_devs is None and _device_parse_enabled(dev) else None)
+    tgt = {"dev": dev, "si": 0}  # the device the current chunk's arrays go to
     _pc = time.perf_counter
     # what "place" is made of (host seconds, the ingest:place stage's
     # extras): pinned staging + copy enqueue, dtype narrowing, the running
     # host dictionary union, and lane packing; the rest is bookkeeping
     parts = {"upload_s": 0.0, "narrow_s": 0.0, "union_s": 0.0, "lanes_s": 0.0}
-    _upload = _uploader(dev)
+    uploaders = {d: _uploader(d) for d in (shard_devs or [dev])}
 
-    def upload(arr: np.ndarray) -> torch.Tensor:
+    def upload(arr: np.ndarray, to: "torch.device | None" = None) -> torch.Tensor:
         t0 = _pc()
-        out = _upload(arr)
+        d = tgt["dev"] if to is None else to
+        if d.type == "cuda":
+            # the current device is per thread: stage and copy on d's own
+            with torch.cuda.device(d):
+                out = uploaders[d](arr)
+        else:
+            out = uploaders[d](arr)
         parts["upload_s"] += _pc() - t0
         return out
 
@@ -259,6 +343,9 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
     max_width: "dict[str, int]" = {}
     host_only: "dict[str, bool]" = {}  # wider than the lane cap: never switch
     int_vals: "dict[str, list]" = {}  # typed mode: device value chunks
+    # sharded ingest: the typed chunks of every passed shard, sealed into
+    # one int32 segment on that shard, in shard order
+    int_segs: "dict[str, list]" = {}
     int_prefix: "dict[str, bytes]" = {}
     # columns that left typed mode once never re-enter it (the IntColumn
     # finish would drop the dictionary chunks made in between)
@@ -271,9 +358,10 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
         parts["lanes_s"] += _pc() - t0
         return tuple(upload(x) for x in packed)
 
-    def add_dict_chunk(c, d, codes):
+    def add_dict_chunk(c, d, codes, to=None):
         """One chunk's (dictionary, codes) through the host-union /
-        lane-switch bookkeeping and the narrowed code upload."""
+        lane-switch bookkeeping and the narrowed code upload (to *to*, the
+        device the chunk's rows live on, when given)."""
         max_width[c] = max(max_width[c], d.dtype.itemsize)
         if max_width[c] > 32:  # past the lane cap
             host_only[c] = True
@@ -291,7 +379,7 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
                 running_union[c] = np.union1d(ru.astype(dt), d.astype(dt))
                 parts["union_s"] += _pc() - t0
         if isinstance(codes, np.ndarray):
-            codes = upload(narrowed(_narrow_codes, codes, d.size))
+            codes = upload(narrowed(_narrow_codes, codes, d.size), to)
         # codes the device encoder made are int32 on the card already
         chunk_codes[c].append(codes)
         if chunk_lanes[c] or (
@@ -299,6 +387,10 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
             and running_union[c] is not None
             and running_union[c].size >= lane_thresh
         ):
+            if shard_devs is not None:
+                # a deferred lane dictionary cannot be built shard by shard
+                raise StreamFallback(
+                    f'column "{c}" crossed the lane threshold under sharded ingest')
             # lane mode (new or not): host dictionaries become device
             # lanes and are freed
             running_union[c] = None
@@ -313,11 +405,21 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
         """Re-encode a no-longer-typed column's value chunks through the
         dictionary path (format_affix inverts the native parse)."""
         int_demoted.add(c)
-        for dev_arr in int_vals[c]:
+        for dev_arr in int_segs.get(c, []) + int_vals[c]:
             v = dev_arr.cpu().numpy().astype(np.int32)
             dd, cc = np.unique(format_affix(int_prefix[c], v), return_inverse=True)
-            add_dict_chunk(c, dd, cc.astype(np.int32))
+            # each re-encoded chunk stays on the device its rows live on
+            add_dict_chunk(c, dd, cc.astype(np.int32), to=dev_arr.device)
         int_vals[c] = []
+        int_segs[c] = []
+
+    def seal_typed_shard():
+        """The passed shard's pending typed chunks as one int32 segment on
+        that shard (the copies are queued on the card; the scan goes on)."""
+        for c in names or ():
+            if int_vals.get(c):
+                int_segs[c].append(_values_concat(int_vals[c]))
+                int_vals[c] = []
 
     # the device chunk encoder needs one upload stream: K = 1
     workers = 1 if encoder is not None else _ingest_workers()
@@ -327,9 +429,11 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
         # with chunk N's uploads and bookkeeping (this thread)
         chunks = _prefetch_iter(chunks, prefetch_depth)
     n_chunks = 0
+    n_seals = 0
     # scan_wait: this thread blocked on the producer (the part the
-    # prefetch did not hide); place: uploads + dictionary bookkeeping
-    t_wait = t_place = 0.0
+    # prefetch did not hide); place: uploads + dictionary bookkeeping;
+    # seal: the per-shard typed finish under a mesh
+    t_wait = t_place = t_seal = 0.0
     it = iter(chunks)
     end = object()
     while True:
@@ -340,10 +444,22 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
             break
         cnames, encoded, n = item
         n_chunks += 1
+        if shard_devs is not None:
+            # byte-position assignment: chunk i covers about bytes
+            # [i*cb, (i+1)*cb), so it belongs to the shard owning that
+            # share of the file; monotone in i
+            k = len(shard_devs)
+            si = min(k - 1, (n_chunks - 1) * cb * k // fsize)
+            if si != tgt["si"]:
+                t0 = _pc()
+                seal_typed_shard()  # the assignment passed shard tgt["si"]
+                t_seal += _pc() - t0
+                n_seals += 1
+            tgt["si"], tgt["dev"] = si, shard_devs[si]
         t0 = _pc()
         if names is None:
             names = cnames
-            for store in (chunk_dicts, chunk_lanes, chunk_codes, int_vals):
+            for store in (chunk_dicts, chunk_lanes, chunk_codes, int_vals, int_segs):
                 store.update({c: [] for c in names})
             running_union = {c: None for c in names}
             max_width = {c: 1 for c in names}
@@ -358,7 +474,7 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
                     # demote what accumulated and re-encode this chunk as
                     # a dictionary too (re-pinning the prefix would read
                     # the earlier chunks under the wrong affix)
-                    if int_vals[c]:
+                    if int_vals[c] or int_segs[c]:
                         demote_typed(c)
                     int_demoted.add(c)
                     strs = format_affix(prefix, vals.astype(np.int32))
@@ -368,7 +484,7 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
                 int_prefix[c] = prefix
                 int_vals[c].append(upload(narrowed(_narrow_values, vals)))
                 continue
-            if int_vals[c]:
+            if int_vals[c] or int_segs[c]:
                 demote_typed(c)  # the column left typed mode with this chunk
             add_dict_chunk(c, *enc)
         t_place += _pc() - t0
@@ -385,6 +501,18 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
                         prefetch=prefetch_depth)
     telemetry.add_stage("ingest:place", nrows, nrows, t_place,
                         **{k: round(v, 4) for k, v in parts.items()})
+    ingest_seconds = {"scan_wait": t_wait, "place": t_place, "chunks": n_chunks,
+                      "workers": workers}
+    if shard_devs is not None:
+        t0 = _pc()
+        seal_typed_shard()
+        t_seal += _pc() - t0
+        telemetry.add_stage("ingest:seal", nrows, nrows, t_seal, n_seals=n_seals + 1)
+        table = _finalize_sharded(mesh, names, nrows, int_segs, int_prefix, chunk_dicts,
+                                  chunk_codes, upload)
+        ingest_seconds["seal"] = t_seal
+        table.ingest_seconds = ingest_seconds
+        return table
 
     out = {}
     for c in names:
@@ -426,9 +554,77 @@ def _stream_to_table(reader, path: str, device) -> DeviceTable:
         mappings = [upload(np.searchsorted(union, d.astype(dt)).astype(np.int32)) for d in dicts]
         out[c] = (union, _remap_concat(mappings, codes))
     table = DeviceTable.from_encoded(out, nrows, dev)
-    table.ingest_seconds = {"scan_wait": t_wait, "place": t_place, "chunks": n_chunks,
-                            "workers": workers}
+    table.ingest_seconds = ingest_seconds
     return table
+
+
+def _assemble_rows_sharded(mesh, arrs, nrows: int, fill: int):
+    """Per-chunk int32 arrays (chunk order == row order, each on the shard
+    that owns its rows) cut into the equal blocks of ``with_sharding``
+    (``ceil(n / k)`` rows, the tail filled with *fill*): each block is
+    stitched from the chunks that overlap it, so only the slivers at
+    block boundaries move between shards."""
+    from ..parallel.mesh import ShardedRows, block_lens, relayout
+
+    return ShardedRows(mesh, relayout(mesh, list(arrs), block_lens(mesh, nrows), fill))
+
+
+def _finalize_sharded(mesh, names, nrows, int_segs, int_prefix, chunk_dicts, chunk_codes,
+                      upload) -> DeviceTable:
+    """The sharded ingest's end: every column becomes row-sharded storage
+    in equal blocks (typed value lanes, padded with ``PAD_VALUE``, or
+    dictionary codes, padded with ``PAD_CODE``).  Typed columns arrive
+    sealed per shard; dictionary columns merge to the union of their
+    chunk dictionaries here, each chunk remapped on its own shard."""
+    from ..utils.observe import telemetry
+    from .table import PAD_CODE
+    from .typed import PAD_VALUE, IntColumn
+
+    out = {}
+    with telemetry.stage("ingest:shard-assemble", nrows) as _t:
+        _t["n_shards"] = mesh.size
+        _t["max_shard_rows"] = -(-nrows // mesh.size)
+        for c in names:
+            if int_segs.get(c):
+                # a column with typed chunks never also holds dictionary chunks
+                assert not chunk_dicts[c] and not chunk_codes[c]
+                out[c] = IntColumn(int_prefix[c], _assemble_rows_sharded(
+                    mesh, int_segs.pop(c), nrows, int(PAD_VALUE)))
+                continue
+            dicts, codes = chunk_dicts.pop(c), chunk_codes.pop(c)
+            if len(dicts) == 1:
+                arrs = [x.to(torch.int32) for x in codes]
+                out[c] = StringColumn(dicts[0], _assemble_rows_sharded(
+                    mesh, arrs, nrows, PAD_CODE))
+                continue
+            width = max(d.dtype.itemsize for d in dicts)
+            dt = np.dtype(f"S{width}")
+            union = np.unique(np.concatenate([d.astype(dt) for d in dicts]))
+            # each chunk remapped on its own shard (the mapping is small)
+            arrs = [
+                torch.index_select(
+                    upload(np.searchsorted(union, d.astype(dt)).astype(np.int32), ck.device),
+                    0, ck.to(torch.int64))
+                for d, ck in zip(dicts, codes)
+            ]
+            out[c] = StringColumn(union, _assemble_rows_sharded(mesh, arrs, nrows, PAD_CODE))
+    table = DeviceTable(out, nrows, mesh.devices[0])
+    table._pre_sharded = True
+    _trim_host_staging()
+    return table
+
+
+def _trim_host_staging() -> None:
+    """Give the streamed ingest's freed staging memory back to the OS
+    (glibc's ``malloc_trim``): the chunked scan frees hundreds of staging
+    buffers whose pages glibc would otherwise keep as resident memory
+    into the join.  Does nothing without glibc."""
+    import ctypes
+
+    try:
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
+        return  # no glibc, or one without malloc_trim
 
 
 def _prefetch_iter(gen, depth: int):

@@ -36,10 +36,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import Mesh, ShardedRows, assemble, relayout, replicate, smap
 from ..row import Row
 from ..utils.env import env_int
 
 ABSENT = -1
+#: The sharding pad of a dictionary code: never a slot, and distinct from
+#: ``ABSENT`` so a pad row is never taken for a missing cell.
+PAD_CODE = -2
 
 
 def resolve_device(device: "str | torch.device") -> torch.device:
@@ -102,14 +106,111 @@ def lookup_code(dictionary: np.ndarray, value: str) -> int:
     return -1
 
 
-def apply_code_translation(codes: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
-    """``trans[codes]`` with negative codes passed through unchanged.
+def apply_code_translation(codes, trans: torch.Tensor):
+    """``trans[codes]`` with negative codes (absent -1, pad -2) passed
+    through unchanged; a sharded *codes* translates per shard against a
+    copy of *trans* per distinct device.
 
     Torch indexing raises on an out-of-range index where ``jnp.take``
     clips, so the codes are clamped before the gather and the negative
     ones restored after it."""
-    got = torch.index_select(trans, 0, codes.clamp(min=0))
-    return torch.where(codes >= 0, got, codes)
+    def one(c, t):
+        got = torch.index_select(t, 0, c.clamp(min=0))
+        return torch.where(c >= 0, got, c)
+
+    return per_shard(one, codes, trans)
+
+
+# -- sharded storage --------------------------------------------------------
+#
+# A row-sharded column's storage is a :class:`ShardedRows`: one block per
+# shard of the mesh, in row order (the reference's ``NamedSharding`` of
+# one global array).  A table made by ``with_sharding`` or the sharded
+# ingest holds equal blocks of ``ceil(n / k)`` rows, the tail padded
+# (``PAD_CODE`` / ``typed.PAD_VALUE``); a table an operation makes from
+# selected rows holds blocks of any length and no pads.  Operations run
+# per shard (:func:`per_shard`); the few that need the whole array on one
+# device (``.codes`` / ``.values`` of a sharded column) assemble it, and
+# every assembly is counted (``parallel.mesh.assemblies``).
+
+
+def per_shard(fn, x, *args):
+    """``fn(x, *args)`` for a tensor *x*; for a :class:`ShardedRows` *x*,
+    ``fn`` per shard, with the shards of ShardedRows arguments and every
+    tensor argument copied once per distinct device."""
+    if not isinstance(x, ShardedRows):
+        return fn(x, *args)
+    mesh = x.mesh
+    args = [replicate(mesh, a) if isinstance(a, torch.Tensor) else a for a in args]
+    return smap(mesh, fn, x, *args)
+
+
+def storage_device(x) -> torch.device:
+    """The device of a storage array (a sharded one's first shard)."""
+    return x.shards[0].device if isinstance(x, ShardedRows) else x.device
+
+
+def host_array(x, n: "int | None" = None) -> np.ndarray:
+    """The first *n* logical rows (all by default) of a storage array on
+    the host; a sharded array downloads shard by shard, in order."""
+    if not isinstance(x, ShardedRows):
+        return (x if n is None else x[:n]).cpu().numpy()
+    parts, left = [], x.nrows if n is None else n
+    for s in x.shards:
+        if left <= 0:
+            break
+        parts.append(s[:left].cpu().numpy())
+        left -= int(s.shape[0])
+    if not parts:
+        return x.shards[0][:0].cpu().numpy()
+    return np.concatenate(parts)
+
+
+def sharded_any(parts: ShardedRows) -> bool:
+    """True when any shard's 0-d bool holds: one transfer."""
+    dev0 = parts.mesh.devices[0]
+    return bool(torch.stack([p.to(dev0) for p in parts.shards]).any().item())
+
+
+class GlobalRows(ShardedRows):
+    """A sharded selection of GLOBAL row positions (the sample sort's
+    permutation), where a plain :class:`ShardedRows` selection holds
+    shard-local row ids."""
+
+
+def gather_storage(x, sel):
+    """*x* at the row positions *sel*.  A sharded *sel* holds shard-local
+    row ids (the executor's selection): each shard gathers from its own
+    block, or from a copy of an unsharded *x* per distinct device.  A
+    :class:`GlobalRows` *sel* holds global positions: each shard gathers
+    from a copy of *x* on its device (one a distinct device, counted
+    when *x* is sharded), and the result is sharded as *sel* is.  A
+    plain *sel* holds global positions: a sharded *x* sends each shard's
+    selected rows to *sel*'s device (only those rows move)."""
+    if isinstance(sel, GlobalRows):
+        return smap(sel.mesh, lambda c, i: torch.index_select(c, 0, i),
+                    replicate(sel.mesh, x), sel)
+    if isinstance(sel, ShardedRows):
+        if isinstance(x, ShardedRows):
+            return smap(sel.mesh, lambda c, i: torch.index_select(c, 0, i), x, sel)
+        return smap(sel.mesh, lambda c, i: torch.index_select(c, 0, i),
+                    replicate(sel.mesh, x), sel)
+    if not isinstance(x, ShardedRows):
+        return torch.index_select(x, 0, sel)
+    out = torch.empty(sel.shape, dtype=x.dtype, device=sel.device)
+    for off, blk in zip(x.offsets(), x.shards):
+        hit = (sel >= off) & (sel < off + int(blk.shape[0]))
+        local = (sel[hit] - off).to(blk.device)
+        out[hit] = torch.index_select(blk, 0, local).to(sel.device)
+    return out
+
+
+def split_like(x: torch.Tensor, like):
+    """A tensor row-aligned with the storage *like* in *like*'s layout:
+    sharded the same way when *like* is sharded."""
+    if not isinstance(like, ShardedRows):
+        return x
+    return ShardedRows(like.mesh, relayout(like.mesh, x, like.lens))
 
 
 #: Deferred lane-dictionary union sorts made in this process, one entry
@@ -183,15 +284,18 @@ class StringColumn:
 
     @property
     def codes(self) -> torch.Tensor:
-        return self._codes_state[0]
+        """The code array as one tensor; a sharded column's is assembled
+        on its first shard's device (counted, see :func:`per_shard`)."""
+        return assemble(self._codes_state[0])
 
     @property
-    def storage(self) -> torch.Tensor:
+    def storage(self) -> "torch.Tensor | ShardedRows":
         """The row-indexed device array (the protocol shared with
-        ``IntColumn``, whose storage is its value lanes)."""
-        return self.codes
+        ``IntColumn``, whose storage is its value lanes): a tensor, or a
+        :class:`ShardedRows` for a row-sharded column."""
+        return self._codes_state[0]
 
-    def with_storage(self, codes: torch.Tensor) -> "StringColumn":
+    def with_storage(self, codes) -> "StringColumn":
         return self.with_codes(codes)
 
     @property
@@ -307,7 +411,11 @@ class StringColumn:
     def has_absent(self) -> bool:
         """True when any cell is absent (one cached scalar sync)."""
         if self._has_absent is None:
-            self._has_absent = bool((self.codes == ABSENT).any())
+            st = self.storage
+            if isinstance(st, ShardedRows):
+                self._has_absent = sharded_any(st.map(lambda c: (c == ABSENT).any()))
+            else:
+                self._has_absent = bool((st == ABSENT).any())
         return self._has_absent
 
     @classmethod
@@ -324,13 +432,22 @@ class StringColumn:
             _has_absent=False,
         )
 
+    @classmethod
+    def constant_like(cls, value: str, like) -> "StringColumn":
+        """A constant column laid out as the storage *like* (sharded the
+        same way when it is sharded)."""
+        if not isinstance(like, ShardedRows):
+            return cls.constant(value, int(like.shape[0]), like.device)
+        codes = like.map(lambda c: torch.zeros(c.shape[0], dtype=torch.int32, device=c.device))
+        return cls(np.asarray([value.encode("utf-8")], dtype="S"), codes, _has_absent=False)
+
     def codes_host(self) -> np.ndarray:
         """Host mirror of the code array (one download, cached).  Point
         lookups on a device-lazy index decode matched ranges from it in
         numpy: one O(n) transfer buys lookups with no device round trip."""
         if self._codes_host is None:
             self._ensure_sorted_lanes()  # the mirror must be post-remap
-            self._codes_host = self.codes.cpu().numpy()
+            self._codes_host = host_array(self.storage)
         return self._codes_host
 
     def dictionary_str(self) -> np.ndarray:
@@ -361,10 +478,16 @@ class StringColumn:
             out._has_absent = False
         return out
 
+    def shard(self, i: int) -> "StringColumn":
+        """Shard *i* of a row-sharded column as a column of its own (its
+        block of codes, this column's dictionary)."""
+        src, flag = self._codes_state
+        return self.with_codes(src.shards[i], dev_dict_sorted=flag)
+
     def gather(self, sel: torch.Tensor) -> "StringColumn":
         """New column of the selected row positions (device gather)."""
         src, flag = self._codes_state  # one coherent pair
-        return self.with_codes(torch.index_select(src, 0, sel), dev_dict_sorted=flag)
+        return self.with_codes(gather_storage(src, sel), dev_dict_sorted=flag)
 
     def decode_codes(self, codes: np.ndarray) -> List[Optional[str]]:
         """Decode a host code slice; absent cells (negative codes) become
@@ -398,7 +521,7 @@ class StringColumn:
     def decode(self) -> List[Optional[str]]:
         """Materialize values on host; absent cells become None."""
         self._ensure_sorted_lanes()  # before the codes are read
-        return self.decode_codes(self.codes.cpu().numpy())
+        return self.decode_codes(host_array(self.storage))
 
     def _lanes_narrow(self) -> tuple:
         """``(lane tuple, original slots | None)``: this dictionary as
@@ -412,7 +535,7 @@ class StringColumn:
         from ..ops.lanes import MAX_LANE_BYTES, lanes_for_width, pack_host
 
         d = self._dictionary
-        dev = self.codes.device
+        dev = storage_device(self.storage)
         width = d.dtype.itemsize if d.size else 1
         lanes = lanes_for_width(width)
         if lanes is not None:
@@ -436,12 +559,12 @@ class StringColumn:
         from ..ops.lanes import translate_lanes
 
         if self.dict_size == 0:
-            return self.codes
+            return self.storage
         q_lanes, q_pos = self._lanes_narrow()
         b_lanes, b_pos = other._lanes_narrow()
-        codes = self.codes
+        codes = self.storage
         if b_lanes[0].shape[0] == 0 or q_lanes[0].shape[0] == 0:
-            return torch.where(codes >= 0, ABSENT, codes)
+            return per_shard(lambda c: torch.where(c >= 0, ABSENT, c), codes)
         trans = translate_lanes(b_lanes, q_lanes)
         dev = trans.device
         if b_pos is not None:
@@ -455,7 +578,7 @@ class StringColumn:
             full = torch.full((self.dict_size,), -1, dtype=torch.int32, device=dev)
             full[torch.from_numpy(q_pos).to(dev).to(torch.int64)] = trans
             trans = full
-        return apply_code_translation(codes, trans.to(codes.device))
+        return apply_code_translation(codes, trans.to(storage_device(codes)))
 
     def renumbered_to(self, other_dictionary: np.ndarray) -> torch.Tensor:
         """This column's codes in another dictionary's code space (host
@@ -463,7 +586,7 @@ class StringColumn:
         codes pass through.  This is how a probe-side join key enters the
         index's key space."""
         if self.dictionary.size == 0:
-            return self.codes
+            return self.storage
         pos = np.searchsorted(other_dictionary, self.dictionary)
         pos = np.clip(pos, 0, max(other_dictionary.size - 1, 0))
         ok = (
@@ -472,9 +595,8 @@ class StringColumn:
             else np.zeros(self.dictionary.size, dtype=bool)
         )
         trans = np.where(ok, pos, -1).astype(np.int32)
-        return apply_code_translation(
-            self.codes, torch.from_numpy(trans).to(self.codes.device)
-        )
+        codes = self.storage
+        return apply_code_translation(codes, torch.from_numpy(trans).to(storage_device(codes)))
 
 
 def merge_with_fallback(primary: StringColumn, fallback: StringColumn) -> StringColumn:
@@ -486,6 +608,13 @@ def merge_with_fallback(primary: StringColumn, fallback: StringColumn) -> String
     union = np.union1d(primary.dictionary, fallback.dictionary)
     p = primary.renumbered_to(union)
     f = fallback.renumbered_to(union)
+    if isinstance(p, ShardedRows) or isinstance(f, ShardedRows):
+        mesh = (p if isinstance(p, ShardedRows) else f).mesh
+        if not isinstance(p, ShardedRows):
+            p = ShardedRows(mesh, relayout(mesh, p, f.lens))
+        if not isinstance(f, ShardedRows):
+            f = ShardedRows(mesh, relayout(mesh, f, p.lens))
+        return StringColumn(union, smap(mesh, lambda a, b: torch.where(a >= 0, a, b), p, f))
     return StringColumn(union, torch.where(p >= 0, p, f))
 
 
@@ -517,6 +646,9 @@ class DeviceTable:
         # the streamed tier's accounting: {"scan_wait": s, "place": s,
         # "chunks": n, "workers": K}; None for the other tiers
         self.ingest_seconds = None
+        # the sharded streamed ingest placed this table's chunks on their
+        # shards (``with_sharding`` then has nothing to do)
+        self._pre_sharded = False
         # serializes the mirror-decode LRU (rows_from_mirror_many): even
         # a cache hit reorders the OrderedDict, so every access holds it
         self._mirror_lock = threading.Lock()
@@ -578,14 +710,92 @@ class DeviceTable:
     def short_desc(self) -> str:
         return f"{self.nrows}x{len(self.columns)}[{','.join(self.columns)}]"
 
+    @property
+    def mesh(self) -> "Mesh | None":
+        """The mesh this table's columns are row-sharded over, or None.
+        The table's ``device`` is then the mesh's first device, as the
+        reference's is ``mesh.devices.flat[0]``."""
+        for col in self.columns.values():
+            st = col.storage
+            if isinstance(st, ShardedRows):
+                return st.mesh
+        return None
+
+    @property
+    def stored_len(self) -> int:
+        """Rows the columns hold: above ``nrows`` when a sharded table's
+        tail is padded to equal blocks."""
+        if not self.columns:
+            return self.nrows
+        return int(next(iter(self.columns.values())).storage.shape[0])
+
+    def shard_lens(self) -> "List[int] | None":
+        """Logical rows per shard of a sharded table (its blocks without
+        the tail padding), or None for an unsharded one."""
+        for col in self.columns.values():
+            st = col.storage
+            if isinstance(st, ShardedRows):
+                left, out = self.nrows, []
+                for n in st.lens:
+                    out.append(max(0, min(n, left)))
+                    left -= out[-1]
+                return out
+        return None
+
     def sync(self) -> "DeviceTable":
         """Wait until the card has finished the work queued for this
-        table's device (a no-op on the CPU)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        table's devices (a no-op on the CPU)."""
+        mesh = self.mesh
+        for dev in (mesh.distinct_devices if mesh is not None else [self.device]):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         return self
 
-    def gather(self, sel: torch.Tensor) -> "DeviceTable":
+    def with_sharding(self, mesh: Mesh) -> "DeviceTable":
+        """The table row-sharded over *mesh*: every column's storage cut
+        into ``ceil(n / k)``-row blocks, block i on shard i's device, the
+        tail padded with ``PAD_CODE`` (codes) or ``typed.PAD_VALUE``
+        (typed value lanes), which no selection ever reaches.  Blocks are
+        made device to device; a block already on its shard's device is a
+        view of the column, so a table on one card is not copied except
+        for the padded tail block.  A deferred lane dictionary is settled
+        first, so every shard's codes index the sorted lanes."""
+        from .typed import PAD_VALUE
+
+        n = self.nrows
+        k = mesh.size
+        b = -(-n // k)
+        cols = {}
+        for name, col in self.columns.items():
+            col._ensure_sorted_lanes()
+            st = col.storage
+            if isinstance(st, ShardedRows) and st.mesh is mesh:
+                cols[name] = col
+                continue
+            fill = int(PAD_VALUE) if col.kind == "int" else PAD_CODE
+            blocks = ShardedRows(mesh, relayout(mesh, host_or_storage(st, n), [b] * k, fill))
+            cols[name] = col.with_storage(blocks)
+            if col.kind != "int":
+                cols[name]._has_absent = col._has_absent
+        out = DeviceTable(cols, n, mesh.devices[0], self.row_base)
+        out.ingest_tier = self.ingest_tier
+        out.ingest_seconds = self.ingest_seconds
+        return out
+
+    def shard_row_counts(self) -> "Dict[int, int]":
+        """Rows held per shard (padding included), keyed by shard index
+        for the first sharded column; empty when no column is sharded.
+        The reference keys by ``str(device)``; a mesh here may place
+        several shards on one device, so the shard index is the key."""
+        for col in self.columns.values():
+            st = col.storage
+            if isinstance(st, ShardedRows):
+                return dict(enumerate(st.lens))
+        return {}
+
+    def gather(self, sel) -> "DeviceTable":
+        """The rows at *sel*: global positions (a tensor), or per-shard
+        local row ids (a :class:`ShardedRows`, sharded tables)."""
         cols = {n: c.gather(sel) for n, c in self.columns.items()}
         return DeviceTable(cols, int(sel.shape[0]), self.device)
 
@@ -595,6 +805,7 @@ class DeviceTable:
         the C++ itoa, never through demotion."""
         cols = self.columns
         if sel is not None:
+            # global positions; a sharded column assembles for them
             sel = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
             cols = {n: c.gather(sel) for n, c in cols.items()}
             n = int(sel.shape[0])
@@ -710,6 +921,18 @@ class DeviceTable:
         from ..plan import Scan
 
         return Scan(self)
+
+
+def host_or_storage(st, n: int):
+    """The first *n* rows of a storage array as a tensor or ShardedRows
+    (dropping a sharded array's tail padding without copying)."""
+    if isinstance(st, ShardedRows):
+        left, shards = n, []
+        for blk in st.shards:
+            shards.append(blk[:max(0, min(int(blk.shape[0]), left))])
+            left -= int(shards[-1].shape[0])
+        return ShardedRows(st.mesh, shards)
+    return st[:n]
 
 
 def from_reference_arrays(

@@ -40,6 +40,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import ShardedRows, assemble
+from .table import gather_storage, host_array, per_shard, split_like, storage_device
+
 PAD_VALUE = np.int32(np.iinfo(np.int32).min)
 
 #: Demotions made in this process, one ``(prefix, rows)`` entry each —
@@ -54,9 +57,9 @@ class IntColumn:
 
     kind = "int"
 
-    def __init__(self, prefix: bytes, values: torch.Tensor, _demoted=None):
+    def __init__(self, prefix: bytes, values, _demoted=None):
         self.prefix = prefix
-        self.values = values
+        self._values = values  # a tensor, or ShardedRows when row-sharded
         self._demoted = _demoted  # cached StringColumn after demotion
         self._distinct: Optional[int] = None  # cached distinct-value count
         self._demote_lock = threading.Lock()
@@ -64,16 +67,28 @@ class IntColumn:
     # ---- the storage protocol shared with StringColumn ----
 
     @property
-    def storage(self) -> torch.Tensor:
-        """The row-indexed device array (the typed ``codes`` counterpart)."""
-        return self.values
+    def values(self) -> torch.Tensor:
+        """The value lanes as one tensor; a sharded column's are assembled
+        on its first shard's device (counted)."""
+        return assemble(self._values)
 
-    def with_storage(self, values: torch.Tensor) -> "IntColumn":
+    @property
+    def storage(self):
+        """The row-indexed device array (the typed ``codes`` counterpart):
+        a tensor, or a ``ShardedRows`` for a row-sharded column."""
+        return self._values
+
+    def with_storage(self, values) -> "IntColumn":
         return IntColumn(self.prefix, values)
 
-    def gather(self, sel: torch.Tensor) -> "IntColumn":
-        """New column of the selected row positions (device gather)."""
-        return IntColumn(self.prefix, torch.index_select(self.values, 0, sel))
+    def shard(self, i: int) -> "IntColumn":
+        """Shard *i* of a row-sharded column as a column of its own."""
+        return IntColumn(self.prefix, self._values.shards[i])
+
+    def gather(self, sel) -> "IntColumn":
+        """New column of the selected row positions (device gather; see
+        ``table.gather_storage`` for a sharded column or selection)."""
+        return IntColumn(self.prefix, gather_storage(self._values, sel))
 
     @property
     def has_absent(self) -> bool:
@@ -93,7 +108,15 @@ class IntColumn:
         if self._demoted is not None:
             return self._demoted.dict_size
         if self._distinct is None:
-            self._distinct = int(torch.unique(self.values).numel())
+            st = self._values
+            if isinstance(st, ShardedRows):
+                # distinct values per shard, then across shards on the
+                # first device; sharding pads are no value
+                dev0 = st.mesh.devices[0]
+                u = torch.unique(torch.cat([torch.unique(s).to(dev0) for s in st.shards]))
+            else:
+                u = torch.unique(st)
+            self._distinct = int(u.numel()) - int(bool(u.numel()) and int(u[0]) == int(PAD_VALUE))
         return self._distinct
 
     def _ensure_sorted_lanes(self) -> None:
@@ -104,11 +127,11 @@ class IntColumn:
     def formatted_host(self) -> np.ndarray:
         """Every row formatted to 'S' bytes through the C++ itoa (the CSV
         sink's fast path)."""
-        return format_affix(self.prefix, self.values.cpu().numpy())
+        return format_affix(self.prefix, host_array(self._values))
 
     def formatted_str(self) -> np.ndarray:
         """Every row formatted as a numpy str array."""
-        digits = self.values.cpu().numpy().astype(np.str_)
+        digits = host_array(self._values).astype(np.str_)
         p = self.prefix.decode("utf-8")
         return np.char.add(p, digits) if p else digits
 
@@ -123,7 +146,7 @@ class IntColumn:
         ``StringColumn.codes_host``."""
         got = getattr(self, "_values_host", None)
         if got is None:
-            got = self._values_host = self.values.cpu().numpy()
+            got = self._values_host = host_array(self._values)
         return got
 
     def decode_take(self, idx: np.ndarray) -> List[Optional[str]]:
@@ -173,9 +196,10 @@ class IntColumn:
             from ..utils.observe import telemetry
             from .table import StringColumn
 
-            with telemetry.stage("typed:demote", int(self.values.shape[0])):
-                demotions.append((self.prefix, int(self.values.shape[0])))
-                u = torch.unique(self.values, sorted=True)
+            values = self.values  # a sharded column demotes whole (assembled)
+            with telemetry.stage("typed:demote", int(values.shape[0])):
+                demotions.append((self.prefix, int(values.shape[0])))
+                u = torch.unique(values, sorted=True)
                 uu = u.cpu().numpy()
                 # sharding pads (PAD_VALUE sorts first) never enter the
                 # dictionary; their rows code as -2 below
@@ -188,21 +212,22 @@ class IntColumn:
                 dictionary = strs[order]
                 if uu.size == 0:  # an empty (or all-pad) column
                     codes = torch.full(
-                        self.values.shape, -2 if has_pad else -1,
-                        dtype=torch.int32, device=self.values.device,
+                        values.shape, -2 if has_pad else -1,
+                        dtype=torch.int32, device=values.device,
                     )
                 else:
                     code_of = np.empty(uu.shape[0], dtype=np.int32)
                     code_of[order] = np.arange(uu.shape[0], dtype=np.int32)
                     # numeric rank per row, then numeric slot -> byte-order code
-                    pos = torch.searchsorted(u, self.values).clamp(max=int(uu.shape[0]) - 1)
+                    pos = torch.searchsorted(u, values).clamp(max=int(uu.shape[0]) - 1)
                     codes = torch.index_select(
-                        torch.from_numpy(code_of).to(self.values.device), 0, pos
+                        torch.from_numpy(code_of).to(values.device), 0, pos
                     )
                     if has_pad:
-                        codes = torch.where(self.values == int(PAD_VALUE), -2, codes)
+                        codes = torch.where(values == int(PAD_VALUE), -2, codes)
                 self._demoted = StringColumn(
-                    dictionary, codes, _has_absent=False if not has_pad else None
+                    dictionary, split_like(codes, self._values),
+                    _has_absent=False if not has_pad else None,
                 )
         return self._demoted
 
@@ -254,11 +279,11 @@ class IntColumn:
         miss -> -1, sharding pads -> -2."""
         if state[0] == "dense":
             _, lo, table = state
-            return translate_dense(self.values, lo, table)
+            return per_shard(lambda v, t: translate_dense(v, lo, t), self._values, table)
         _, sorted_vals, code_of = state
         if int(sorted_vals.shape[0]) == 0:
-            return translate_empty(self.values)
-        return translate_sorted(self.values, sorted_vals, code_of)
+            return per_shard(translate_empty, self._values)
+        return per_shard(translate_sorted, self._values, sorted_vals, code_of)
 
     def renumbered_to(self, other_dictionary: np.ndarray) -> torch.Tensor:
         """Rows translated into *other_dictionary*'s code space without
@@ -266,7 +291,7 @@ class IntColumn:
         the value lanes looked up in it."""
         cand, vals = parse_affix_dictionary(other_dictionary, self.prefix)
         return self._translate_by_values(
-            self._build_translation(vals, cand, self.values.device)
+            self._build_translation(vals, cand, storage_device(self._values))
         )
 
     def renumbered_to_col(self, other) -> torch.Tensor:
@@ -285,7 +310,7 @@ class IntColumn:
         if hit is None:
             cand, vals = parse_affix_dictionary(other.dictionary, self.prefix)
             hit = cache[self.prefix] = self._build_translation(
-                vals, cand, self.values.device
+                vals, cand, storage_device(self._values)
             )
         return self._translate_by_values(hit)
 

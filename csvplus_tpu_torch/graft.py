@@ -16,12 +16,12 @@ against a numpy oracle:
 3. the partitioned all-to-all probe (3b: the sample sort; 3c: the
    capacity retry and the hot-key short circuit, with the reference's
    bounds on the counted host syncs);
+4. the public API over a row-sharded table: ``from_file(...).on_device(
+   mesh=...)``, a filter, and a select + join against an index;
 5. on a (2, n/2) mesh: the data-parallel step, a hierarchical count
-   (a sum within each slice, then across slices), the partitioned probe
-   and the sample sort.
-
-The reference's path 4 and path 5's pipeline run the public API over
-sharded tables, which this package does not have yet; they are not run.
+   (a sum within each slice, then across slices), a filter pipeline over
+   a table sharded on both axes, the partitioned probe and the sample
+   sort.
 """
 
 from __future__ import annotations
@@ -63,7 +63,7 @@ def _probe_oracle(index_keys: np.ndarray, queries: np.ndarray):
 
 
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> dict:
-    """Run paths 1, 2, 3, 3b, 3c and (for an even n >= 4) 5 on an
+    """Run paths 1, 2, 3, 3b, 3c, 4 and (for an even n >= 4) 5 on an
     *n_devices*-shard mesh; raise on any mismatch.  Returns the paths run
     and path 3c's counted host syncs."""
     import torch
@@ -141,6 +141,31 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> dict
         raise AssertionError("hot probe mismatch")
     ran.append("3c capacity retry + hot-key shortcut")
 
+    # --- path 4: the public API over a row-sharded table -------------------
+    import csv
+    import tempfile
+
+    from . import Like, from_file, take
+
+    dev0 = str(mesh.devices[0])
+    with tempfile.TemporaryDirectory() as td:
+        pp = f"{td}/people.csv"
+        with open(pp, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["id", "name", "qty"])
+            for i in range(64):
+                w.writerow([str(i), f"n{i % 5}", str(i % 9)])
+        host = take(from_file(pp)).filter(Like({"name": "n2"})).to_rows()
+        got = from_file(pp).on_device(mesh=mesh).filter(Like({"name": "n2"})).to_rows()
+        if got != host:
+            raise AssertionError("sharded end-to-end pipeline mismatch")
+        idx = from_file(pp).on_device(dev0).unique_index_on("id")
+        joined = (from_file(pp).on_device(mesh=mesh).select_columns("id", "qty")
+                  .join(idx, "id").to_rows())
+        if len(joined) != 64:
+            raise AssertionError("sharded join mismatch")
+    ran.append("4 sharded pipeline (filter, select + join)")
+
     # --- path 5: 2-D (slice, chip) mesh -----------------------------------
     if n_devices % 2 == 0 and n_devices >= 4:
         mesh2 = make_mesh_2d(2, n_devices // 2, devices=devices)
@@ -153,6 +178,18 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> dict
         total = psum(mesh2, psum(mesh2, local, AXIS), SLICE_AXIS)
         if any(int(t.item()) != int(want_valid.sum()) for t in total):
             raise AssertionError("hierarchical sum mismatch")
+        # the public API over a table sharded slice-major on both axes
+        with tempfile.TemporaryDirectory() as td:
+            pp = f"{td}/p2.csv"
+            with open(pp, "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(["id", "name"])
+                for i in range(48):
+                    w.writerow([str(i), f"n{i % 3}"])
+            host2 = take(from_file(pp)).filter(Like({"name": "n1"})).to_rows()
+            got2 = from_file(pp).on_device(mesh=mesh2).filter(Like({"name": "n1"})).to_rows()
+            if got2 != host2:
+                raise AssertionError("2-D-mesh sharded pipeline mismatch")
         # the partitioned probe and the sample sort over (slice, chip):
         # their exchanges span both axes
         ik2 = np.sort(rng.integers(0, 5000, size=2000).astype(np.int32))
@@ -167,10 +204,9 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence] = None) -> dict
         if not (v2 == np.sort(xs2)).all() or not (xs2[p2] == v2).all():
             raise AssertionError("2-D sample-sort mismatch")
         ran.append(f"5 2-D (2,{n_devices // 2}) mesh: dp step + slice/chip sum + "
-                   "partitioned probe + sample sort")
+                   "sharded pipeline + partitioned probe + sample sort")
 
     where = sorted({str(d) for d in mesh.devices})
     print(f"dryrun_multichip OK on {n_devices} shards over {where}: paths "
-          + "; ".join(ran) + " (not run: path 4 and path 5's pipeline, which need sharded "
-          "tables)")
+          + "; ".join(ran))
     return {"paths": ran, "retry_syncs": retry_syncs, "hot_syncs": hot_syncs}

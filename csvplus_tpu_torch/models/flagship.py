@@ -20,15 +20,22 @@ runs it data-parallel, one call per shard of a mesh over replicated keys.
 
 from __future__ import annotations
 
+from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import torch
 
-from ..columnar.table import DeviceTable, StringColumn
+from ..columnar.table import DeviceTable, StringColumn, gather_storage, split_like
 from ..ops.join import DeviceIndex, direct_probe_parts
+from ..parallel.mesh import ShardedRows, assemble, smap
 
 _INT32_MIN = -(2**31)
+
+#: ``ThreewayJoin.run`` calls by branch ("fused", "step" or "padded", and
+#: "compaction" when the matches were compacted) — counted where the
+#: branch is taken, nowhere else.  ``chip_smoke.py`` and the tests read it.
+run_paths: Counter = Counter()
 
 
 def _take(values: torch.Tensor, idx: torch.Tensor, in_range: bool = False) -> torch.Tensor:
@@ -107,16 +114,17 @@ class ThreewayJoin:
     """Prepared flagship pipeline: translate the probe keys once, run many
     times.
 
-    Single-device tables only.  The reference's padded-stream branch
-    (a mesh-sharded stream's codes padded beyond ``nrows``, probed with
-    :func:`_fused_direct_probe` and always compacted) needs sharded
-    tables, which this package does not have yet, so no table can reach
-    it and it is left out.  On one device the reference's replication
-    caches (``_keys_for``, ``_lanes_for``, ``_aligned_codes``) are the
-    identity: the index's own key and code arrays are used, and the
-    compaction's ``device_put`` onto each build side's device is a no-op.
-    ``.item()`` waits for the whole stream, so the reference's one-time
-    settling of the pass-through orders columns has no counterpart."""
+    A row-sharded orders table (``with_sharding`` / ``on_device(shards=)``)
+    runs every step per shard, against the build keys and columns copied
+    once per distinct device of its mesh (the reference's ``_lanes_for``
+    / ``_aligned_codes``).  A padded one (codes stored beyond ``nrows``)
+    takes the reference's padded branch: the direct probes alone
+    (:func:`_fused_direct_probe`), then always the compaction, whose build
+    row ids are assembled on each build side's device (the reference's
+    ``device_put``) and the gathered rows cut back into the compacted
+    stream's shards.  ``.item()`` waits for the whole stream, so the
+    reference's one-time settling of the pass-through orders columns has
+    no counterpart."""
 
     cust: DeviceIndex
     prod: DeviceIndex
@@ -144,7 +152,14 @@ class ThreewayJoin:
                    orders_cols=dict(orders.columns), n_orders=orders.nrows)
 
     def step(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The fused probe step over the indexes' sorted packed keys."""
+        """The fused probe step over the indexes' sorted packed keys (per
+        shard for a sharded stream)."""
+        if isinstance(self.qk_cust, ShardedRows):
+            mesh = self.qk_cust.mesh
+            return smap(mesh, threeway_step,
+                        self.cust._replicated(mesh, "packed_i32", self.cust.packed_i32),
+                        self.prod._replicated(mesh, "packed_i32", self.prod.packed_i32),
+                        self.qk_cust, self.qk_prod)
         return threeway_step(self.cust.packed_i32, self.prod.packed_i32, self.qk_cust,
                              self.qk_prod)
 
@@ -158,6 +173,9 @@ class ThreewayJoin:
         names_p = list(self.prod.table.columns)
         names_o = list(self.orders_cols)
         direct = self.cust.direct_cum is not None and self.prod.direct_cum is not None
+        if isinstance(self.qk_cust, ShardedRows):
+            return self._run_sharded(names_c, names_p, names_o, direct)
+        run_paths["fused" if direct else "step"] += 1
         if direct:
             # one pass for probes + gathers + match count; the speculative
             # gathers are wasted only on the partial-match path below
@@ -184,6 +202,7 @@ class ThreewayJoin:
         else:
             # compaction: the matching rows (the selection's size syncs),
             # then device gathers
+            run_paths["compaction"] += 1
             sel = torch.nonzero(valid).flatten()
             ids_c = torch.index_select(lo_c, 0, sel)
             ids_p = torch.index_select(lo_p, 0, sel)
@@ -204,6 +223,77 @@ class ThreewayJoin:
             out[name] = self.orders_cols[name].with_storage(codes)
         device = next(iter(out.values())).storage.device if out else self.qk_cust.device
         return DeviceTable(out, n_out, device)
+
+    def _run_sharded(self, names_c, names_p, names_o, direct: bool) -> DeviceTable:
+        """:meth:`run` over a sharded stream (see the class docstring)."""
+        qc, qp = self.qk_cust, self.qk_prod
+        mesh = qc.mesh
+        dev0 = mesh.devices[0]
+        cust_st = [self.cust.table.columns[n].storage for n in names_c]
+        prod_st = [self.prod.table.columns[n].storage for n in names_p]
+        unpadded = qc.nrows == self.n_orders
+        if direct:
+            cum_c = self.cust._replicated(mesh, "direct_cum", self.cust.direct_cum)
+            cum_p = self.prod._replicated(mesh, "direct_cum", self.prod.direct_cum)
+        if direct and unpadded:
+            run_paths["fused"] += 1
+            rep_c = [self.cust._replicated(mesh, ("col", n), st) for n, st in zip(names_c, cust_st)]
+            rep_p = [self.prod._replicated(mesh, ("col", n), st) for n, st in zip(names_p, prod_st)]
+            outs = []
+            for i in range(mesh.size):
+                with mesh.on(i):
+                    outs.append(_fused_unique_join(
+                        cum_c[i], cum_p[i], qc.shards[i], qp.shards[i],
+                        tuple(r[i] for r in rep_c), tuple(r[i] for r in rep_p)))
+            # the one scalar sync: the shards' match counts add on dev0
+            n_valid = int(torch.stack([o[0].to(dev0) for o in outs]).sum().item())
+            lo_c, lo_p, valid = (ShardedRows(mesh, [o[j] for o in outs]) for j in (1, 2, 3))
+            g_c = tuple(ShardedRows(mesh, [o[4][j] for o in outs]) for j in range(len(names_c)))
+            g_p = tuple(ShardedRows(mesh, [o[5][j] for o in outs]) for j in range(len(names_p)))
+        elif direct:
+            # the padded branch: probes only, then always the compaction
+            run_paths["padded"] += 1
+            lo_c, lo_p, valid = smap(mesh, _fused_direct_probe, cum_c, cum_p, qc, qp)
+        else:
+            run_paths["step"] += 1
+            lo_c, lo_p, valid = self.step()
+        if not unpadded:
+            n_valid = -1
+        elif not direct:
+            n_valid = int(torch.stack([v.sum().to(dev0) for v in valid.shards]).sum().item())
+        if n_valid == self.n_orders:
+            if not direct:
+                ones = valid.map(torch.ones_like)
+                g_c = tuple(smap(mesh, gather_columns, lo_c, ones,
+                                 self.cust._replicated(mesh, ("col", n), st))[0]
+                            for n, st in zip(names_c, cust_st))
+                g_p = tuple(smap(mesh, gather_columns, lo_p, ones,
+                                 self.prod._replicated(mesh, ("col", n), st))[0]
+                            for n, st in zip(names_p, prod_st))
+            g_o = tuple(self.orders_cols[n].storage for n in names_o)
+            n_out = self.n_orders
+        else:
+            # the compaction: each shard's matching rows (local ids), the
+            # build row ids assembled on each build side's device, the
+            # gathered build rows cut back into the compacted shards
+            run_paths["compaction"] += 1
+            sel = valid.map(lambda v: torch.nonzero(v).flatten())
+            ids_c = assemble(smap(mesh, lambda lo, s: torch.index_select(lo, 0, s), lo_c, sel),
+                             self.cust.table.device).to(torch.int64)
+            ids_p = assemble(smap(mesh, lambda lo, s: torch.index_select(lo, 0, s), lo_p, sel),
+                             self.prod.table.device).to(torch.int64)
+            g_c = tuple(split_like(torch.index_select(st, 0, ids_c), sel) for st in cust_st)
+            g_p = tuple(split_like(torch.index_select(st, 0, ids_p), sel) for st in prod_st)
+            g_o = tuple(gather_storage(self.orders_cols[n].storage, sel) for n in names_o)
+            n_out = sel.nrows
+        out: Dict[str, StringColumn] = {}
+        for name, codes in zip(names_c, g_c):
+            out[name] = self.cust.table.columns[name].with_storage(codes)
+        for name, codes in zip(names_p, g_p):
+            out[name] = self.prod.table.columns[name].with_storage(codes)
+        for name, codes in zip(names_o, g_o):  # stream wins
+            out[name] = self.orders_cols[name].with_storage(codes)
+        return DeviceTable(out, n_out, dev0)
 
 
 def example_step_args(n_orders: int = 4096, n_cust: int = 512, n_prod: int = 64,

@@ -9,10 +9,7 @@ parameterized by input sources:
 3. ``threeway``    — orders ⋈ custIndex ⋈ prodIndex (``models.flagship``
    is the fused form)
 4. ``dedup``       — index_on(non-unique key).resolve_duplicates
-
-Config 5 (``sharded_join``, the join with a row-sharded stream over a
-mesh) needs sharded tables behind ``on_device``, which this package does
-not have yet.
+5. ``sharded_join`` — the join with a row-sharded stream over a mesh
 """
 
 from __future__ import annotations
@@ -48,3 +45,14 @@ def dedup(source, key: str, policy="first"):
     index = source.index_on(key)
     index.resolve_duplicates(policy)
     return index
+
+
+def sharded_join(orders_reader, cust_index, shards: int, cust_col="cust_id", mesh=None):
+    """Config 5: the join with a row-sharded stream over an N-shard mesh
+    (probes take the all-to-all partitioned tier when the build side is
+    large; see ``ops.join.DeviceIndex.PARTITION_MIN_KEYS``).  The shards
+    go over ``cuda:0`` .. ``cuda:N-1``; *mesh* (an addition to the
+    reference's signature) places them itself instead, e.g. all on one
+    card with ``make_mesh(N, devices=["cuda:0"] * N)``."""
+    stream = orders_reader.on_device(shards=None if mesh is not None else shards, mesh=mesh)
+    return stream.join(cust_index, cust_col)

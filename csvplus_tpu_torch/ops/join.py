@@ -22,6 +22,16 @@ Port of the single-join subset of ``csvplus_tpu/ops/join.py``.
   materializing it first.  Only the rewriter (``analysis/rewrite.py``,
   through the plan cache) emits the plan nodes that reach them.
 * :func:`except_mask` is the anti-join's keep-mask.
+* A row-sharded stream (:class:`~csvplus_tpu_torch.parallel.mesh.ShardedRows`
+  storage) is translated, packed, probed, expanded and gathered per
+  shard, each on its shard's device.  A build side of at least
+  ``PARTITION_MIN_KEYS`` keys probed by a stream sharded over more than
+  one shard takes the range-partitioned all-to-all tier
+  (:mod:`..parallel.pjoin`); below it the build keys and columns are
+  copied once per distinct device of the mesh (the broadcast tier).  The
+  test is the mesh's shard count, not its device set: eight shards on
+  one card take the partitioned tier, as eight devices do in the
+  reference.
 
 Key tiers, kept as in the reference so tier choice matches:
 
@@ -43,7 +53,8 @@ from typing import ClassVar, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..columnar.table import DeviceTable, StringColumn, merge_with_fallback
+from ..columnar.table import DeviceTable, StringColumn, gather_storage, merge_with_fallback
+from ..parallel.mesh import Mesh, Replicated, ShardedRows, assemble, relayout, smap
 from ..utils.env import env_int
 
 _MASK31 = (1 << 31) - 1
@@ -250,12 +261,12 @@ class DeviceIndex:
     # table (2^23 + 1 int32 = 32 MB at the cap); larger ones search.
     DIRECT_MAX_BITS: ClassVar[int] = 23
 
-    # The reference probes build sides of at least this many keys through
-    # its range-partitioned multi-device tier.  One process drives one
-    # card here, so no probe takes that tier; the verifier and the cost
-    # model read the threshold (``device_index_static_info``) as the
-    # reference's do.
-    PARTITION_MIN_KEYS: ClassVar[int] = 4_000_000
+    # Build sides with at least this many keys, probed by a stream sharded
+    # over more than one shard, take the range-partitioned all-to-all tier
+    # (parallel/pjoin.py); below it the keys are copied to every device of
+    # the mesh (broadcast).  Read at import, as the reference reads it; a
+    # class attribute, so a caller may set it for one run.
+    PARTITION_MIN_KEYS: ClassVar[int] = env_int("CSVPLUS_PARTITION_MIN_KEYS", 4_000_000)
 
     # Build-side key sample offered to the cost model's sketch, at most.
     BUILD_SAMPLE: ClassVar[int] = 4096
@@ -299,6 +310,45 @@ class DeviceIndex:
         # serializes the once-per-index build-side sample
         self._aux_lock = threading.Lock()
         self._skew_offered = False
+        # for sharded probes: (name, device) -> (source tensor, its copy
+        # there), and (mesh, range-partitioned keys)
+        self._repl: dict = {}
+        self._part_cache = None
+
+    def _replicated(self, mesh: Mesh, name: str, tensor: torch.Tensor):
+        """*tensor* (a packed key lane, the direct table or a build
+        column) on every shard's device of *mesh*: one copy per distinct
+        device, cached on the index (the reference's ``_lanes_for`` /
+        ``_aligned_codes``); none where it already lies."""
+        per_dev = {}
+        for dev in mesh.distinct_devices:
+            if isinstance(tensor, torch.Tensor) and tensor.device == dev:
+                per_dev[dev] = tensor
+                continue
+            key = (name, dev)
+            got = self._repl.get(key)
+            if got is None or got[0] is not tensor:
+                # a sharded build column (an index built by the sample
+                # sort) is assembled once a device: counted
+                got = self._repl[key] = (tensor, assemble(tensor, dev))
+            per_dev[dev] = got[1]
+        return Replicated(per_dev[d] for d in mesh.devices)
+
+    def _partitioned_for(self, mesh: Mesh):
+        """Range-partitioned build keys for *mesh*, made once per mesh
+        (the host partitioning and upload happen once, not per probe).
+        Keyed by the mesh itself: two meshes over one card with other
+        shard counts partition differently."""
+        cached = self._part_cache
+        if cached is not None and cached[0] is mesh:
+            return cached[1]
+        from ..parallel.pjoin import prepare_partitioned
+
+        keys = (self.packed_i32.cpu().numpy() if self.packed_i32 is not None
+                else self._packed_i64_host())
+        prepared = prepare_partitioned(mesh, keys)
+        self._part_cache = (mesh, prepared)
+        return prepared
 
     @property
     def supported(self) -> bool:
@@ -476,10 +526,16 @@ class DeviceIndex:
         return list(zip(lower.tolist(), upper.tolist()))
 
     def probe(
-        self, probe_cols: List[StringColumn], nrows: int
+        self, probe_cols: List[StringColumn], nrows: int, part_info: "dict | None" = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(lower, counts) per probe row, both int32 on the probe's device.
-        Fewer probe columns than key columns = a prefix probe."""
+        """(lower, counts) per probe row, both int32 on the probe's device
+        (:class:`ShardedRows` in the stream's layout for a sharded stream).
+        Fewer probe columns than key columns = a prefix probe.
+
+        *part_info* is a multiway join's shared partitioned-tier state:
+        one dict threads through every dimension's probe, so the exchange
+        capacity settled on one dimension seeds the next one's first
+        attempt (``partitioned_probe_device``'s *info*)."""
         from ..utils.observe import telemetry
 
         self.offer_build_sample()
@@ -491,36 +547,151 @@ class DeviceIndex:
                 pc.renumbered_to_col(self.table.columns[name])
                 for pc, name in zip(probe_cols, self.key_columns[:k])
             ]
-            telemetry.barrier(tuple(codes))
+            telemetry.barrier(_flat(codes))
+        mesh = codes[0].mesh if codes and isinstance(codes[0], ShardedRows) else None
         range_size = 1 << (self.shifts[k - 1] if k else 0)
+        from ..parallel.pjoin import partition_tier_selected
+
         if self.packed_i32 is not None:
             with telemetry.stage("join:pack", nrows):
-                if codes:
+                if mesh is not None:
+                    shifts = self.shifts[:k]
+                    qk = smap(mesh, lambda *cs: _pack_qk(cs, shifts), *codes)
+                elif codes:
                     qk = _pack_qk(codes, self.shifts[:k])
                 else:
                     qk = torch.zeros(nrows, dtype=torch.int32, device=self.table.device)
-                telemetry.barrier(qk)
+                telemetry.barrier(_flat([qk]))
+            if mesh is not None and partition_tier_selected(
+                int(self.packed_i32.shape[0]), full_width=k == len(self.key_columns),
+                stream_sharded=mesh.size > 1, min_keys=self.PARTITION_MIN_KEYS,
+            ):
+                from ..parallel.pjoin import partitioned_probe_device
+
+                lo, ct = partitioned_probe_device(
+                    mesh, qk, self._partitioned_for(mesh),
+                    capacity=(part_info or {}).get("capacity"),
+                    label=",".join(self.key_columns), info=part_info,
+                )
+                return _in_layout(lo, qk), _in_layout(ct, qk)
             cum = self.direct_cum
             with telemetry.stage("join:probe", nrows) as out:
                 if cum is not None:
                     out["tier"] = "direct"
-                    ans = direct_probe_parts(cum, qk, range_size)
+                    if mesh is not None:
+                        ans = smap(mesh, lambda c, q: direct_probe_parts(c, q, range_size),
+                                   self._replicated(mesh, "direct_cum", cum), qk)
+                    else:
+                        ans = direct_probe_parts(cum, qk, range_size)
                 else:
                     out["tier"] = "broadcast-i32"
-                    ans = _probe_i32(self.packed_i32, qk, range_size)
-                telemetry.barrier(ans)
+                    if mesh is not None:
+                        ans = smap(mesh, lambda kk, q: _probe_i32(kk, q, range_size),
+                                   self._replicated(mesh, "packed_i32", self.packed_i32), qk)
+                    else:
+                        ans = _probe_i32(self.packed_i32, qk, range_size)
+                telemetry.barrier(_flat(ans))
             return ans
         # the two-lane tier records no pack or probe stage, as in the
         # reference
-        ok = torch.ones(nrows, dtype=torch.bool, device=self.table.device)
-        clamped = []
-        for c in codes:
-            ok = ok & (c >= 0)
-            clamped.append(torch.where(c >= 0, c, 0))
-        q_hi, q_lo = pack_lanes(clamped, self.shifts, self.bits)
-        return _probe_i32pair(
-            self.packed_hi, self.packed_lo, q_hi, q_lo, range_size, ok
+        shifts, bits = self.shifts, self.bits
+
+        def lanes(*cs):
+            ok = torch.ones(cs[0].shape, dtype=torch.bool, device=cs[0].device)
+            clamped = []
+            for c in cs:
+                ok = ok & (c >= 0)
+                clamped.append(torch.where(c >= 0, c, 0))
+            q_hi, q_lo = pack_lanes(clamped, shifts, bits)
+            return q_hi, q_lo, ok
+
+        if mesh is None:
+            q_hi, q_lo, ok = lanes(*codes)
+            return _probe_i32pair(self.packed_hi, self.packed_lo, q_hi, q_lo, range_size, ok)
+        q_hi, q_lo, ok = smap(mesh, lanes, *codes)
+        if partition_tier_selected(
+            int(self.packed_hi.shape[0]), full_width=k == len(self.key_columns),
+            stream_sharded=mesh.size > 1, min_keys=self.PARTITION_MIN_KEYS,
+        ):
+            from ..parallel.pjoin import partitioned_probe_device_wide
+
+            # invalid probes carry (-1, -1) lanes
+            q_hi_m = smap(mesh, lambda h, o: torch.where(o, h, -1), q_hi, ok)
+            q_lo_m = smap(mesh, lambda v, o: torch.where(o, v, -1), q_lo, ok)
+            lo, ct = partitioned_probe_device_wide(
+                mesh, q_hi_m, q_lo_m, self._partitioned_for(mesh),
+                capacity=(part_info or {}).get("capacity"),
+                label=",".join(self.key_columns), info=part_info,
+            )
+            return _in_layout(lo, q_hi), _in_layout(ct, q_hi)
+        return smap(
+            mesh, lambda kh, kl, h, v, o: _probe_i32pair(kh, kl, h, v, range_size, o),
+            self._replicated(mesh, "packed_hi", self.packed_hi),
+            self._replicated(mesh, "packed_lo", self.packed_lo), q_hi, q_lo, ok,
         )
+
+
+def _flat(values) -> tuple:
+    """Every tensor of a list of tensors, ShardedRows and tuples of them
+    (for ``telemetry.barrier``)."""
+    out = []
+    for v in values:
+        if isinstance(v, ShardedRows):
+            out.extend(v.shards)
+        elif isinstance(v, (tuple, list)):
+            out.extend(_flat(v))
+        elif v is not None:
+            out.append(v)
+    return tuple(out)
+
+
+def _in_layout(x: ShardedRows, like: ShardedRows) -> ShardedRows:
+    """*x* (the partitioned tier's answers, in equal blocks) re-cut into
+    the probe stream's own shard layout, shard to shard."""
+    if x.lens == like.lens:
+        return x
+    return ShardedRows(like.mesh, relayout(like.mesh, x, like.lens))
+
+
+def expand_matches(lower: np.ndarray, counts: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Fan-out expansion on the host, for probe answers that come back as
+    numpy arrays: (probe row ids, build row ids) per match."""
+    total = int(counts.sum())
+    probe_ids = np.repeat(np.arange(counts.shape[0], dtype=np.int64), counts)
+    starts = np.repeat(lower.astype(np.int64), counts)
+    # within-group offset: the position among this probe row's matches
+    ends = np.cumsum(counts)
+    group_base = np.repeat(ends - counts, counts)
+    return probe_ids, starts + (np.arange(total, dtype=np.int64) - group_base)
+
+
+def _multiway_expand_host(lowers, counts):
+    """The cross-product fan-out on the host (numpy probe answers), in
+    :func:`_multiway_expand`'s mixed radix.  Returns (probe ids, build
+    ids per build side, total, intermediate rows avoided)."""
+    cs = [np.asarray(c).astype(np.int64) for c in counts]
+    prod = cs[0].copy()
+    inter = 0
+    for c in cs[1:]:
+        inter += int(prod.sum())
+        prod *= c
+    total = int(prod.sum())
+    probe_ids = np.repeat(np.arange(prod.shape[0], dtype=np.int64), prod)
+    ends = np.cumsum(prod)
+    r = np.arange(total, dtype=np.int64) - np.repeat(ends - prod, prod)
+    suffix = np.ones_like(prod)
+    sufs = []
+    for c in reversed(cs):
+        sufs.append(suffix)
+        suffix = suffix * c
+    sufs.reverse()
+    build_ids = []
+    for d, (lo, c, su) in enumerate(zip(lowers, cs, sufs)):
+        o = r // np.maximum(su, 1)[probe_ids]
+        if d > 0:
+            o = o % np.maximum(c, 1)[probe_ids]
+        build_ids.append(np.asarray(lo).astype(np.int64)[probe_ids] + o)
+    return probe_ids, tuple(build_ids), total, inter
 
 
 def _expand_kernel(lower: torch.Tensor, counts: torch.Tensor, total: int):
@@ -600,8 +771,124 @@ def _checked_probe_cols(
     return out
 
 
-def _gather_cols(cols: Sequence[torch.Tensor], ids: torch.Tensor) -> List[torch.Tensor]:
-    return [torch.index_select(c, 0, ids) for c in cols]
+def _empty_sel(stream: DeviceTable):
+    """An empty selection of *stream*'s rows (per shard when sharded)."""
+    mesh = stream.mesh
+    if mesh is None:
+        return torch.zeros(0, dtype=torch.int64, device=stream.device)
+    return ShardedRows(mesh, [torch.zeros(0, dtype=torch.int64, device=d) for d in mesh.devices])
+
+
+def _gather_cols(cols, ids: torch.Tensor) -> List[torch.Tensor]:
+    """Each storage array at the global positions *ids*, on *ids*' device
+    (a sharded one, an index built by the sample sort, sends each shard's
+    selected rows there)."""
+    return [gather_storage(c, ids) for c in cols]
+
+
+# -- sharded streams ----------------------------------------------------------
+#
+# Every shard expands its own rows: its matches land in its own output
+# block, so the output keeps the stream's shard order and no row crosses
+# shards.  One host transfer per join carries every shard's total and the
+# global max (and the avoided rows, multiway), reduced on the first
+# device: the reference's one ``(total, max)`` transfer with one total a
+# shard.  Each shard's output size comes from it, so the per-shard
+# compaction and expansion need no further sync.
+
+
+def _shard_stats(mesh: Mesh, parts) -> Tuple[List[int], int, int]:
+    """(per-shard totals, global max, summed avoided rows) from each
+    shard's ``[total, max(, avoided)]`` device scalars, reduced on the
+    first device and read in ONE transfer (counted as its elements)."""
+    from ..utils.observe import telemetry
+
+    dev0 = mesh.devices[0]
+    st = torch.stack([torch.stack(p).to(dev0) for p in parts])
+    row = torch.cat([st[:, 0], st[:, 1].max().reshape(1), st[:, 2:].sum(0)]).tolist()
+    telemetry.count_sync(len(row))
+    k = mesh.size
+    return [int(t) for t in row[:k]], int(row[k]), int(row[k + 1]) if len(row) > k + 1 else 0
+
+
+def _nonzero_sized(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """Row ids where *mask* holds, whose count the caller knows: no
+    host sync for the output size."""
+    return torch.nonzero_static(mask, size=size).squeeze(1)
+
+
+def _sharded_ids(lowers: Sequence[ShardedRows], counts: Sequence[ShardedRows], nrows: int,
+                 label: "str | None", stage: dict):
+    """The expansion of :func:`join_tables` / :func:`_multiway_ids` per
+    shard: (probe ids or None, per-build-side build ids, total, avoided
+    intermediate rows), ids shard-local ShardedRows.  The path is chosen
+    from the global statistics, as the reference chooses it."""
+    mesh = counts[0].mesh
+    multi = label is not None
+
+    def stats(*cs):
+        prod = cs[0].to(torch.int64)
+        inter = torch.zeros((), dtype=torch.int64, device=prod.device)
+        for c in cs[1:]:
+            inter = inter + prod.sum()
+            prod = prod * c.to(torch.int64)
+        mx = prod.max() if prod.shape[0] else torch.zeros((), dtype=torch.int64,
+                                                          device=prod.device)
+        return [prod.sum(), mx, inter] if multi else [prod.sum(), mx]
+
+    parts = [stats(*[c.shards[i] for c in counts]) for i in range(mesh.size)]
+    totals, maxp, inter = _shard_stats(mesh, parts)
+    total = sum(totals)
+    prefix = f"{label}-" if multi else ""
+    if maxp <= 1 and total == nrows:
+        path = "unique-identity"
+        probe_ids = None
+        build = tuple(lo.map(lambda x: x.to(torch.int64)) for lo in lowers)
+    elif maxp <= 1:
+        path = "unique-partial"
+
+        def compact(i, *cs):
+            mask = cs[0] > 0
+            for c in cs[1:]:
+                mask = mask & (c > 0)
+            return _nonzero_sized(mask, totals[i])
+
+        probe_ids = ShardedRows(mesh, [
+            compact(i, *[c.shards[i] for c in counts]) for i in range(mesh.size)])
+        build = tuple(smap(mesh, lambda lo, p: torch.index_select(lo, 0, p).to(torch.int64),
+                           lo, probe_ids) for lo in lowers)
+    else:
+        path = "fan-out"
+        outs = []
+        for i in range(mesh.size):
+            with mesh.on(i):
+                if multi:
+                    p, b = _multiway_expand([lo.shards[i] for lo in lowers],
+                                            [c.shards[i] for c in counts], totals[i])
+                else:
+                    p, b0 = _expand_kernel(lowers[0].shards[i], counts[0].shards[i], totals[i])
+                    b = (b0,)
+            outs.append((p, b))
+        probe_ids = ShardedRows(mesh, [o[0] for o in outs])
+        build = tuple(ShardedRows(mesh, [o[1][d] for o in outs]) for d in range(len(lowers)))
+    path = prefix + path
+    expand_paths[path] += 1
+    stage["path"] = path
+    stage["rows_out"] = total
+    return probe_ids, build, total, inter
+
+
+def _gather_build_sharded(dev_index: "DeviceIndex", ids: ShardedRows) -> dict:
+    """The build side's columns at *ids* (shard-local outputs holding
+    build row ids), each shard gathering from a copy of the build column
+    on its device (one copy per distinct device, cached on the index)."""
+    mesh = ids.mesh
+    out = {}
+    for n, c in dev_index.table.columns.items():
+        src = dev_index._replicated(mesh, ("col", n), c.storage)
+        out[n] = c.with_storage(smap(
+            mesh, lambda t, i: torch.index_select(t, 0, i), src, ids))
+    return out
 
 
 def join_tables(
@@ -613,7 +900,7 @@ def join_tables(
     571-583); stream order is kept and each row's matches come out in
     index order (csvplus.go:559)."""
     if stream.nrows == 0:
-        empty = torch.zeros(0, dtype=torch.int64, device=stream.device)
+        empty = _empty_sel(stream)
         out_cols = {
             name: col.gather(empty)
             for name, col in {**dev_index.table.columns, **stream.columns}.items()
@@ -624,21 +911,31 @@ def join_tables(
 
     probe_cols = _checked_probe_cols(stream, columns)
     lower, counts = dev_index.probe(probe_cols, stream.nrows)
+    if isinstance(counts, ShardedRows):
+        return _join_sharded(stream, dev_index, lower, counts)
     with telemetry.stage("join:expand", stream.nrows) as _exp:
-        total, maxc = _probe_stats(counts)
         probe_ids = None
-        if maxc <= 1 and total == stream.nrows:
-            # every stream row matched once: stream columns pass through
-            # ungathered, build rows are addressed by the lower bounds
-            build_ids = lower.to(torch.int64)
-            path = "unique-identity"
-        elif maxc <= 1:
-            probe_ids = _compact_nonzero(counts > 0)
-            build_ids = torch.index_select(lower, 0, probe_ids).to(torch.int64)
-            path = "unique-partial"
+        if isinstance(counts, np.ndarray):
+            # a tier answering on the host: expand in numpy, as the
+            # reference does for numpy answers
+            probe_ids, build_ids = (torch.from_numpy(x).to(stream.device)
+                                    for x in expand_matches(lower, counts))
+            total = int(probe_ids.shape[0])
+            path = "host-expand"
         else:
-            probe_ids, build_ids = expand_matches_device(lower, counts, total)
-            path = "fan-out"
+            total, maxc = _probe_stats(counts)
+            if maxc <= 1 and total == stream.nrows:
+                # every stream row matched once: stream columns pass through
+                # ungathered, build rows are addressed by the lower bounds
+                build_ids = lower.to(torch.int64)
+                path = "unique-identity"
+            elif maxc <= 1:
+                probe_ids = _compact_nonzero(counts > 0)
+                build_ids = torch.index_select(lower, 0, probe_ids).to(torch.int64)
+                path = "unique-partial"
+            else:
+                probe_ids, build_ids = expand_matches_device(lower, counts, total)
+                path = "fan-out"
         expand_paths[path] += 1
         _exp["path"] = path
         _exp["rows_out"] = total
@@ -671,6 +968,30 @@ def join_tables(
             out_cols[name] = g
         _mrg["rows_out"] = n_out
         telemetry.barrier(tuple(c.storage for c in out_cols.values()))
+    return DeviceTable(out_cols, n_out, stream.device)
+
+
+def _join_sharded(stream: DeviceTable, dev_index: DeviceIndex, lower: ShardedRows,
+                  counts: ShardedRows) -> DeviceTable:
+    """:func:`join_tables`' expansion and merge for a sharded stream:
+    the same stages, paths and merge, per shard."""
+    from ..utils.observe import telemetry
+
+    with telemetry.stage("join:expand", stream.nrows) as _exp:
+        probe_ids, (build_ids,), total, _ = _sharded_ids([lower], [counts], stream.nrows,
+                                                         None, _exp)
+        telemetry.barrier(_flat([probe_ids, build_ids]))
+    with telemetry.stage("join:merge", stream.nrows) as _mrg:
+        out_cols = _gather_build_sharded(dev_index, build_ids)
+        for name, src in stream.columns.items():  # the stream wins on collision...
+            g = src if probe_ids is None else src.gather(probe_ids)
+            if name in out_cols:
+                # ...but an absent stream cell keeps the index value
+                g = merge_with_fallback(g, out_cols[name])
+            out_cols[name] = g
+        n_out = stream.nrows if probe_ids is None else total
+        _mrg["rows_out"] = n_out
+        telemetry.barrier(_flat([c.storage for c in out_cols.values()]))
     return DeviceTable(out_cols, n_out, stream.device)
 
 
@@ -753,7 +1074,7 @@ def _multiway_expand(
     return probe_ids, tuple(build_ids)
 
 
-def _multiway_ids(lowers, counts, nrows: int, label: str, stage: dict):
+def _multiway_ids(lowers, counts, nrows: int, label: str, stage: dict, device=None):
     """(probe ids or None, per-build-side build ids, total, intermediate
     rows avoided) for the multiway fan-out, choosing the path as the
     reference does: every row matched once in every build side (stream
@@ -761,6 +1082,17 @@ def _multiway_ids(lowers, counts, nrows: int, label: str, stage: dict):
     lower bound), or the cross-product expansion.  Runs inside the
     caller's ``join:expand`` stage and records the path and the row
     count in *stage*."""
+    if isinstance(counts[0], ShardedRows):
+        return _sharded_ids(lowers, counts, nrows, label, stage)
+    if isinstance(counts[0], np.ndarray):  # a tier answering on the host
+        probe_ids, build, total, inter = _multiway_expand_host(lowers, counts)
+        probe_ids = torch.from_numpy(probe_ids).to(device)
+        build = tuple(torch.from_numpy(b).to(device) for b in build)
+        path = f"{label}-host-expand"
+        expand_paths[path] += 1
+        stage["path"] = path
+        stage["rows_out"] = total
+        return probe_ids, build, total, inter
     total, maxp, inter = _multiway_stats(counts)
     if maxp <= 1 and total == nrows:
         path = f"{label}-unique-identity"
@@ -797,6 +1129,8 @@ def _merge_fold(cur: dict, gathered) -> dict:
 
 def _gather_builds(specs, build_ids) -> list:
     """Every build side's columns gathered by its build row ids."""
+    if build_ids and isinstance(build_ids[0], ShardedRows):
+        return [_gather_build_sharded(di, ids) for (di, _), ids in zip(specs, build_ids)]
     return [
         {n: c.with_storage(torch.index_select(c.storage, 0, ids))
          for n, c in di.table.columns.items()}
@@ -820,7 +1154,7 @@ def multiway_join(
         # an empty stream never errors: fold the cascade's empty result
         # per level so column order and kinds match it exactly
         out = stream
-        empty = torch.zeros(0, dtype=torch.int64, device=stream.device)
+        empty = _empty_sel(stream)
         for dev_index, _cols in specs:
             cols = {**dev_index.table.columns, **out.columns}
             out = DeviceTable({n: c.gather(empty) for n, c in cols.items()}, 0, stream.device)
@@ -828,31 +1162,31 @@ def multiway_join(
 
     # every build side's keys validate and probe over the ORIGINAL rows;
     # the fusion license makes that exactly the cascade's per-level checks
+    part_info: dict = {}  # one partitioned-tier state for every dimension
     answers = [
-        dev_index.probe(_checked_probe_cols(stream, cols), stream.nrows)
+        dev_index.probe(_checked_probe_cols(stream, cols), stream.nrows, part_info)
         for dev_index, cols in specs
     ]
     with telemetry.stage("join:expand", stream.nrows) as _exp:
         _exp["dims"] = len(specs)
         probe_ids, build_ids, total, inter = _multiway_ids(
             [lo for lo, _ in answers], [ct for _, ct in answers], stream.nrows,
-            "multiway", _exp,
+            "multiway", _exp, stream.device,
         )
         # every build side's answers live at once here (the cascade holds
         # one side's at a time): free them before the gathers
         del answers
-        telemetry.barrier((probe_ids,) + build_ids)
+        telemetry.barrier(_flat((probe_ids,) + build_ids))
     with telemetry.stage("join:merge", stream.nrows) as _mrg:
         if probe_ids is None:
             cur = dict(stream.columns)
             n_out = stream.nrows
         else:
-            cur = {n: c.with_storage(torch.index_select(c.storage, 0, probe_ids))
-                   for n, c in stream.columns.items()}
+            cur = {n: c.gather(probe_ids) for n, c in stream.columns.items()}
             n_out = total
         cur = _merge_fold(cur, _gather_builds(specs, build_ids))
         _mrg["rows_out"] = n_out
-        telemetry.barrier(tuple(c.storage for c in cur.values()))
+        telemetry.barrier(_flat([c.storage for c in cur.values()]))
     joinskew.on_multiway(
         "+".join(",".join(di.key_columns) for di, _ in specs),
         len(specs), stream.nrows, n_out, inter,
@@ -880,9 +1214,9 @@ def multiway_join_selected(
     storage by the composed ``sel[probe_ids]``, one gather where the
     staged chain gathers twice.  Typed value lanes and lane-dictionary
     columns go through ``with_storage`` and ``merge_with_fallback``
-    exactly as in ``join_tables``.  The reference re-places build codes
-    for a multi-device mesh here (``_aligned_codes``); on one card that
-    is the identity, so there is nothing to port.
+    exactly as in ``join_tables``.  A sharded *sel* (shard-local ids)
+    probes, expands and gathers per shard, the build columns copied once
+    per distinct device (the reference's ``_aligned_codes``).
 
     Caller contract: *sel* is nonempty, and every spec's key columns were
     validated over the selected rows (the executor raises the host-parity
@@ -891,34 +1225,55 @@ def multiway_join_selected(
     from ..utils.observe import telemetry
 
     n_sel = int(sel.shape[0])
+    part_info: dict = {}  # one partitioned-tier state for every dimension
+
+    def key_col(c):
+        if not identity:
+            return cols[c].gather(sel)
+        if isinstance(sel, ShardedRows):  # a padded table's leading rows
+            from ..columnar.table import host_or_storage
+
+            return cols[c].with_storage(host_or_storage(cols[c].storage, n_sel))
+        return cols[c]
+
     answers = [
-        dev_index.probe([cols[c] if identity else cols[c].gather(sel) for c in kcols], n_sel)
+        dev_index.probe([key_col(c) for c in kcols], n_sel, part_info)
         for dev_index, kcols in specs
     ]
     with telemetry.stage("join:expand", n_sel) as _exp:
         _exp["dims"] = len(specs)
         probe_ids, build_ids, total, inter = _multiway_ids(
-            [lo for lo, _ in answers], [ct for _, ct in answers], n_sel, "fused", _exp
+            [lo for lo, _ in answers], [ct for _, ct in answers], n_sel, "fused", _exp, device
         )
         del answers  # as in multiway_join: free the answers before the gathers
-        telemetry.barrier((probe_ids,) + build_ids)
+        telemetry.barrier(_flat((probe_ids,) + build_ids))
     with telemetry.stage("join:merge", n_sel) as _mrg:
+        sharded = isinstance(sel, ShardedRows)
         if probe_ids is None:
             # every selected row matched once per build side: the stream
             # side is the selection itself (identity: no gather at all)
             emit = None if identity else sel
             n_out = n_sel
         else:
-            emit = probe_ids if identity else torch.index_select(sel, 0, probe_ids)
+            if identity:
+                emit = probe_ids
+            elif sharded:
+                emit = smap(sel.mesh, lambda s, p: torch.index_select(s, 0, p), sel, probe_ids)
+            else:
+                emit = torch.index_select(sel, 0, probe_ids)
             n_out = total
         if emit is None:
             cur = dict(cols)
+            if sharded:  # a padded table's blocks lose their tail
+                from ..columnar.table import host_or_storage
+
+                cur = {n: c.with_storage(host_or_storage(c.storage, n_sel))
+                       for n, c in cur.items()}
         else:
-            cur = {n: c.with_storage(torch.index_select(c.storage, 0, emit))
-                   for n, c in cols.items()}
+            cur = {n: c.gather(emit) for n, c in cols.items()}
         cur = _merge_fold(cur, _gather_builds(specs, build_ids))
         _mrg["rows_out"] = n_out
-        telemetry.barrier(tuple(c.storage for c in cur.values()))
+        telemetry.barrier(_flat([c.storage for c in cur.values()]))
     if len(specs) >= 2:  # counter parity: the staged binary join never ticks
         joinskew.on_multiway(
             "+".join(",".join(di.key_columns) for di, _ in specs),
@@ -933,6 +1288,12 @@ def except_mask(
     """Boolean keep-mask of the anti-join (csvplus.go:585-608): True where
     the stream row's key has no match in the index."""
     if stream.nrows == 0:
+        mesh = stream.mesh
+        if mesh is not None:
+            return ShardedRows(mesh, [torch.zeros(0, dtype=torch.bool, device=d)
+                                      for d in mesh.devices])
         return torch.zeros(0, dtype=torch.bool, device=stream.device)
     _, counts = dev_index.probe(_checked_probe_cols(stream, columns), stream.nrows)
+    if isinstance(counts, ShardedRows):
+        return counts.map(lambda c: c == 0)
     return counts == 0

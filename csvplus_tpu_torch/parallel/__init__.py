@@ -6,7 +6,8 @@ the distributed sample sort (:mod:`.dsort`).
 One process drives every shard, as in the reference: a mesh is an
 ordered list of devices, and several shards may share one card
 (``make_mesh(8, devices=["cuda:0"] * 8)``).  Sharded tables behind the
-public API are not ported yet.
+public API (``on_device(shards=N)`` / ``mesh=``) hold
+:class:`~.mesh.ShardedRows` storage and run every stage per shard.
 """
 
 from .mesh import make_mesh, replicate, shard_rows

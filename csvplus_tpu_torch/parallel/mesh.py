@@ -28,14 +28,27 @@ then split over both axes, slice-major (the reference's ``row_spec``).
 from __future__ import annotations
 
 import contextlib
+from collections import Counter
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..columnar.table import resolve_device
-
 AXIS = "shards"
+
+#: Sharded arrays assembled onto one device in this process: ``count``
+#: assemblies and their ``bytes`` — added where :func:`assemble` copies,
+#: nowhere else.  The reference's own semantics put a whole array on one
+#: device at a few places (the replicated sort, the flagship's
+#: compaction, the rarer plan nodes); every other stage runs per shard.
+#: ``chip_smoke.py`` and the tests read it.
+assemblies: Counter = Counter()
+
+
+def _resolve_device(device):
+    from ..columnar.table import resolve_device as _resolve
+
+    return _resolve(device)
 SLICE_AXIS = "slice"
 
 
@@ -44,7 +57,7 @@ class Mesh:
     shape and its axis names."""
 
     def __init__(self, devices: Sequence, shape: Tuple[int, ...], axis_names: Tuple[str, ...]):
-        self.devices: Tuple[torch.device, ...] = tuple(resolve_device(d) for d in devices)
+        self.devices: Tuple[torch.device, ...] = tuple(_resolve_device(d) for d in devices)
         self.shape = tuple(int(s) for s in shape)
         self.axis_names = tuple(axis_names)
         if int(np.prod(self.shape)) != len(self.devices) or not self.devices:
@@ -142,13 +155,26 @@ class ShardedRows:
     def gather(self, device=None) -> torch.Tensor:
         """The logical array as one tensor on *device* (default: the
         first shard's)."""
-        dev = self.mesh.devices[0] if device is None else resolve_device(device)
+        dev = self.mesh.devices[0] if device is None else _resolve_device(device)
         return torch.cat([s.to(dev) for s in self.shards])
 
-    def is_even(self) -> bool:
-        """Every shard holds the same number of rows (a ``shard_rows``
-        layout)."""
-        return len({int(s.shape[0]) for s in self.shards}) == 1
+    @property
+    def lens(self) -> List[int]:
+        """Rows per shard."""
+        return [int(s.shape[0]) for s in self.shards]
+
+    def offsets(self) -> List[int]:
+        """Logical position of each shard's first row."""
+        out, acc = [], 0
+        for n in self.lens:
+            out.append(acc)
+            acc += n
+        return out
+
+    def map(self, fn, *args) -> "ShardedRows":
+        """``fn(shard, *args_i)`` per shard, under that shard's device:
+        see :func:`smap`."""
+        return smap(self.mesh, fn, self, *args)
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -176,15 +202,57 @@ def shard_rows(mesh: Mesh, x) -> ShardedRows:
     return ShardedRows(mesh, split_even(mesh, t))
 
 
+def relayout(mesh: Mesh, x, lens: Sequence[int], fill: int = 0) -> List[torch.Tensor]:
+    """The logical array *x* (a tensor, a :class:`ShardedRows`, or a list
+    of tensors in row order, each on any device) cut into blocks of
+    *lens* rows, block i on shard i's device; past the end of
+    *x* the blocks fill with *fill*.  Each block is stitched from the
+    pieces of *x* that overlap its range, so no full copy of *x* lands on
+    one device, and a block that is already one piece on its device is
+    that piece (a view, no copy)."""
+    if isinstance(x, ShardedRows):
+        pieces = list(zip(x.offsets(), x.shards))
+    elif isinstance(x, (list, tuple)):  # arrays in row order, anywhere
+        offs = np.cumsum([0] + [int(a.shape[0]) for a in x])
+        pieces = list(zip(offs.tolist(), x))
+    else:
+        pieces = [(0, x)]
+    dtype = pieces[0][1].dtype
+    out = []
+    t0 = 0
+    for dev, n in zip(mesh.devices, lens):
+        t1 = t0 + int(n)
+        parts = []
+        for gs, arr in pieces:
+            ge = gs + int(arr.shape[0])
+            lo, hi = max(gs, t0), min(ge, t1)
+            if lo < hi:
+                parts.append(arr[lo - gs:hi - gs].to(dev))
+        got = sum(int(p.shape[0]) for p in parts)
+        if got < n:
+            parts.append(torch.full((int(n) - got,), fill, dtype=dtype, device=dev))
+        if not parts:
+            parts.append(torch.empty(0, dtype=dtype, device=dev))
+        out.append(parts[0] if len(parts) == 1 else torch.cat(parts))
+        t0 = t1
+    return out
+
+
+def block_lens(mesh: Mesh, n: int) -> List[int]:
+    """The reference's row-sharded block layout of *n* rows: ``ceil(n /
+    k)`` rows on every shard, the tail padded."""
+    b = -(-int(n) // mesh.size)
+    return [b] * mesh.size
+
+
 def even_blocks(mesh: Mesh, x, fill: int) -> Tuple[List[torch.Tensor], int]:
     """Per-shard blocks of the logical array *x* (a tensor or
     :class:`ShardedRows`), padded at the end with *fill* to a mesh
-    multiple, and its length.  An evenly sharded array already on the
-    mesh is used as it is."""
+    multiple, and its length.  A sharded array is re-cut shard to shard
+    (:func:`relayout`): shards already in place are used as they are."""
     if isinstance(x, ShardedRows):
-        if x.is_even() and all(s.device == d for s, d in zip(x.shards, mesh.devices)):
-            return list(x.shards), x.nrows
-        x = x.gather()
+        m = x.nrows
+        return relayout(mesh, x, block_lens(mesh, m), fill), m
     m = int(x.shape[0])
     pad = (-m) % mesh.size
     if pad:
@@ -199,15 +267,56 @@ def unpad(shards: Sequence[torch.Tensor], m: int) -> List[torch.Tensor]:
     return [s[: max(0, min(q, m - i * q))] for i, s in enumerate(shards)]
 
 
+def smap(mesh: Mesh, fn, *args) -> ShardedRows:
+    """``fn(*args_i)`` for every shard i, under shard i's device, as a
+    :class:`ShardedRows`: a :class:`ShardedRows` argument gives its shard
+    i, a tuple from :func:`replicate` its element i, any other argument
+    passes as it is.  A tuple result gives a tuple of ShardedRows."""
+    outs = []
+    for i in range(mesh.size):
+        sub = [a.shards[i] if isinstance(a, ShardedRows)
+               else a[i] if isinstance(a, Replicated) else a for a in args]
+        with mesh.on(i):
+            outs.append(fn(*sub))
+    if isinstance(outs[0], tuple):
+        return tuple(ShardedRows(mesh, list(col)) for col in zip(*outs))
+    return ShardedRows(mesh, outs)
+
+
+class Replicated(tuple):
+    """One tensor per shard of a mesh, the same values on every shard: one
+    copy per distinct device (:func:`replicate`)."""
+
+
+def assemble(x, device=None) -> torch.Tensor:
+    """The logical array of *x* as one tensor on *device* (default: the
+    first shard's), counted in :data:`assemblies` and, while telemetry
+    collects, as the ``shard.assemble`` / ``shard.assemble_bytes``
+    counters.  A plain tensor passes through."""
+    if not isinstance(x, ShardedRows):
+        return x if device is None else x.to(_resolve_device(device))
+    from ..utils.observe import telemetry
+
+    out = x.gather(device)
+    nbytes = int(out.numel()) * out.element_size()
+    assemblies["count"] += 1
+    assemblies["bytes"] += nbytes
+    telemetry.count("shard.assemble", 1)
+    telemetry.count("shard.assemble_bytes", nbytes)
+    return out
+
+
 def replicate(mesh: Mesh, x) -> Tuple[torch.Tensor, ...]:
     """*x* on every shard's device: one copy per DISTINCT device (shards
-    that share a card share one tensor), and none where *x* already lies."""
-    t = _as_tensor(x)
-    per_device: Dict[torch.device, torch.Tensor] = {}
-    for dev in mesh.devices:
-        if dev not in per_device:
-            per_device[dev] = t.to(dev)
-    return tuple(per_device[dev] for dev in mesh.devices)
+    that share a card share one tensor), and none where *x* already lies.
+    A :class:`ShardedRows` *x* is assembled once on each distinct device,
+    and each of those copies counts as an :func:`assemble`."""
+    if isinstance(x, ShardedRows):
+        per_device = {dev: assemble(x, dev) for dev in mesh.distinct_devices}
+    else:
+        t = _as_tensor(x)
+        per_device = {dev: t.to(dev) for dev in mesh.distinct_devices}
+    return Replicated(per_device[dev] for dev in mesh.devices)
 
 
 def all_to_all(mesh: Mesh, blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:

@@ -293,10 +293,16 @@ class Reader:
 
     # -- device ingestion hook ---------------------------------------------
 
-    def on_device(self, device: str = "cuda"):
+    def on_device(self, device: str = "cuda", shards: "int | None" = None, mesh=None):
         """Parse this CSV into a device-resident columnar table on *device*
         (``"cuda"`` unless the caller asks for ``"cpu"``) and return a
         plan-capable DataSource over it.
+
+        ``shards=N`` row-shards the table: N shards on the one device
+        *device* names (``"cpu"``, ``"cuda:0"``), or over ``cuda:0`` ..
+        ``cuda:N-1`` for a bare ``"cuda"`` (raises when fewer cards are
+        visible); *mesh* (``parallel.make_mesh``) places the shards
+        itself and overrides both.
 
         The file is ingested as a snapshot at call time; the host path
         re-opens the file on every iteration (csvplus.go:950-959).
@@ -308,7 +314,7 @@ class Reader:
         if getattr(self, "_path", None) is not None:
             _stream, closer = self._open(line_no=1)
             closer()
-        return reader_to_device(self, device=device)
+        return reader_to_device(self, device=device, shards=shards, mesh=mesh)
 
     # Go-style aliases
     Delimiter = delimiter

@@ -349,15 +349,19 @@ class DataSource:
 
     # -- device migration --------------------------------------------------
 
-    def on_device(self, device: str = "cuda") -> "DataSource":
+    def on_device(self, device: str = "cuda", shards: "int | None" = None,
+                  mesh=None) -> "DataSource":
         """Columnarize this source onto *device* (``"cuda"`` unless the
         caller asks for ``"cpu"``) and return a plan-capable source over
-        it.  Error row numbers downstream count streamed rows from 0;
+        it; ``shards=`` / *mesh* row-shard it as ``Reader.on_device``
+        does.  Error row numbers downstream count streamed rows from 0;
         ``from_file(...).on_device()`` keeps the reader's numbering."""
-        from .columnar.ingest import source_from_table
+        from .columnar.ingest import _maybe_shard, resolve_mesh, source_from_table
         from .columnar.table import DeviceTable
 
-        return source_from_table(DeviceTable.from_rows(self.to_rows(), device))
+        mesh = resolve_mesh(device, shards, mesh)
+        table = DeviceTable.from_rows(self.to_rows(), mesh.devices[0] if mesh else device)
+        return source_from_table(_maybe_shard(table, mesh))
 
     OnDevice = on_device
 

@@ -95,9 +95,8 @@ Tier-swap listeners
 :meth:`MutableIndex.subscribe` registers a callback that fires on
 every append (``("rows", seq, index)``) and delete
 (``("tombs", seq, keys)``) tier swap — the live materialized views'
-delta feed (the reference's ``views`` package; the port's waits for its
-slice).  Callbacks run UNDER the writer
-lock immediately after the swap, so delivery order is exactly tier
+delta feed (:mod:`csvplus_tpu_torch.views`).  Callbacks run UNDER the
+writer lock immediately after the swap, so delivery order is exactly tier
 order with no gaps relative to the TierSet returned at subscription;
 the contract is that a listener is O(1) enqueue-only, never raises,
 and never calls back into the index.  Compactions fire no events:
@@ -952,7 +951,7 @@ class MutableIndex:
         self._push_delta(idx, None)
         return table.nrows
 
-    def append_csv(self, path: str, *, device: Optional[str] = None) -> int:
+    def append_csv(self, path: str, *, device: Optional[str] = None, shards=None) -> int:
         """Append a CSV file through the ingest tiers
         (``columnar/ingest.py``, K workers via ``CSVPLUS_INGEST_WORKERS``
         on the streamed tier) — bitwise-identical deltas regardless of
@@ -960,12 +959,13 @@ class MutableIndex:
         *device*, else to the index's own device (:attr:`device`: its
         base's, else the ``ingest_device`` given), else ``"cuda"``, as
         :meth:`append_rows` places its batches; the reference defaults to
-        ``"cpu"`` here.  The reference's ``shards=`` (a row-sharded mesh)
-        waits for the port's multi-GPU slice."""
+        ``"cpu"`` here.  ``shards=N`` ingests it row-sharded, N shards on
+        that device (``on_device(device, shards=N)``); the delta index
+        built from it lives on the device, like any index."""
         from ..reader import from_file
 
         src = from_file(path).on_device(
-            device if device is not None else (self._device or "cuda"))
+            device if device is not None else (self._device or "cuda"), shards=shards)
         with self._scope():
             idx = create_index(src, self._columns)
         n = len(idx._impl)

@@ -23,6 +23,8 @@ dictionary on the device from the packed lanes
 
 from __future__ import annotations
 
+import contextlib
+
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -162,37 +164,69 @@ def checksum_device_table(
     limit: Optional[int] = None,
     positional: bool = False,
 ) -> Dict[str, int]:
-    """Per-column row-hash sums (mod 2^32) of a DeviceTable, computed on
-    its device over the first *limit* rows (all by default)."""
+    """Per-column row-hash sums (mod 2^32) of a DeviceTable over its first
+    *limit* rows (all by default), computed where the rows lie: a
+    row-sharded table hashes each shard's rows below its padding (and
+    below *limit* in global order) on that shard's device, positional
+    weights offset to the rows' global numbers, and the per-shard sums
+    add on the first device.  The whole table comes back in one
+    transfer."""
     names = list(columns) if columns is not None else list(table.columns)
     n = table.nrows if limit is None else min(limit, table.nrows)
     if not names:
         return {}
-    device = table.device
-    weights = None
-    if positional:
-        weights = 2 * torch.arange(n, dtype=torch.int64, device=device) + 1
+    mesh = table.mesh
+    devices = [table.device] if mesh is None else list(mesh.devices)
+    # logical rows per block, cut at n
+    lens, left = [], n
+    for m in ([n] if mesh is None else table.shard_lens()):
+        lens.append(max(0, min(m, left)))
+        left -= lens[-1]
+    offs = np.concatenate(([0], np.cumsum(lens)[:-1])).tolist()
+    dev0 = devices[0]
     sums = []
     for c in names:
         col = table.columns[c]
-        if col.kind == "int":
-            # typed value lanes hash per row (no dictionary, no demotion);
-            # every cell is present by the typed invariant
-            h = fnv1a_affix_int_device(col.prefix, col.values[:n])
-        else:
-            if col.dev_dictionary is not None and col._dictionary is None:
-                # read before the codes: it remaps them if a sibling copy
-                # sorted the shared lane state meanwhile
-                htab = fnv1a_lanes_device(col.dev_dictionary)
-            else:
-                htab = torch.from_numpy(fnv1a_values(col.dictionary).astype(np.int64)).to(device)
-            codes = col.codes[:n]
-            if htab.numel():
-                g = torch.index_select(htab, 0, codes.clamp(min=0))
-                h = torch.where(codes >= 0, g, 0)
-            else:
-                h = torch.zeros(n, dtype=torch.int64, device=device)
-        if weights is not None:
-            h = _mul32(h, weights & _M32)
-        sums.append(h.sum() & _M32)
+        htab = _hash_table(col)  # before the codes: see _hash_table
+        st = col.storage
+        blocks = (st,) if mesh is None else st.shards
+        htabs: dict = {}  # one copy of the hash table a distinct device
+        total = torch.zeros((), dtype=torch.int64, device=dev0)
+        for i, (dev, blk, m, off) in enumerate(zip(devices, blocks, lens, offs)):
+            if not m:
+                continue
+            with (mesh.on(i) if mesh is not None else contextlib.nullcontext()):
+                if htab is not None and dev not in htabs:
+                    htabs[dev] = htab.to(dev)
+                h = _row_hashes(col, blk[:m], htabs.get(dev), dev)
+                if positional:
+                    w = 2 * (torch.arange(m, dtype=torch.int64, device=dev) + off) + 1
+                    h = _mul32(h, w & _M32)
+                total = total + (h.sum() & _M32).to(dev0)
+        sums.append(total & _M32)
     return {c: int(v) for c, v in zip(names, torch.stack(sums).tolist())}
+
+
+def _hash_table(col) -> "torch.Tensor | None":
+    """A dictionary column's per-entry hashes (None for a typed column,
+    whose rows hash from their values).  A lane dictionary hashes on its
+    device; read it before the codes, since reading it remaps them if a
+    sibling copy sorted the shared lane state meanwhile."""
+    if col.kind == "int":
+        return None
+    if col.dev_dictionary is not None and col._dictionary is None:
+        return fnv1a_lanes_device(col.dev_dictionary)
+    return torch.from_numpy(fnv1a_values(col.dictionary).astype(np.int64))
+
+
+def _row_hashes(col, codes_or_values, htab, device):
+    """Per-row hashes of one block of a column (int64 values < 2^32).
+    Typed value lanes hash per row (no dictionary, no demotion); every
+    typed cell is present by the typed invariant."""
+    if col.kind == "int":
+        return fnv1a_affix_int_device(col.prefix, codes_or_values)
+    codes = codes_or_values
+    if htab.numel():
+        g = torch.index_select(htab, 0, codes.clamp(min=0))
+        return torch.where(codes >= 0, g, 0)
+    return torch.zeros(codes.shape[0], dtype=torch.int64, device=device)

@@ -54,6 +54,10 @@ _env("CSVPLUS_POINT_MIRROR_MAX_KEYS", "int", "16000000",
      "Max sorted-key count mirrored to host for point lookups.")
 _env("CSVPLUS_MIRROR_LRU_ROWS", "int", "65536",
      "Row budget for the host mirror LRU backing point reads.")
+_env("CSVPLUS_DSORT_MIN_ROWS", "int", "1000000",
+     "Sharded tables at/above this row count use distributed sample-sort.")
+_env("CSVPLUS_PARTITION_MIN_KEYS", "int", "4000000",
+     "Build sides at/above this key count use the partitioned join.")
 _env("CSVPLUS_JOIN_SKEW", "flag", "1",
      "0 disables skew detection/broadcast tier (bitwise-parity hatch).")
 _env("CSVPLUS_JOIN_SKEW_THRESHOLD", "float", "1/(2*shards)",

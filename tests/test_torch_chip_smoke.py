@@ -1,4 +1,4 @@
-"""``chip_smoke.py``'s phases 4-14 and its stage tables rehearsed on the
+"""``chip_smoke.py``'s phases 4-15 and its stage tables rehearsed on the
 CPU at a small size.
 
 Each phase drives the port's public API on ``device="cpu"`` and holds it
@@ -24,7 +24,9 @@ batches of 1,000 and two through the server, and ``certify(n=3)``; phase
 14 (the flagship on phase 4's legs, then the partitioned probe, its skew
 and wide tiers, the sample sort and the graft entry) an 8-shard CPU mesh
 (eight shards, so the 90 %-one-value sort must retry as on the card) with
-tens of thousands of probes.  The
+tens of thousands of probes; phase 15 (config 5 through the public API on
+sharded tables) a 4-shard mesh over 20,003 streamed orders and 8,005 Zipf
+orders, and (c) phase 4's legs on 7 shards.  The
 stage tables printed by phases 4, 5, 9 and 10 must hold the stages of
 what they time (phase 4's two feed the stage diff), and warm (a) must
 synchronize nowhere with telemetry off; the ``kernels`` line names every
@@ -59,6 +61,7 @@ PHASES = {
     "13-views": (False, lambda C, d: _views(C, d)),
     "13-plancert": (False, lambda C, d: _plancert(C)),
     "14-multidevice": (False, lambda C, d: _multidevice(C)),
+    "15-config5": (True, lambda C, d: _config5(C, d)),
 }
 
 NO_FILTER = {"10-dedup", "12-storage", "14-multidevice"}  # no filter: checked in their helper
@@ -120,6 +123,23 @@ def _views(C, workdir):
     return out
 
 
+def _config5(C, workdir):
+    """Phase 15 (a), (b) and (e) on a 4-shard CPU mesh: 20,003 streamed
+    orders (padded), then 8,005 Zipf orders over 3,000 customers with the
+    partition threshold at 2,000 (the 1,000 products stay under it)."""
+    out = C.run_config5_path(1, "cpu", workdir, "cpu", n_orders=20_003, shards=4,
+                             n_skew=8_005, n_skew_cust=3_000, partition_min_keys=2_000, reps=1)
+    assert out["ingest"]["shard_rows"] == {i: 5_001 for i in range(4)}
+    assert out["join"]["rows"] == 20_003 and out["join"]["assemblies"] == 0
+    assert out["e"] is None and out["launches"] == 0  # the plain version counts no launch
+    runs = out["b"]["runs"]
+    assert set(runs) == {"skew on", "skew off", "plan cache fused"}
+    assert runs["skew on"]["hot_keys"] and not runs["skew off"]["hot_keys"]
+    assert runs["plan cache fused"]["expand_path"] == ["multiway-unique-identity"]
+    assert out["b"]["stored_rows"] == 8_008
+    return out
+
+
 def _multidevice(C):
     """Phase 14 (b)-(e) on an 8-shard CPU mesh, thousands of probes: every
     leg against its numpy oracle inside the script; here its evidence."""
@@ -134,7 +154,7 @@ def _multidevice(C):
     assert out["b2_naive"]["hot_keys"] == 0 and out["b2_naive"]["syncs"] == 1
     assert out["b3_zipf"]["hot_keys"] > 0
     assert out["c3"]["retries"] >= 1 and out["c1"]["retries"] == 0
-    assert len(out["d_dryrun"]["paths"]) == 6 and out["e"] is None
+    assert len(out["d_dryrun"]["paths"]) == 7 and out["e"] is None
     assert out["launches"] == {"mask": 0, "pack": 0}
     rows = {r["name"]: r for r in C.xla_rows(stats)}
     for name in ("threeway_step", "_probe_spmd", "_probe_spmd2", "_probe_spmd_dev",
@@ -211,6 +231,10 @@ def test_chip_smoke_phase_rehearses_on_the_cpu(phase, tmp_path, monkeypatch):
         monkeypatch.setenv("CSVPLUS_STREAM_CHUNK_BYTES", str(64 << 10))
     else:
         monkeypatch.delenv("CSVPLUS_STREAM_MIN_BYTES", raising=False)
+    if phase == "4-main":  # phase 15 (c)'s index build takes the sample sort at any size
+        from csvplus_tpu_torch.ops import sort as TS
+
+        monkeypatch.setattr(TS, "DSORT_MIN_ROWS", 1)
     out = run(_chip_smoke(), tmp_path)
     if phase in DEVICE_PARSED:
         assert encodes, "the phase never reached the device encode"
@@ -245,6 +269,11 @@ def test_chip_smoke_phase_rehearses_on_the_cpu(phase, tmp_path, monkeypatch):
         assert "join:pack" in _stages(warm)
         assert warm["counters"]["verify.plans"] >= 1
         assert legs["native-encoded"]["telemetry_cost"]["synchronizes"]["off"] == 0
+        for name, leg in legs.items():  # phase 15 (c): the leg's file on 7 shards
+            sh = leg["sharded"]
+            assert sh["shard_rows"] == {i: 2_858 for i in range(7)}
+            assert sh["flagship_paths"]["padded"] >= 1 and sh["mask_check"]["cases"] >= 7
+            assert (sh["pack_check"]["cases"] > 0) == (name == "device-parsed")
         for leg in legs.values():  # phase 14 (a): the flagship on each leg's tables
             flag = leg["flagship"]
             assert 0 < flag["partial_rows"] < 20_000
@@ -260,7 +289,8 @@ def test_kernels_line_lists_every_path():
     pack = {"max_abs_err": 0, "timing": dict(timing, m=10, lanes=2)}
     names = ["10M device-parsed", "10M native-encoded", "50M streamed", "50M plan cache",
              "serving", "14M lane dictionary", "13M host dictionary", "50M config 4 dedup",
-             "10M config 1", "1M views", "plancert"]
+             "10M config 1", "1M views", "plancert", C.C5_MAIN_PATH, C.C5_PACK_PATH,
+             "phase 15 (c) 10M native-encoded, 7 shards"]
     paths = {n: {"launches": i, "pack_launches": 0, "mask_check": {"max_abs_err": 0}}
              for i, n in enumerate(names)}
     streamed = {"ingest": {"default": {"pack_launches": 0}, "auto": {"pack_launches": 0}}}
@@ -273,7 +303,8 @@ def test_kernels_line_lists_every_path():
     for k in kernels:
         assert keys <= set(k) and k["route"] == "cuda" and (ROOT / k["source"]).exists()
     by_path = kernels[0]["launches_by_path"]
-    assert by_path["1M views"] == kernels[0]["launches"] == names.index("1M views")
+    assert by_path[C.C5_MAIN_PATH] == kernels[0]["launches"] == names.index(C.C5_MAIN_PATH)
+    assert by_path["1M views"] == names.index("1M views")
     assert by_path["plancert"] == names.index("plancert")
     assert set(names) <= set(by_path)
     assert by_path["phase 14 multi-device"] == 0

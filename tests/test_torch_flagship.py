@@ -227,7 +227,7 @@ def test_workload_configs_1_to_4_equal_reference(corpus, tmp_path):
 
 def test_dryrun_multichip_on_a_cpu_mesh_equals_reference_syncs():
     res = graft.dryrun_multichip(8, devices=["cpu"] * 8)
-    assert [p.split()[0] for p in res["paths"]] == ["1", "2", "3", "3b", "3c", "5"]
+    assert [p.split()[0] for p in res["paths"]] == ["1", "2", "3", "3b", "3c", "4", "5"]
     # the reference's path 3c inputs through its own probe
     jm = j_make_mesh(8)
     rng = np.random.default_rng(7)

@@ -324,7 +324,45 @@ def test_multidevice_flagship_and_graft_load_no_jax_and_no_reference_module(tmp_
     )
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
-    assert out == {"hits": 333, "sorted": True, "rows": 50, "paths": 6, "foreign": []}
+    assert out == {"hits": 333, "sorted": True, "rows": 50, "paths": 7, "foreign": []}
+
+
+SHARDED_PATH = r"""
+import json, os, sys
+import csvplus_tpu_torch as T
+import csvplus_tpu_torch.ops.sort as S
+
+with open("o.csv", "w") as f:
+    f.write("order_id,cust_id,qty\n" + "".join(f"o{i},c{i % 11},{i % 5}\n" for i in range(203)))
+with open("c.csv", "w") as f:
+    f.write("cust_id,name\n" + "".join(f"c{i},n{i}\n" for i in range(11)))
+cust = T.from_file("c.csv").on_device("cpu").unique_index_on("cust_id")
+src = T.from_file("o.csv").on_device("cpu", shards=8)
+rows = src.filter(T.Not(T.Like({"qty": "0"}))).join(cust, "cust_id").to_rows()
+S.DSORT_MIN_ROWS = 1
+idx = src.unique_index_on("order_id")
+os.environ.update(CSVPLUS_STREAM_MIN_BYTES="1", CSVPLUS_STREAM_CHUNK_BYTES="512")
+streamed = T.from_file("o.csv").on_device("cpu", shards=3)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+             or m == "csvplus_tpu" or m.startswith("csvplus_tpu."))
+print(json.dumps({"rows": len(rows), "index": len(idx),
+                  "found": len(idx.find("o7").to_rows()),
+                  "streamed": streamed.plan.table.ingest_tier, "foreign": bad}))
+"""
+
+
+def test_sharded_tables_load_no_jax_and_no_reference_module(tmp_path):
+    """Sharded tables: ``on_device("cpu", shards=8)``, a filter and a join,
+    an index build through the sample sort and a sharded streamed ingest,
+    with neither ``jax`` nor ``csvplus_tpu`` loaded."""
+    res = subprocess.run(
+        [sys.executable, "-c", SHARDED_PATH], cwd=tmp_path, env=_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out == {"rows": 162, "index": 203, "found": 1, "streamed": "streamed", "foreign": []}
 
 
 def test_pack_kernel_wrapper_never_falls_back_off_the_cpu():
