@@ -236,7 +236,24 @@ Phases; any failure raises, exits non-zero and prints no result line:
    times, capacities, retries, hot keys, rows broadcast, host-sync
    elements, assemblies and peak device memory per leg, each beside the
    card and its power limit.
-16. A ``{"kernels": [...]}`` line, then the last line
+16. The analysis suite (``csvplus_tpu_torch.analysis``) on the card.
+   (a) After resetting the process-wide build-side sketches,
+   ``report.json_payload(device="cuda")``: its ``plans`` and
+   ``plan_cert`` halves must equal ``tests/data/analyze_snapshot_torch.json``
+   (made on the CPU; no placement names a device) and its lint must be
+   empty; then each example plan, run on the card and on the CPU, with
+   equal rows and positional checksums (their filters launch the mask
+   kernel; every launch is replayed bitwise).  (b) ``plan_analysis_json``
+   and ``explain_text`` at full size on plans that already ran: phase 4's
+   pipeline (a) over its 10M native-encoded leg and phase 15 (a)'s
+   three-way join over 100M orders on 8 shards: the verdict ``ok``, each
+   scan estimated at its table's row count, the rows on the ``device``
+   and ``sharded`` respectively; prints the explain text and the
+   analysis's milliseconds beside the plan's warm join.  (c) Three CLI
+   commands in subprocesses, started together: ``lint --json`` prints
+   ``[]`` and exits 0, ``env`` prints ``docs/ENV_TORCH.md`` exactly,
+   ``plan-cert --device cuda --json`` exits 0.
+17. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phases 6, 7, 10 and 11 run under the default too (the device-parse tier
@@ -244,7 +261,7 @@ and the streamed tier's device chunk encoder); their pack kernel
 launches are counted (set to 0 before each path, read after) and listed
 per path.
 
-Phases 4-9, 11 and 13 also hold the mask kernel's wrapper against its plain
+Phases 4-9, 11, 13 and 16 also hold the mask kernel's wrapper against its plain
 version, bitwise, on the inputs of every call their filters made
 (recorded during the path's run and replayed after its launch count was
 read).  Phases 4, 6, 7, 10 and 11 hold what the pack kernel returned in
@@ -262,12 +279,13 @@ the automatic K (phase 5), one served batch of 32 lookups (phase 9,
 
 Writes its CSVs under ``.chip_smoke_data/`` beside this file and removes
 them at the end.  Needs one card; imports nothing of JAX or csvplus_tpu.
-Phases 4-15 run on the CPU too, at a small size, as a rehearsal:
+Phases 4-16 run on the CPU too, at a small size, as a rehearsal:
 ``run_main_path`` (with phase 14 (a) in each leg), ``run_streamed_path``
 (with phases 8 and 9 at its end), ``run_lane_path``, ``run_host_dict_path``,
 ``run_plancache_path``, ``run_serving_path``, ``run_dedup_path``,
 ``run_config1_path``, ``run_storage_path``, ``run_views_path``,
-``run_plancert_path``, ``run_multidevice_path`` and ``run_config5_path`` with ``device="cpu"`` (set ``CSVPLUS_DEVICE_PARSE=1``
+``run_plancert_path``, ``run_multidevice_path``, ``run_config5_path`` and
+``run_analysis_path`` with ``device="cpu"`` (set ``CSVPLUS_DEVICE_PARSE=1``
 to take the tier the card takes by default).
 """
 
@@ -277,6 +295,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -350,10 +369,14 @@ def _timed(fn, reps: int = 20, batches: int = 5) -> float:
 
 def _bound_ms(n: int, targets) -> "tuple[float, str]":
     """Least time for the mask on this card: (4k + 1) n bytes over the
-    memory rate, or 2 n * sum|T_j| int32 operations (a compare and an OR
-    per target) over the int32 issue rate, whichever is larger."""
+    memory rate, or the int32 operations the function needs over the int32
+    issue rate, whichever is larger.  A row needs, per column j, a search
+    of its sorted IN-list (ceil(log2|T_j|) compares) and one equality
+    test, and k - 1 ANDs or ORs to combine the columns; a linear scan of
+    the targets is the kernel's choice, not the function's cost."""
     t_bytes = (4 * len(targets) + 1) * n / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * n * sum(len(t) for t in targets) / INT32_OPS_PER_S * 1e3
+    per_row = sum(math.ceil(math.log2(max(len(t), 1))) + 1 for t in targets) + len(targets) - 1
+    t_ops = n * per_row / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1088,7 +1111,13 @@ def _main_leg(data: dict, device: str, leg: str, profile: bool, stats: dict, car
 
     run = run_pipelines(orders, cust, prod, data, device, f"10M {leg}",
                         typed_lanes=leg == "native-encoded")
-    out = {"ingest_s": t_ingest, "index_s": t_index, "ingest_tiers": tiers,
+    analysis = None
+    if leg == "native-encoded":  # phase 16 (b) on the plan the leg just ran
+        analysis = analysis_check(run["srcs"]["a"], "device",
+                                  run["pipelines"]["a"]["join_warm_s"],
+                                  f"phase 16 (b) [{leg}] pipeline (a), {n_orders:,} orders",
+                                  card)
+    out = {"analysis": analysis, "ingest_s": t_ingest, "index_s": t_index, "ingest_tiers": tiers,
            "separator_scan_s": scan_s,
            "pipelines": run["pipelines"], "launches": run["launches"],
            "pack_launches": pack_launches, "pack_check": pack_check,
@@ -4016,6 +4045,9 @@ def run_config5_path(seed: int, device: str, workdir: Path, card: str,
     out["stage_table"] = stage_table(
         f"phase 15 (a) warm config 5 join, {n_orders:,} orders on {shards} shards",
         lambda: (src.to_device_table(), _sync(device)))[1]
+    out["analysis"] = analysis_check(  # phase 16 (b) on the plan that just ran
+        src, "sharded", out["join"]["warm_s"],
+        f"phase 16 (b) config 5 three-way join, {n_orders:,} orders on {shards} shards", card)
     del src
 
     # workloads.sharded_join == the same join's first hop
@@ -4183,6 +4215,153 @@ def _skew_leg(zdata: dict, device: str, mesh, card: str, reps: int) -> dict:
     return out
 
 
+# -- phase 16: the analysis suite on the card ---------------------------------
+
+ANALYSIS_SNAPSHOT = Path("tests") / "data" / "analyze_snapshot_torch.json"
+ENV_DOC = Path("docs") / "ENV_TORCH.md"
+
+
+def analysis_check(src, placement: str, warm_s: float, what: str, card: str,
+                   reps: int = 3) -> dict:
+    """Phase 16 (b): ``plan_analysis_json`` and ``explain_text`` of a plan
+    the path already ran, at its full size.  The verdict must be ``ok``,
+    each scan's estimated rows its table's row count, and the rows'
+    placement *placement*.  Prints the explain text and the analysis's
+    own milliseconds (median of *reps*) beside the plan's warm join."""
+    from csvplus_tpu_torch import plan as P
+    from csvplus_tpu_torch.analysis.report import explain_text, plan_analysis_json
+
+    root = src.plan
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        d = plan_analysis_json(root)
+        times.append(time.perf_counter() - t0)
+    ms = float(np.median(times)) * 1e3
+    t0 = time.perf_counter()
+    text = explain_text(what, root)
+    explain_ms = (time.perf_counter() - t0) * 1e3
+    cost = {row["stage"]: row for row in d["cost"]}
+    scans = [(P.stage_label(i, n), n.table.nrows) for i, n in enumerate(P.linearize(root))
+             if isinstance(n, P.Scan)]
+    got_placement = d["row_placement"].split("(")[0]
+    if not d["ok"] or not scans or got_placement != placement or any(
+            cost[label]["rows"] != nrows for label, nrows in scans):
+        raise AssertionError(
+            f"{what}: verdict ok={d['ok']}, rows@{d['row_placement']} (want {placement}), "
+            f"scans {[(label, nrows, cost[label]['rows']) for label, nrows in scans]}\n{text}")
+    log(f"{what}: explain\n{text}")
+    log(f"{what}: verdict ok, rows@{d['row_placement']}, scans "
+        f"{[(label, nrows) for label, nrows in scans]} estimated at their row counts; "
+        f"plan_analysis_json {ms:.2f} ms (median of {reps}), explain_text {explain_ms:.2f} ms, "
+        f"beside the plan's warm join {warm_s * 1e3:.2f} ms | {card}")
+    return {"ok": d["ok"], "row_placement": d["row_placement"], "scans": scans,
+            "analysis_ms": ms, "explain_ms": explain_ms, "join_warm_ms": warm_s * 1e3,
+            "rewrite": d["rewrite"].get("applied")}
+
+
+def run_analysis_path(device: str, root: Path, card: str) -> dict:
+    """Phase 16 (a) and (c): the analysis payload made on *device* against
+    the committed snapshot (made on the CPU); then each example plan the
+    payload analyzed, run on *device* and on the CPU with equal positional
+    checksums (its filters launch the mask kernel; the payload executes
+    only ``plan_cert``'s rewritten plans, none of which filters at n = 2),
+    every mask launch replayed bitwise; then three CLI commands, started
+    together in subprocesses."""
+    from csvplus_tpu_torch.analysis.report import example_plans, json_payload
+    from csvplus_tpu_torch.columnar.exec import execute_plan_view
+    from csvplus_tpu_torch.obs.joinskew import joinskew
+    from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.utils.checksum import checksum_device_table
+
+    def run_plans(dev: str) -> dict:
+        out = {}
+        for name, plan in sorted(example_plans(dev).items()):
+            table = execute_plan_view(plan).materialize()
+            out[name] = (table.nrows, checksum_device_table(table, positional=True))
+        return out
+
+    t_phase = time.perf_counter()
+    want = json.loads((root / ANALYSIS_SNAPSHOT).read_text(encoding="utf-8"))
+    # the earlier phases' joins filled the process-wide build-side sketches,
+    # which certify reads (as the reference's does): reset them first
+    joinskew.reset()
+    with recorded_mask_calls() as calls:
+        M.launches = 0  # the path's run starts here
+        t0 = time.perf_counter()
+        got = json_payload(device=device)
+        secs = time.perf_counter() - t0
+        payload_launches = M.launches
+        t0 = time.perf_counter()
+        ran = run_plans(device)
+        run_s = time.perf_counter() - t0
+        launches = M.launches  # ... and ends here
+    want_ran = run_plans("cpu")
+    if ran != want_ran:
+        raise AssertionError(f"phase 16 (a): the example plans on {device} {ran} != on the "
+                             f"CPU {want_ran}")
+    for half in ("plans", "plan_cert"):
+        if got[half] != want[half]:
+            raise AssertionError(f"phase 16 (a): the payload's {half!r} on {device} differs "
+                                 f"from {ANALYSIS_SNAPSHOT}")
+    if got["lint"]:
+        raise AssertionError(f"phase 16 (a): lint findings {got['lint']}")
+    if device == "cuda" and launches <= 0:
+        raise AssertionError("phase 16 (a): the example plans never launched the mask kernel")
+    log(f"phase 16 (a): json_payload(device={device!r}) in {secs:.2f}s: plans "
+        f"{sorted(got['plans'])} and plan_cert {json.dumps(got['plan_cert'])} == "
+        f"{ANALYSIS_SNAPSHOT} (made on the CPU); lint []; the example plans run on {device} "
+        f"in {run_s:.2f}s == on the CPU (rows, positional checksums): "
+        f"{ {k: v[0] for k, v in ran.items()} }; mask kernel launches {payload_launches} in "
+        f"the payload, {launches} in all | {card}")
+    out = {"payload_s": secs, "plans_run_s": run_s, "payload_launches": payload_launches,
+           "launches": launches,
+           "mask_check": check_path_masks(calls, "phase 16 (a) analysis payload")}
+
+    # (c) the CLI, three commands at once
+    env = dict(os.environ, PYTHONPATH=str(root))
+    cmds = {
+        "lint": ["lint", "--json"],
+        "env": ["env"],
+        "plan-cert": ["plan-cert", "--device", device, "--json"],
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", "csvplus_tpu_torch.analysis", *args], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in cmds.items()}
+    res = {}
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            res[name] = (proc.returncode, stdout, stderr)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cli_s = time.perf_counter() - t0
+    rc, stdout, stderr = res["lint"]
+    if rc != 0 or json.loads(stdout) != []:
+        raise AssertionError(f"phase 16 (c): lint --json exited {rc}: {stdout}{stderr}")
+    rc, stdout, stderr = res["env"]
+    if rc != 0 or stdout != (root / ENV_DOC).read_text(encoding="utf-8"):
+        raise AssertionError(f"phase 16 (c): env exited {rc} or differs from {ENV_DOC}: "
+                             f"{stderr}")
+    rc, stdout, stderr = res["plan-cert"]
+    if rc != 0 or not json.loads(stdout)["ok"]:
+        raise AssertionError(f"phase 16 (c): plan-cert --device {device} exited {rc}: "
+                             f"{stdout}{stderr}")
+    out["plan_cert_cli"] = json.loads(stdout)
+    out["cli_s"] = cli_s
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16 (c): `lint --json` printed [] and exited 0; `env` printed {ENV_DOC} "
+        f"exactly; `plan-cert --device {device} --json` exited 0 "
+        f"({out['plan_cert_cli']['plans_total']} plans); the three together "
+        f"{cli_s:.1f}s; phase 16 (a) + (c) {out['seconds']:.1f}s | {card}")
+    return out
+
+
 def kernels_line(mask: dict, pack: dict, paths: dict, streamed: dict, plancache: dict,
                  multidevice: dict) -> list:
     """The ``{"kernels": [...]}`` entries: each kernel's launches on this
@@ -4311,6 +4490,7 @@ def main(argv=None) -> int:
         config5 = run_config5_path(args.seed, "cuda", workdir, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    analysis = run_analysis_path("cuda", here, smi)
     xla_table = xla_rows(xla)
     for row in xla_table:
         log(f"phase 14 torch port of {row['replaces']}: {row['name']} x{row['launches']}, "
@@ -4325,7 +4505,7 @@ def main(argv=None) -> int:
              "50M plan cache": plancache, "serving": serving,
              "14M lane dictionary": lane, "13M host dictionary": host_dict,
              "50M config 4 dedup": dedup, "10M config 1": config1, "1M views": views,
-             "plancert": plancert}
+             "plancert": plancert, "phase 16 analysis": analysis}
     path_cases = sum(p["mask_check"]["cases"] for p in paths.values())
     log(f"mask kernel == plain version, bitwise, in {mask['cases']} matrix cases and "
         f"{path_cases} calls at the paths' own shapes")
@@ -4353,6 +4533,7 @@ def main(argv=None) -> int:
     log("phase 14 multi-device path " + json.dumps(multidevice))
     log("phase 14 ported jitted functions " + json.dumps(xla_table))
     log("phase 15 config 5 path " + json.dumps(config5))
+    log("phase 16 analysis path " + json.dumps(analysis))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

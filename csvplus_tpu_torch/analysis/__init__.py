@@ -15,12 +15,16 @@ that the plan cache needs.
 
 * :mod:`.plancert` — the plan-space certifier: every plan chain up to a
   size bound through verify -> optimize, four obligations per plan
-  (imported as a module, as in the reference).
-
-The reference's report tables, ``explain`` CLI and lints are not ported
-yet (``ROADMAP.md``).
+  (imported as a module, as in the reference);
+* :mod:`.astlint` + :mod:`.jitlint` — the port's AST lint (the
+  reference's framework-free rules, EAGER001 and SYNC001 redesigned for
+  eager torch), run by ``python -m csvplus_tpu_torch.analysis``;
+* :mod:`.report` — the ``--json`` payload (lint + example-chain analysis)
+  snapshot-compared against ``tests/data/analyze_snapshot_torch.json``,
+  and the ``explain`` CLI's tables.
 """
 
+from .astlint import LintFinding, lint_file, lint_paths, lint_source
 from .cost import (
     CostEstimate,
     choose_fusion,
@@ -36,6 +40,7 @@ from .provenance import (
     prove_swap_before,
     stage_facts,
 )
+from .report import json_payload, plan_analysis_json
 from .rewrite import (
     PlanRecipe,
     RewriteResult,
@@ -74,6 +79,7 @@ __all__ = [
     "Diagnostic",
     "EXECUTOR_MODEL",
     "ExecutorModel",
+    "LintFinding",
     "NodeState",
     "PLACE_DEVICE",
     "PLACE_HOST",
@@ -90,13 +96,18 @@ __all__ = [
     "choose_fusion",
     "choose_join_operator",
     "estimate_plan",
+    "json_payload",
     "leaf_presence_ok",
+    "lint_file",
+    "lint_paths",
+    "lint_source",
     "live_columns",
     "optimize_enabled",
     "optimize_plan",
     "plan_facts",
     "placement_of_array",
     "placement_of_column",
+    "plan_analysis_json",
     "prove_swap_before",
     "rank_join_orders",
     "sharded_placement",

@@ -14,7 +14,11 @@ tier's staged chunk pipeline (:func:`stream_encoded_chunks`), whose
 
 ``scanner.cpp`` is compiled with ``g++ -O3`` at first use into
 ``csvplus_tpu_torch/_build/``, under a name that carries a hash of the
-source.  Unlike the reference, a failed build or load **raises**
+source and of ``CSVPLUS_NATIVE_CFLAGS`` (extra ``g++`` flags,
+space-split), or under the name ``CSVPLUS_NATIVE_SO`` gives (an
+instrumented build that must neither reuse nor clobber the ``-O3`` one;
+it is rebuilt at its first use in every process).
+Unlike the reference, a failed build or load **raises**
 (``RuntimeError``): the port never hides a broken scanner behind the
 Python parser.  The tiers decline (return None, or raise
 :class:`StreamFallback` in the streamed tier, and the caller takes the
@@ -42,33 +46,46 @@ from ..csvio import ERR_BARE_QUOTE, ERR_FIELD_COUNT, ERR_QUOTE
 from ..errors import DataSourceError, map_error
 from ..obs.recompile import register_kernel
 from ..resilience import faults
-from ..utils.env import env_int
+from ..utils.env import env_int, env_str
 
 SOURCE = Path(__file__).resolve().parent / "scanner.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
+# read at import, as the reference reads it
+_SO_NAME = env_str("CSVPLUS_NATIVE_SO")
 _lock = threading.Lock()
 _lib = None
 
 _ERR_MSG = {-1: ERR_BARE_QUOTE, -2: ERR_QUOTE, -3: "native scanner overflow"}
 
 
+def artifact() -> Tuple[Path, str, List[str]]:
+    """``(library path, build digest, extra g++ flags)``.  The digest
+    hashes the source and the extra flags, so neither an edited scanner
+    nor a changed flag loads a stale build."""
+    extra = (env_str("CSVPLUS_NATIVE_CFLAGS", "") or "").split()
+    h = hashlib.sha256(SOURCE.read_bytes())
+    if extra:
+        h.update("\0".join(extra).encode())
+    digest = h.hexdigest()[:16]
+    return BUILD_DIR / (_SO_NAME or f"libcsvplus_scanner_{digest}.so"), digest, extra
+
+
 def build() -> Path:
-    """Compile ``scanner.cpp`` with ``g++ -O3`` into ``_build/`` and return
-    the shared library's path; raises ``RuntimeError`` when ``g++`` is
-    missing or fails.  The file name carries a hash of the source, so an
-    edited scanner never loads a stale build."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
-    out = BUILD_DIR / f"libcsvplus_scanner_{digest}.so"
-    if out.exists():
+    """Compile ``scanner.cpp`` with ``g++ -O3`` (and the extra flags) into
+    ``_build/`` and return the shared library's path; raises
+    ``RuntimeError`` when ``g++`` is missing or fails.  A library under a
+    ``CSVPLUS_NATIVE_SO`` name carries no digest, so it is rebuilt at
+    every first use in a process."""
+    out, _, extra = artifact()
+    if out.exists() and _SO_NAME is None:
         return out
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the native CSV scanner cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")  # no concurrent clobber
-    cmd = [gxx, "-O3", "-shared", "-fPIC", "-std=c++17", "-o", str(tmp), str(SOURCE)]
+    cmd = [gxx, "-O3", "-shared", "-fPIC", "-std=c++17", *extra, "-o", str(tmp), str(SOURCE)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"native scanner build failed ({res.returncode}):\n{res.stderr}")
@@ -216,7 +233,6 @@ def scan_bytes(
 
 
 _PARALLEL_MIN_BYTES = 8 << 20  # files below this parse fine in one pass
-_SCAN_THREADS_CAP = 16
 
 
 def scan_bytes_parallel(
@@ -236,7 +252,9 @@ def scan_bytes_parallel(
     scratch buffer, so the merge is an offset-shifted concatenation.
     """
     n = len(data)
-    k = min(n_threads or os.cpu_count() or 1, _SCAN_THREADS_CAP)
+    # CSVPLUS_SCAN_THREADS caps the threads, read at call time as in the
+    # reference, so scan threads and ingest workers can be balanced
+    k = min(n_threads or os.cpu_count() or 1, env_int("CSVPLUS_SCAN_THREADS", 16))
     if n < _PARALLEL_MIN_BYTES or k < 2 or b'"' in data:
         return scan_bytes(data, delimiter, comment, lazy_quotes)
 
@@ -675,7 +693,7 @@ def read_encoded_columns_native(reader, path: str):
     pad_allowed = reader._num_fields < 0
     cols = list(_column_positions(data_counts, field_offset, header, rec_base, pad_allowed))
     # the reference's switch, default on
-    typed = os.environ.get("CSVPLUS_TYPED_LANES", "1") != "0"
+    typed = env_str("CSVPLUS_TYPED_LANES", "1") != "0"
 
     def enc_one(args):
         name, pos, ok = args
@@ -858,7 +876,7 @@ _STREAM_CHUNK_BYTES = 64 << 20
 
 
 def _stream_chunk_bytes() -> int:
-    v = os.environ.get("CSVPLUS_STREAM_CHUNK_BYTES")
+    v = env_str("CSVPLUS_STREAM_CHUNK_BYTES")
     return int(v) if v else _STREAM_CHUNK_BYTES
 
 
@@ -1195,7 +1213,7 @@ def stream_encoded_chunks(reader, path: str, chunk_bytes: Optional[int] = None,
     k_workers = max(1, workers if workers is not None else _ingest_workers())
     if encoder is not None:
         k_workers = 1  # the device-encode hook: one upload stream, inline
-    typed_enabled = os.environ.get("CSVPLUS_TYPED_LANES", "1") != "0"
+    typed_enabled = env_str("CSVPLUS_TYPED_LANES", "1") != "0"
     next_record = 1  # absolute 1-based ordinal of the next record scanned
     typed_live: set = set()  # columns still typed, in file order
     _pc = time.perf_counter

@@ -259,7 +259,8 @@ class DeviceIndex:
 
     # Universes up to 2^DIRECT_MAX_BITS get the dictionary-direct probe
     # table (2^23 + 1 int32 = 32 MB at the cap); larger ones search.
-    DIRECT_MAX_BITS: ClassVar[int] = 23
+    # Read at import, as the reference reads it.
+    DIRECT_MAX_BITS: ClassVar[int] = env_int("CSVPLUS_DIRECT_PROBE_MAX_BITS", 23)
 
     # Build sides with at least this many keys, probed by a stream sharded
     # over more than one shard, take the range-partitioned all-to-all tier

@@ -7,7 +7,8 @@ typed errors (both :class:`~csvplus_tpu_torch.errors.CsvPlusError` subclasses
 so callers can catch the library-wide base):
 
 * :class:`ServerOverloaded` — raised by ``submit`` when the pending
-  queue is at its bound (``max_pending``, default 8192).  The
+  queue is at its bound (``max_pending``, else ``CSVPLUS_SERVE_QUEUE``,
+  default 8192).  The
   request was NEVER enqueued; the caller owns retry policy.
 * :class:`DeadlineExceeded` — delivered as a request's *result* when its
   deadline passed before dispatch.  Deadlines are checked at drain time,
@@ -21,6 +22,7 @@ import time
 from typing import Optional
 
 from ..errors import CsvPlusError
+from ..utils.env import env_int
 
 #: Default bound on the pending-request queue (overridden per server).
 DEFAULT_QUEUE_BOUND = 8192
@@ -59,8 +61,10 @@ class AdmissionController:
     """
 
     def __init__(self, max_pending: Optional[int] = None):
-        self.max_pending = int(
-            DEFAULT_QUEUE_BOUND if max_pending is None else max_pending
+        self.max_pending = (
+            int(max_pending)
+            if max_pending is not None
+            else env_int("CSVPLUS_SERVE_QUEUE", DEFAULT_QUEUE_BOUND)
         )
 
     def admit(self, depth: int) -> None:

@@ -18,7 +18,7 @@ over a registered mutable index refresh in every cycle after its writes
 and before its lookups; ``view(name).read(key)`` answers on the caller's
 thread from the view's epoch-pinned snapshot.
 
-Coalescing policy (``tick_us``):
+Coalescing policy (``tick_us``, else ``CSVPLUS_SERVE_TICK_US``):
 
 * ``0`` (default) — **adaptive**: the dispatcher drains whatever is
   pending the moment it finishes the previous batch.  Under load the
@@ -27,7 +27,7 @@ Coalescing policy (``tick_us``):
   server adds zero latency.
 * ``> 0`` — **fixed ticker**: after the first request arrives the
   dispatcher holds the batch open for the tick, or until the
-  ``max_batch`` watermark fills, trading
+  ``max_batch`` watermark (``CSVPLUS_SERVE_MAX_BATCH``) fills, trading
   p50 latency for bigger batches at low arrival rates.
 
 Thread model: ALL shared state (the pending queue, open flag, crash
@@ -71,6 +71,7 @@ from ..resilience.retry import (
     classify,
 )
 from ..row import Row
+from ..utils.env import env_int
 from ..utils.observe import telemetry
 from .admit import AdmissionController, DeadlineExceeded
 from .metrics import ServingMetrics
@@ -191,9 +192,9 @@ class LookupServer:
         index=None,
         *,
         indexes: Optional[dict] = None,
-        max_batch: int = DEFAULT_MAX_BATCH,
+        max_batch: Optional[int] = None,
         max_pending: Optional[int] = None,
-        tick_us: int = 0,
+        tick_us: Optional[int] = None,
         plancache: Optional[PlanCache] = None,
         metrics: Optional[ServingMetrics] = None,
         plane: Optional[TelemetryPlane] = None,
@@ -215,8 +216,13 @@ class LookupServer:
         self._views: dict = {}
         default = regs.get(DEFAULT_INDEX) or regs[next(iter(regs))]
         self._default_name = default.name
-        self.max_batch = int(max_batch)
-        self._tick_s = max(0, int(tick_us)) * 1e-6
+        self.max_batch = (
+            int(max_batch)
+            if max_batch is not None
+            else env_int("CSVPLUS_SERVE_MAX_BATCH", DEFAULT_MAX_BATCH)
+        )
+        tick = tick_us if tick_us is not None else env_int("CSVPLUS_SERVE_TICK_US", 0)
+        self._tick_s = max(0, int(tick)) * 1e-6
         self.admission = AdmissionController(max_pending)
         self.plancache = plancache if plancache is not None else PlanCache()
         self.metrics = metrics if metrics is not None else ServingMetrics()

@@ -1,4 +1,4 @@
-"""``chip_smoke.py``'s phases 4-15 and its stage tables rehearsed on the
+"""``chip_smoke.py``'s phases 4-16 and its stage tables rehearsed on the
 CPU at a small size.
 
 Each phase drives the port's public API on ``device="cpu"`` and holds it
@@ -26,7 +26,9 @@ and wide tiers, the sample sort and the graft entry) an 8-shard CPU mesh
 (eight shards, so the 90 %-one-value sort must retry as on the card) with
 tens of thousands of probes; phase 15 (config 5 through the public API on
 sharded tables) a 4-shard mesh over 20,003 streamed orders and 8,005 Zipf
-orders, and (c) phase 4's legs on 7 shards.  The
+orders, and (c) phase 4's legs on 7 shards; phase 16 (the analysis
+suite) its payload against the committed snapshot and three CLI
+commands with ``--device cpu``, and (b) inside phases 4 and 15.  The
 stage tables printed by phases 4, 5, 9 and 10 must hold the stages of
 what they time (phase 4's two feed the stage diff), and warm (a) must
 synchronize nowhere with telemetry off; the ``kernels`` line names every
@@ -62,6 +64,7 @@ PHASES = {
     "13-plancert": (False, lambda C, d: _plancert(C)),
     "14-multidevice": (False, lambda C, d: _multidevice(C)),
     "15-config5": (True, lambda C, d: _config5(C, d)),
+    "16-analysis": (False, lambda C, d: _analysis(C)),
 }
 
 NO_FILTER = {"10-dedup", "12-storage", "14-multidevice"}  # no filter: checked in their helper
@@ -137,6 +140,9 @@ def _config5(C, workdir):
     assert runs["skew on"]["hot_keys"] and not runs["skew off"]["hot_keys"]
     assert runs["plan cache fused"]["expand_path"] == ["multiway-unique-identity"]
     assert out["b"]["stored_rows"] == 8_008
+    got = out["analysis"]  # phase 16 (b) on the sharded join
+    assert got["ok"] and got["row_placement"].startswith("sharded")
+    assert got["scans"] == [("Scan[0]", 20_003)]
     return out
 
 
@@ -213,6 +219,15 @@ def _serving(C, workdir):
     return out
 
 
+def _analysis(C):
+    """Phase 16 (a) and (c) on the CPU: the payload against the committed
+    snapshot, and the three CLI commands with ``--device cpu``."""
+    out = C.run_analysis_path("cpu", ROOT, "cpu")
+    assert out["launches"] == 0  # the plain version counts no launch
+    assert out["plan_cert_cli"]["ok"] and out["plan_cert_cli"]["plans_total"] == 366
+    return out
+
+
 @pytest.mark.parametrize("phase", sorted(PHASES))
 def test_chip_smoke_phase_rehearses_on_the_cpu(phase, tmp_path, monkeypatch):
     streamed, run = PHASES[phase]
@@ -274,6 +289,11 @@ def test_chip_smoke_phase_rehearses_on_the_cpu(phase, tmp_path, monkeypatch):
             assert sh["shard_rows"] == {i: 2_858 for i in range(7)}
             assert sh["flagship_paths"]["padded"] >= 1 and sh["mask_check"]["cases"] >= 7
             assert (sh["pack_check"]["cases"] > 0) == (name == "device-parsed")
+        # phase 16 (b) on the native leg's pipeline (a)
+        got = legs["native-encoded"]["analysis"]
+        assert got["ok"] and got["row_placement"] == "device"
+        assert got["scans"] == [("Scan[0]", 20_000)] and got["analysis_ms"] > 0
+        assert legs["device-parsed"]["analysis"] is None
         for leg in legs.values():  # phase 14 (a): the flagship on each leg's tables
             flag = leg["flagship"]
             assert 0 < flag["partial_rows"] < 20_000

@@ -7,10 +7,12 @@ every module the serving slice added, and through the device-parse tier
 and the mutable indexes with their server writes, and through live views,
 plan-space certification and the obs tools, and through the multi-device
 primitives, the flagship and the graft entry: ``parallel``, ``models`` and
-``graft``), its ingest loads its own build of the
+``graft``, and through the analysis CLI's payload and ``explain``), its
+ingest loads its own build of the
 native scanner and never the JAX package's, its device entry points
 refuse ``"cuda"`` where no card is present instead of running on the CPU
-(the streamed tier and the JSON sink's source too), and ``chip_smoke.py``
+(the streamed tier, the JSON sink's source and the analysis CLI too),
+and ``chip_smoke.py``
 and ``warm_compare.py`` fail without a card."""
 
 import ast
@@ -143,6 +145,50 @@ def test_plancache_path_loads_no_jax_and_no_reference_module(tmp_path):
     assert out["foreign"] == []
     assert out["rows"] > 0 and out["stats"]["optimize_failed"] == 0
     assert out["stats"]["fused"] == 1
+
+
+ANALYSIS_CLI = r"""
+import contextlib, io, json, runpy, sys
+rcs = {}
+for argv in (["--json", "--device", "cpu"], ["explain", "--device", "cpu"]):
+    sys.argv = ["csvplus_tpu_torch.analysis", *argv]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            runpy.run_module("csvplus_tpu_torch.analysis", run_name="__main__", alter_sys=True)
+        except SystemExit as e:
+            rcs[argv[0]] = e.code
+    rcs[argv[0] + " output"] = len(buf.getvalue())
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
+             or m == "csvplus_tpu" or m.startswith("csvplus_tpu."))
+print(json.dumps({"rcs": rcs, "foreign": bad}))
+"""
+
+
+def test_analysis_cli_loads_no_jax_and_no_reference_module(tmp_path):
+    """The analysis CLI's payload and ``explain`` on the CPU, with every
+    module of the suite (the lint, the report, the plan certifier)."""
+    res = subprocess.run(
+        [sys.executable, "-c", ANALYSIS_CLI], cwd=tmp_path, env=_env(),
+        capture_output=True, text=True, timeout=240,
+    )
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["rcs"]["--json"] == 0 and out["rcs"]["explain"] == 0
+    assert out["rcs"]["--json output"] > 0 and out["rcs"]["explain output"] > 0
+    assert out["foreign"] == []
+
+
+def test_analysis_cli_refuses_cuda_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    res = subprocess.run(
+        [sys.executable, "-m", "csvplus_tpu_torch.analysis", "explain", "--device", "cuda"],
+        cwd=tmp_path, env=_env(), capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode != 0 and "no CUDA card" in res.stderr
+    assert "explain:" not in res.stdout
 
 
 SERVING_PATH = r"""
