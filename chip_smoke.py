@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``csvplus_tpu_torch``) on one NVIDIA GPU.
 
-Usage: python3 chip_smoke.py [--seed S] [--profile]
+Usage: python3 chip_smoke.py [--seed S] [--f4] [--profile]
 
 Phases; any failure raises, exits non-zero and prints no result line:
 
@@ -9,18 +9,26 @@ Phases; any failure raises, exits non-zero and prints no result line:
    the host's CPU count.
 2. Build: ``csrc/mask.cu`` and ``csrc/parse.cu`` with nvcc for sm_90a
    and the native CSV scanner ``native/scanner.cpp`` with g++, all three
-   started together; prints the seconds.
+   started together; prints the seconds, and ``ptxas -v``'s registers and
+   spills for each instantiation of the mask kernel.
 3. Mask kernel against its plain PyTorch version on the card, bitwise:
    seeded codes with ~5 % absent cells at n = 10,000,003 (ragged on
    purpose) for k in {1, 2, 8} columns, both modes, IN-lists of 1 and 50
    targets, and at n = 1000; at both sizes also pipeline (b)'s shape
    (k = 2 "any", 50 + 1 targets), a column 4 bytes off 16-byte alignment
-   (the kernel's row-at-a-time path), an IN-list too long to stage in
-   shared memory (its global-memory path), and typed value lanes
-   (arbitrary int32: negative values and targets, +-(2^31 - 1), a target
-   absent from the column).  Times the kernel (device time per call, see
-   ``_timed``), its bound, the plain version and, for the single-column
-   IN-list, ``torch.isin``.
+   (the kernel's row-at-a-time path), 12,300 targets over a span of
+   24,600 (a bitmap), spans of exactly the bitmap limit (2^16 bits) and
+   one past it (a search), ~60,000 typed values spread over int32 (more
+   than a block's shared memory: the search in global memory),
+   duplicated unsorted targets, all three tests in one call, and typed
+   value lanes (arbitrary int32: negative values and targets,
+   +-(2^31 - 1), a target absent from the column).  Times the kernel at
+   seven shapes (device time per call, see ``_timed``), cold (cycling
+   through copies of its inputs of 150 MB or more, three times the L2)
+   and warm (the same inputs back to back), beside its bound, the plain
+   version and, for the single-column IN-lists, ``torch.isin``; and the
+   host microseconds of one call at a serving plan's size (n = 512, k =
+   2), on a table-cache hit and on a miss.
 3b. The field-pack kernel (``csrc/parse.cu``, the device dictionary
    encode's gather-and-pack) against its plain version on the card,
    bitwise: 10,000,019 seeded fields of 0 to 4 * lanes bytes at lanes 2, 4
@@ -138,7 +146,11 @@ Phases; any failure raises, exits non-zero and prints no result line:
    ``MutableIndex`` on the card over BASELINE config 2's 1M-row layout
    (phase 9's (s1) file, ``index_on("cust_id")``), its WAL in the data
    directory, in ``bench_delta.py``'s shape: batches of 2,000 fresh keys
-   to 16 delta tiers, interleaved deletes, a leveled fold, a full merge
+   to 16 delta tiers, interleaved deletes, a leveled fold, with ``--f4``
+   F4's probe (``settle_f4``: the same full merge on four recovered
+   clones, alone, under two readers, under two pure-Python spinners and
+   under two readers at a 0.5 ms interpreter switch interval, and the
+   host syncs of one ``find_rows``), a full merge
    under two readers probing without a pause (as the bench runs them),
    a CSV appended with ``append_csv`` (on the card by default), and one
    more full merge with no reader running.  After each step
@@ -320,9 +332,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # Tensor Core GPU Architecture whitepaper) at the 1.98 GHz boost clock that
 # gives the data sheet's 67 TFLOP/s fp32 (132 x 128 lanes x 2 x 1.98e9).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# More targets than the kernel stages in shared memory (MAX_STAGED in
-# csrc/mask.cu): such an IN-list is read from global memory.
+# Phase 3's long dictionary-code IN-list: 12,300 targets over a span of
+# 24,600, which the kernel tests as a bitmap.
 LONG_IN_LIST = 12_300
+# Phase 3's wide typed IN-list: ~60,000 int32 values spread over the whole
+# range, more than a block's 227 KB of shared memory holds: the kernel
+# searches it in global memory.
+WIDE_IN_LIST = 60_000
+# Phase 3's cold timings cycle through copies of their inputs of at least
+# this many bytes: three times the card's 50 MB L2.
+COLD_BYTES = 150_000_000
 I32_MAX = 2**31 - 1
 ORDERS_COLS = ("order_id", "cust_id", "prod_id", "qty")
 _FNV_OFFSET = np.uint32(2166136261)
@@ -347,17 +366,23 @@ def _timed(fn, reps: int = 20, batches: int = 5) -> float:
     """Device milliseconds per call of *fn*: the median over *batches* of
     the mean of *reps* back-to-back calls between two CUDA events.  Each
     batch is queued behind a GPU spin (``torch.cuda._sleep``) long enough
-    for the host to enqueue every call, so the events bracket device work
-    only, not the host's Python time per call (which exceeds a 10M-row
-    mask's device time and would otherwise idle the card between calls)."""
+    for the host to enqueue every call (0.1 s, or twice the host time of
+    the warm call times *reps* where that is longer), so the events
+    bracket device work only, not the host's Python time per call (which
+    exceeds a 10M-row mask's device time and would otherwise idle the
+    card between calls).  A *fn* that launches more kernels than the
+    card's queue holds (the plain versions) blocks on that queue while
+    the card drains it, so it too is timed with the card busy."""
     import torch
 
+    t0 = time.perf_counter()
     fn()  # warm: lazy loads, allocator
+    spin_cycles = int(max(0.1, 2 * reps * (time.perf_counter() - t0)) * 2e9)  # ~2 GHz
     means = []
     for _ in range(batches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000_000)  # ~0.1 s of GPU cycles
+        torch.cuda._sleep(spin_cycles)
         a.record()
         for _ in range(reps):
             fn()
@@ -486,15 +511,90 @@ def check_path_packs(calls, label: str, launches: int, device: str) -> dict:
     return {"cases": n_calls, "max_abs_err": worst}
 
 
-def check_mask_kernel(seed: int) -> dict:
+def _timed_cold(fn, sets, reps: int = 20, batches: int = 5) -> float:
+    """:func:`_timed` of ``fn(inputs)`` cycling through *sets* of inputs,
+    whose bytes together exceed the card's L2 three times over, so that no
+    call finds its columns in L2, as the main path's filters find columns
+    that ingest wrote long before."""
+    state = {"i": 0}
+
+    def call():
+        state["i"] += 1
+        return fn(sets[state["i"] % len(sets)])
+
+    return _timed(call, reps, batches)
+
+
+def _cold_copies(cols, min_bytes: int = COLD_BYTES) -> list:
+    """*cols* and enough copies of them to hold at least *min_bytes*
+    (at least two sets)."""
+    per_set = sum(c.numel() * c.element_size() for c in cols)
+    n_sets = max(2, math.ceil(min_bytes / per_set))
+    return [cols] + [[c.clone() for c in cols] for _ in range(n_sets - 1)]
+
+
+def _test_kinds(targets) -> list:
+    """Each column's membership test in the kernel's table for *targets*."""
+    from csvplus_tpu_torch.ops import mask as M
+
+    table, _ = M.build_table(M.canonical_targets(targets))
+    names = {M.KIND_ONE: "one", M.KIND_BITMAP: "bitmap", M.KIND_SEARCH: "search"}
+    return [names[int(table[4 * j]) & 3] + ("/global" if table[4 * j] & M.KIND_GLOBAL else "")
+            for j in range(len(targets))]
+
+
+def mask_host_us(reps: int = 2_000) -> dict:
+    """Host microseconds of one wrapper call at a serving plan's size
+    (n = 512, k = 2, pipeline (b)'s 50 + 1 targets, "any"): on a cache hit
+    (the mean of *reps* calls back to back, the card never behind), and on
+    a miss (20 calls with fresh targets after the cache was emptied: the
+    table's build and its pinned upload)."""
     import torch
 
     from csvplus_tpu_torch.ops import mask as M
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed)
+    cols = [torch.randint(0, 100, (512,), device=dev, dtype=torch.int32) for _ in range(2)]
+    targets = [list(range(1, 51)), [7]]
+    M.fused_equality_mask(cols, targets, 512, "any")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        M.fused_equality_mask(cols, targets, 512, "any")
+    hit = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    M.clear_table_cache()
+    t0 = time.perf_counter()
+    for i in range(20):
+        M.fused_equality_mask(cols, [list(range(100 + i, 150 + i)), [7]], 512, "any")
+    miss = (time.perf_counter() - t0) / 20 * 1e6
+    torch.cuda.synchronize()
+    out = {"n": 512, "k": 2, "mode": "any", "targets_per_col": [50, 1],
+           "cache_hit_us": hit, "cache_miss_us": miss}
+    log("mask host time " + json.dumps(out))
+    return out
 
-    def codes(n: int, k: int, hi: int = 1000):
+
+class MaskInputs:
+    """Phase 3's seeded inputs on the card."""
+
+    def __init__(self, seed: int, device: str = "cuda"):
+        import torch
+
+        self.torch = torch
+        self.dev = torch.device(device)
+        self.g = torch.Generator(device=self.dev).manual_seed(seed)
+        rng = np.random.default_rng(seed)
+        # the global-memory search: more typed values than a block's 227 KB
+        self.wide_list = sorted(set(rng.integers(-I32_MAX - 1, I32_MAX, WIDE_IN_LIST,
+                                                 endpoint=True).tolist()))
+        self.limit = (-40_000, -40_000 + 65_536 - 1)  # a span of exactly 2^16 bits
+        self.at_limit = list(self.limit) + rng.integers(*self.limit, 100).tolist()
+        self.past_limit = self.at_limit + [self.limit[1] + 1]
+
+    def codes(self, n: int, k: int, hi: int = 1000):
+        """k code columns in [0, hi) with ~5 % absent (-1) cells."""
+        torch, g, dev = self.torch, self.g, self.dev
         out = []
         for _ in range(k):
             c = torch.randint(0, hi, (n,), generator=g, device=dev, dtype=torch.int32)
@@ -502,9 +602,10 @@ def check_mask_kernel(seed: int) -> dict:
             out.append(c)
         return out
 
-    def typed(n: int, k: int):
+    def typed(self, n: int, k: int):
         """k typed value-lane columns: int32 in [-1000, 1000) with ~1 %
         of cells at +(2^31 - 1) and ~1 % at -(2^31 - 1)."""
+        torch, g, dev = self.torch, self.g, self.dev
         out = []
         for _ in range(k):
             c = torch.randint(-1000, 1000, (n,), generator=g, device=dev, dtype=torch.int32)
@@ -514,10 +615,51 @@ def check_mask_kernel(seed: int) -> dict:
             out.append(c)
         return out
 
-    def unaligned(n: int):
+    def unaligned(self, n: int):
         """One contiguous column 4 bytes past a 16-byte boundary."""
-        buf = codes(n + 1, 1)[0]
-        return buf[1:]
+        return self.codes(n + 1, 1)[0][1:]
+
+    def spread(self, n: int, targets: list, lo: int = -I32_MAX - 1, hi: int = I32_MAX):
+        """Typed values spread over [lo, hi), a third of them drawn from
+        *targets*."""
+        torch, g, dev = self.torch, self.g, self.dev
+        c = torch.randint(lo, hi, (n,), generator=g, device=dev, dtype=torch.int64)
+        t = torch.tensor(targets, device=dev, dtype=torch.int64)
+        pick = torch.rand(n, generator=g, device=dev) < 1 / 3
+        c[pick] = t[torch.randint(0, t.numel(), (int(pick.sum()),), generator=g, device=dev)]
+        return c.to(torch.int32)
+
+    def timed_shapes(self, n: int):
+        """Phase 3's timed shapes: (name, k, mode, targets, columns)."""
+        def ranges(k, t):
+            return [list(range(7 * j, 7 * j + t)) for j in range(k)]
+
+        long_list = list(range(0, 2 * LONG_IN_LIST, 2))
+        yield "k=2 all T=1", 2, "all", ranges(2, 1), self.codes(n, 2)
+        yield "k=2 any T=50", 2, "any", ranges(2, 50), self.codes(n, 2)
+        yield "k=8 all T=1", 8, "all", ranges(8, 1), self.codes(n, 8)
+        yield "k=1 any T=50", 1, "any", ranges(1, 50), self.codes(n, 1)
+        yield ("pipeline (b) T=50+1", 2, "any", [list(range(1, 51)), [7]],
+               self.codes(n, 2))
+        yield ("long IN-list T=12,300", 1, "any", [long_list],
+               self.codes(n, 1, hi=2 * LONG_IN_LIST + 1000))
+        yield (f"wide typed IN-list T={len(self.wide_list):,}", 1, "any", [self.wide_list],
+               [self.spread(n, self.wide_list)])
+
+
+def check_mask_kernel(seed: int) -> dict:
+    """Phase 3: the mask kernel against its plain version, bitwise, on the
+    matrix of cases; its cold and warm times at the timed shapes beside
+    its bound, the plain version and ``torch.isin`` (k = 1); the host time
+    of one call at a serving plan's size."""
+    import torch
+
+    from csvplus_tpu_torch.ops import mask as M
+
+    data = MaskInputs(seed)
+    codes, typed, unaligned, spread = data.codes, data.typed, data.unaligned, data.spread
+    wide_list, at_limit, past_limit, limit = (data.wide_list, data.at_limit, data.past_limit,
+                                              data.limit)
 
     worst = 0
     cases = []
@@ -545,9 +687,26 @@ def check_mask_kernel(seed: int) -> dict:
         for mode in ("all", "any"):
             check("k=1 unaligned", [skew], [[3, 5]], mode)
             check("k=2 unaligned", [codes(n, 1)[0], skew], [[7], [3]], mode)
-        # more targets than fit in shared memory: the global-memory path
+        # 12,300 targets over a span of 24,600: a bitmap
         wide = codes(n, 1, hi=2 * LONG_IN_LIST + 1000)
         check("k=1 long IN-list", wide, [list(range(0, 2 * LONG_IN_LIST, 2))], "any")
+        # a span of exactly the bitmap limit (a bitmap) and one past it (a
+        # search), alone and beside a one-target column
+        near = spread(n, past_limit, limit[0] - 3, limit[1] + 4)
+        for name, t in (("span at the bitmap limit", at_limit),
+                        ("span past the bitmap limit", past_limit)):
+            check(name, [near], [t], "any")
+            for mode in ("all", "any"):
+                check(f"{name} k=2", [near, codes(n, 1, hi=4)[0]], [t, [2]], mode)
+        # ~60,000 typed values spread over int32: searched in global memory
+        far = spread(n, wide_list)
+        check("k=1 wide typed IN-list", [far], [wide_list], "any")
+        # duplicated, unsorted targets; one, bitmap and search in one call
+        dup = codes(n, 2, hi=40)
+        for mode in ("all", "any"):
+            check("duplicated targets", dup, [[9, 5, 5, 3, 9, 3], [7, 7, 1]], mode)
+            check("one + bitmap + search", [dup[0], dup[1], far],
+                  [[5], [1, 7, 30, 7], wide_list[:300] + wide_list[-300:]], mode)
         # typed value lanes: any int32 is a value, none means "absent"
         lanes = typed(n, 2)
         for mode in ("all", "any"):
@@ -555,25 +714,36 @@ def check_mask_kernel(seed: int) -> dict:
             check("typed +-(2^31-1)", lanes, [[I32_MAX], [-I32_MAX, I32_MAX]], mode)
             check("typed absent target", lanes, [[123_456_789], [5000, -5000]], mode)
     log(f"mask kernel == plain version, bitwise, in {len(cases)} cases")
+    del lanes, dup, far, near, wide, skew, cols
 
     timings = []
     n = MASK_ROWS
-    for k, mode, t in [(2, "all", 1), (2, "any", 50), (8, "all", 1), (1, "any", 50)]:
-        cols = codes(n, k)
-        targets = [list(range(7 * j, 7 * j + t)) for j in range(k)]
-        ms = _timed(lambda: M.fused_equality_mask(cols, targets, n, mode))
-        plain_ms = _timed(lambda: M.fused_equality_mask_plain(cols, targets, mode))
+    for name, k, mode, targets, cols in data.timed_shapes(n):
+        sets = _cold_copies(cols)
+        # a long list costs the host milliseconds a call (its key's hash)
+        # and the plain version a second: fewer calls there
+        few = max(len(x) for x in targets) > 100
+        reps = (5, 3) if few else ()
+        ms = _timed_cold(lambda cs: M.fused_equality_mask(cs, targets, n, mode), sets, *reps)
+        warm_ms = _timed(lambda: M.fused_equality_mask(cols, targets, n, mode), *reps)
+        plain_ms = _timed(lambda: M.fused_equality_mask_plain(cols, targets, mode),
+                          *((1, 1) if few else ()))
         bound, by = _bound_ms(n, targets)
         lib_ms = None
         if k == 1:
-            tt = torch.tensor(targets[0], dtype=torch.int32, device=dev)
-            lib_ms = _timed(lambda: torch.isin(cols[0], tt))
-        row = {"n": n, "k": k, "mode": mode, "targets_per_col": t, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            tt = torch.tensor(targets[0], dtype=torch.int32, device=data.dev)
+            lib_ms = _timed_cold(lambda cs: torch.isin(cs[0], tt), sets, *reps)
+        row = {"shape": name, "n": n, "k": k, "mode": mode,
+               "targets_per_col": [len(x) for x in targets], "tests": _test_kinds(targets),
+               "ms": ms, "warm_ms": warm_ms, "cold_bytes": sum(
+                   c.numel() * c.element_size() for cs in sets for c in cs),
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "share": bound / ms,
                "library_ms": lib_ms}
         timings.append(row)
         log("mask timing " + json.dumps(row))
-    return {"max_abs_err": worst, "cases": len(cases), "timings": timings}
+        del sets, cols
+    return {"max_abs_err": worst, "cases": len(cases), "timings": timings,
+            "host": mask_host_us()}
 
 
 # -- phase 3b: the field-pack kernel against its plain version --------------
@@ -2588,9 +2758,193 @@ def _latencies(fn, probes) -> dict:
             "p99_ms": float(np.percentile(a, 99)) * 1e3}
 
 
+@contextlib.contextmanager
+def _spinning(n: int, body, cuda_device, device: str, pause_s: float = 0.0):
+    """*n* threads that call ``body(slot, i)`` back to back (sleeping
+    *pause_s* after each call when it is > 0) from 0.05 s before the block
+    to 0.05 s after it; yields one list a thread of (start, seconds) per
+    call, and raises a thread's error or a thread that does not stop."""
+    import threading
+
+    import torch
+
+    stop = threading.Event()
+    started = threading.Barrier(n + 1)
+    per_thread: list = [[] for _ in range(n)]
+    errs: list = []
+
+    def run(slot: int) -> None:
+        local = per_thread[slot]
+        try:
+            with torch.cuda.device(cuda_device) if device == "cuda" else contextlib.nullcontext():
+                started.wait(timeout=60)
+                i = slot
+                while not stop.is_set():
+                    t1 = time.perf_counter()
+                    body(slot, i)
+                    local.append((t1, time.perf_counter() - t1))
+                    i += n
+                    if pause_s:
+                        time.sleep(pause_s)
+        except BaseException as e:
+            errs.append(e)
+            stop.set()
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(n)]
+    for t in threads:
+        t.start()
+    try:
+        started.wait(timeout=60)
+        time.sleep(0.05)  # a steady state first
+        yield per_thread
+        time.sleep(0.05)  # and a tail after the block
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a spinning thread did not stop")
+    if errs:
+        raise errs[0]
+
+
+def _reader_body(mi, probes):
+    """bench_delta.py's compaction-pause reader: one ``find_rows`` a call."""
+    return lambda slot, i: mi.find_rows(probes[i % len(probes)])
+
+
+def _python_body(slot: int, i: int) -> None:
+    """A pure-Python spin of about a reader's probe's length: no device
+    work, no numpy, no index; it holds the interpreter lock throughout."""
+    x = 0
+    for v in range(2_000):
+        x += v * slot
+
+
+def _calls_in(per_thread, t0: float, t1: float) -> int:
+    return sum(1 for local in per_thread for ts, _ in local if t0 <= ts <= t1)
+
+
+@contextlib.contextmanager
+def _host_syncs(device: str):
+    """Count the host synchronizations inside the block: every operation
+    ``torch.cuda.set_sync_debug_mode`` warns about (an ``.item()``, a
+    device-to-host copy, a ``nonzero``) and every ``torch.cuda.synchronize``.
+    One thread only: the warning filter and the mode are process-wide."""
+    import warnings
+
+    import torch
+
+    n = {"syncs": 0}
+    if device != "cuda":
+        yield n
+        return
+    real_sync = torch.cuda.synchronize
+
+    def counting_sync(*a, **k):
+        n["syncs"] += 1
+        return real_sync(*a, **k)
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.synchronize = counting_sync
+        try:
+            yield n
+        finally:
+            torch.cuda.synchronize = real_sync
+            torch.cuda.set_sync_debug_mode(0)
+    n["syncs"] += sum(1 for w in seen if "synchroniz" in str(w.message))
+
+
+def settle_f4(mi, wal_dir: Path, workdir: Path, probes, device: str,
+              pause_s: float = 0.0) -> dict:
+    """F4: why two spinning readers slow the storage merge.  The same full
+    merge (``compact_once``: merge, pruner, checkpoint) runs on four
+    clones of *mi*'s durable state, each recovered from a copy of its
+    directory: (quiet) alone, counting its host syncs; (readers) under
+    two readers probing without a pause, after 0.5 s of the readers alone
+    for their rate with no merge; (python) under two pure-Python spinners
+    that touch neither the card nor the index; (switch) under two readers
+    with the interpreter's switch interval cut from 5 ms to 0.5 ms.  Also
+    the host syncs and ``host_sync_elements`` of one ``find_rows`` on
+    *mi*.  A merge that slows as much under pure Python as under readers,
+    and less at a shorter switch interval, waits on the interpreter lock,
+    not on the card."""
+    from csvplus_tpu_torch.storage import MutableIndex
+    from csvplus_tpu_torch.utils.observe import telemetry
+
+    out: dict = {}
+    mi.find_rows(probes[0])  # warm
+    with telemetry.collect(), _host_syncs(device) as syncs:
+        mi.find_rows(probes[1])
+        elements = telemetry.host_sync_elements
+    out["find_rows"] = {"syncs": syncs["syncs"], "host_sync_elements": elements,
+                        "tiers": 1 + mi.delta_count}
+    clones = {}
+    for name in ("quiet", "readers", "python", "switch"):
+        clones[name] = workdir / f"f4-{name}"
+        shutil.copytree(wal_dir, clones[name])
+    n = 2
+    try:
+        for name, path in clones.items():
+            clone = MutableIndex.open(str(path), ingest_device=device)
+            clone.find_rows(probes[0])
+            load = None
+            prev_switch = sys.getswitchinterval()
+            if name == "python":
+                load = _python_body
+            elif name in ("readers", "switch"):
+                load = _reader_body(clone, probes)
+            with contextlib.ExitStack() as stack:
+                counted = stack.enter_context(_host_syncs(device if load is None else "cpu"))
+                if name == "switch":
+                    sys.setswitchinterval(0.0005)
+                    stack.callback(sys.setswitchinterval, prev_switch)
+                per_thread = None
+                if load is not None:
+                    per_thread = stack.enter_context(
+                        _spinning(n, load, clone.device, device, pause_s))
+                    t_a = time.perf_counter()
+                    time.sleep(0.5)  # the load alone: its rate with no merge
+                    t_b = time.perf_counter()
+                t0 = time.perf_counter()
+                got = clone.compact_once()
+                t1 = time.perf_counter()
+            row = {"full_merge_s": t1 - t0,
+                   "full_merge_parts_s": {"merge_and_pruner_s": got["seconds"],
+                                          "checkpoint_s": t1 - t0 - got["seconds"]},
+                   "rows_in": got["rows_in"], "rows_out": got["rows_out"]}
+            if load is None:
+                row["host_syncs"] = counted["syncs"]
+            else:
+                alone = _calls_in(per_thread, t_a, t_b) / (t_b - t_a)
+                during = _calls_in(per_thread, t0, t1) / (t1 - t0)
+                row.update(calls_per_s_alone=alone, calls_per_s_during=during,
+                           share_during=during / alone if alone else None)
+            out[name] = row
+            clone.close()
+    finally:
+        for path in clones.values():
+            shutil.rmtree(path, ignore_errors=True)
+    q = out["quiet"]
+    log(f"phase 12 F4: one find_rows on {out['find_rows']['tiers']} tiers made "
+        f"{out['find_rows']['syncs']} host syncs ({out['find_rows']['host_sync_elements']} "
+        f"counted elements); the same full merge ({q['rows_in']:,} -> {q['rows_out']:,} rows) "
+        f"quiet {q['full_merge_s']:.3f}s {q['full_merge_parts_s']} with {q['host_syncs']} host "
+        f"syncs; " + "; ".join(
+            f"under {what} {out[name]['full_merge_s']:.3f}s {out[name]['full_merge_parts_s']}, "
+            f"their calls/s {out[name]['calls_per_s_alone']:,.0f} alone, "
+            f"{out[name]['calls_per_s_during']:,.0f} during it"
+            for name, what in (("readers", "2 readers"), ("python", "2 pure-Python spinners"),
+                               ("switch", "2 readers at a 0.5 ms switch interval"))))
+    return out
+
+
 def run_storage_path(n_rows: int, seed: int, device: str, workdir: Path,
                      batch_rows: int = STORAGE_BATCH_ROWS,
-                     n_lookups: int = STORAGE_LOOKUPS, reader_pause_s: float = 0.0) -> dict:
+                     n_lookups: int = STORAGE_LOOKUPS, reader_pause_s: float = 0.0,
+                     f4: bool = False) -> dict:
     """Phase 12: a durable ``MutableIndex`` on *device* over BASELINE
     config 2's layout (``_serve_csv``, *n_rows* rows, ``index_on
     ("cust_id")``), its WAL in *workdir*, in ``bench_delta.py``'s shape:
@@ -2601,14 +2955,13 @@ def run_storage_path(n_rows: int, seed: int, device: str, workdir: Path,
     (``append_csv``, which must land on *device*) and a full merge with
     no reader, which shows what the readers cost the merge
     (*reader_pause_s* > 0 makes each reader sleep that long after each
-    probe instead).  After each
+    probe instead).  Before that merge, with *f4*, :func:`settle_f4`
+    splits what the readers cost it.  After each
     step the live tier set's positional checksums, the port's
     ``rebuild_reference`` and a numpy oracle of the logical stream agree;
     a tail of writes after the checkpoint is recovered by ``MutableIndex.open`` checksum-equal; then
     ``LookupServer.append`` / ``delete`` acks are read back.  No kernel is
     built or loaded in the whole phase (``RecompileWatch``)."""
-    import torch
-
     import csvplus_tpu_torch as T
     from csvplus_tpu_torch.obs.recompile import RecompileWatch
     from csvplus_tpu_torch.serve import LookupServer
@@ -2691,53 +3044,21 @@ def run_storage_path(n_rows: int, seed: int, device: str, workdir: Path,
         raise AssertionError(f"the leveled fold did not run a partial merge: {step}")
     parity("leveled fold")
 
+    if f4:
+        out["f4"] = settle_f4(mi, wal_dir, workdir, probes, device, reader_pause_s)
+
     # the full merge under two readers that probe without a pause, as
     # bench_delta.py's compaction-pause scenario runs them
-    import threading
-
     n_readers = 2
-    stop = threading.Event()
-    started = threading.Barrier(n_readers + 1)
-    per_thread: list = [[] for _ in range(n_readers)]
-    errs: list = []
-
-    def reader(slot: int) -> None:
-        local = per_thread[slot]
-        try:
-            with torch.cuda.device(mi.device) if device == "cuda" else contextlib.nullcontext():
-                started.wait(timeout=60)
-                i = slot
-                while not stop.is_set():
-                    t1 = time.perf_counter()
-                    mi.find_rows(probes[i % len(probes)])
-                    local.append((t1, time.perf_counter() - t1))
-                    i += n_readers
-                    if reader_pause_s:
-                        time.sleep(reader_pause_s)
-        except BaseException as e:
-            errs.append(e)
-            stop.set()
-
-    threads = [threading.Thread(target=reader, args=(k,)) for k in range(n_readers)]
-    for t in threads:
-        t.start()
-    started.wait(timeout=60)
-    time.sleep(0.05)  # the readers reach a steady state first
-    t_c0 = time.perf_counter()
-    full = mi.compact_once()
-    t_c1 = time.perf_counter()
+    with _spinning(n_readers, _reader_body(mi, probes), mi.device, device,
+                   reader_pause_s) as per_thread:
+        t_c0 = time.perf_counter()
+        full = mi.compact_once()
+        t_c1 = time.perf_counter()
     # the pass's own seconds are the merge and the new base's pruner, up to
     # the swap; the rest is the checkpoint (base file, sidecar, manifest)
     merge_parts = {"merge_and_pruner_s": full["seconds"],
                    "checkpoint_s": t_c1 - t_c0 - full["seconds"]}
-    time.sleep(0.05)  # and a tail after it
-    stop.set()
-    for t in threads:
-        t.join(timeout=60)
-        if t.is_alive():
-            raise AssertionError("a reader did not stop")
-    if errs:
-        raise errs[0]
     during = np.asarray([lat for local in per_thread for ts, lat in local
                          if t_c0 <= ts <= t_c1])
     out["compaction"] = {"leveled_fold_s": t_fold, "leveled_fold": step,
@@ -4420,9 +4741,57 @@ def kernels_line(mask: dict, pack: dict, paths: dict, streamed: dict, plancache:
     }]
 
 
+def ptxas_summary(report: str) -> str:
+    """One line from ``ptxas -v``'s report of ``csrc/mask.cu``: each
+    instantiation's registers and spill bytes (stores / loads)."""
+    import re
+
+    out, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            k = re.search(r"ILi(\d+)ELb([01])E", m.group(1))
+            name = f"k={k.group(1)} {'all' if k.group(2) == '1' else 'any'}" if k else m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = f"{m.group(1)}/{m.group(2)}"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} regs, spill {spill} B")
+            name = None
+    return "; ".join(out)
+
+
+def build_kernels(here: Path) -> None:
+    """Phase 2: nvcc builds ``csrc/mask.cu`` and ``csrc/parse.cu`` and g++
+    the native scanner, all three started together; prints the seconds
+    and ``ptxas -v``'s registers and spills for the mask kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from csvplus_tpu_torch.native import scanner as S
+    from csvplus_tpu_torch.ops import cubuild
+    from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.ops import parse as P
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=3) as pool:  # both nvcc and g++ together
+        builds = [pool.submit(M.build), pool.submit(P.build), pool.submit(S.build)]
+        mask_lib = builds[0].result()
+        for f in builds[1:]:
+            f.result()
+    log(f"built {M.SOURCE.relative_to(here)} and {P.SOURCE.relative_to(here)} for sm_90a "
+        f"(nvcc) and {S.SOURCE.relative_to(here)} (g++) in {time.perf_counter() - t0:.2f}s")
+    log(f"ptxas -v, {M.SOURCE.relative_to(here)} (THREADS 256, shared memory dynamic): "
+        + ptxas_summary(cubuild.ptxas_report(mask_lib)))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20160914)
+    ap.add_argument("--f4", action="store_true",
+                    help="add phase 12's probe of why readers slow the merge (~70 s)")
     ap.add_argument("--profile", action="store_true",
                     help="add a torch.profiler breakdown of the warm pipelines")
     args = ap.parse_args(argv)
@@ -4435,7 +4804,6 @@ def main(argv=None) -> int:
         return 1
     here = Path(__file__).resolve().parent
     sys.path.insert(0, str(here))
-    from csvplus_tpu_torch.ops import mask as M
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -4445,19 +4813,8 @@ def main(argv=None) -> int:
     log(f"device: {kind} | nvidia-smi: {smi}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    from concurrent.futures import ThreadPoolExecutor
-
-    from csvplus_tpu_torch.native import scanner as S
-    from csvplus_tpu_torch.ops import parse as P
-
     log(f"host CPUs: {os.cpu_count()}")
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:  # both nvcc and g++ together
-        builds = [pool.submit(M.build), pool.submit(P.build), pool.submit(S.build)]
-        for f in builds:
-            f.result()
-    log(f"built {M.SOURCE.relative_to(here)} and {P.SOURCE.relative_to(here)} for sm_90a "
-        f"(nvcc) and {S.SOURCE.relative_to(here)} (g++) in {time.perf_counter() - t0:.2f}s")
+    build_kernels(here)
 
     mask = check_mask_kernel(args.seed)
     pack = check_pack_kernel(args.seed)
@@ -4473,7 +4830,7 @@ def main(argv=None) -> int:
         host_dict = run_host_dict_path(N_HOST_DICT_ROWS, args.seed, "cuda", workdir)
         dedup = run_dedup_path(N_DEDUP_ROWS, N_DEDUP_DISTINCT, args.seed, "cuda", workdir)
         config1 = run_config1_path(N_PEOPLE, args.seed, "cuda", workdir)
-        storage = run_storage_path(N_SERVE_ROWS, args.seed, "cuda", workdir)
+        storage = run_storage_path(N_SERVE_ROWS, args.seed, "cuda", workdir, f4=args.f4)
         views = run_views_path(VIEW_ROWS, args.seed, "cuda", workdir)
         log(f"phase 13's numbers above: {kind} | nvidia-smi: {smi}")
         plancert = run_plancert_path(3, "cuda")

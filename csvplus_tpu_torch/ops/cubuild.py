@@ -3,7 +3,9 @@
 
 The library's file name carries a hash of the source, so an edited kernel
 never loads a stale build; a concurrent build writes its own temporary file
-and renames it into place.  A failed build raises ``RuntimeError``: no
+and renames it into place.  ``ptxas``'s report of each kernel (registers,
+shared memory, spills; ``-Xptxas -v``) is kept beside it
+(:func:`ptxas_report`).  A failed build raises ``RuntimeError``: no
 kernel of the port falls back to its plain version on a CUDA tensor.
 """
 
@@ -40,11 +42,22 @@ def nvcc_build(source: Path, stem: str) -> Path:
     cmd = [
         _nvcc(),
         "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
         "-o", str(tmp), str(source),
     ]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source.name} ({res.returncode}):\n{res.stderr}")
+    _report_path(out).write_text(res.stdout + res.stderr)
     os.replace(tmp, out)
     return out
+
+
+def _report_path(library: Path) -> Path:
+    return library.with_name(library.name + ".ptxas.txt")
+
+
+def ptxas_report(library: Path) -> str:
+    """``ptxas -v``'s output from the build of *library* (a path
+    :func:`nvcc_build` returned)."""
+    return _report_path(library).read_text()

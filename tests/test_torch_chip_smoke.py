@@ -94,7 +94,7 @@ def _storage(C, workdir):
     # minutes, against a fiftieth of a second with no reader; PERF.md, open
     # questions), so the rehearsal's readers pause a millisecond a probe.
     out = C.run_storage_path(10_000, 1, "cpu", workdir, batch_rows=100, n_lookups=100,
-                             reader_pause_s=0.001)
+                             reader_pause_s=0.001, f4=True)
     assert out["recompiles"] == 0
     assert set(out["lookups"]) == {"0", "4", "16"}
     assert out["steps"]["16 tiers + tombstones"]["deltas"] > 16
@@ -105,6 +105,15 @@ def _storage(C, workdir):
     assert out["steps"]["append_csv"]["deltas"] == out["steps"]["recovered"]["deltas"] + 1
     assert out["steps"]["quiet full merge"]["deltas"] == 0
     assert out["compaction"]["readers"] == 2 and out["compaction"]["quiet_full_merge_s"] > 0
+    # F4: the same full merge on four recovered clones, quiet and under
+    # each load, and one find_rows's host syncs (none on the CPU)
+    f4 = out["f4"]
+    assert f4["find_rows"]["syncs"] == 0 and f4["find_rows"]["tiers"] > 1
+    rows = {(f4[name]["rows_in"], f4[name]["rows_out"]) for name in ("quiet", "readers",
+                                                                     "python", "switch")}
+    assert len(rows) == 1 and f4["quiet"]["host_syncs"] == 0
+    for name in ("readers", "python", "switch"):
+        assert f4[name]["calls_per_s_alone"] > 0 and f4[name]["full_merge_s"] > 0
     return out
 
 
