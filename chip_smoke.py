@@ -171,9 +171,12 @@ Phases; any failure raises, exits non-zero and prints no result line:
    product, a ``SetValue``; the mask kernel at a write batch's size).  A
    warm-up batch, 8 batches of 1,000 rows with a delete every third, 2,000
    ``view.read()`` probes, then 4 batches and a delete through the started
-   server (each in both views by the next dispatch cycle) and one
-   ``views:refresh`` fault (the prior snapshot stays live until the next
-   cycle applies the event).  After every step both views' checksums
+   server (each in both views by the next dispatch cycle) and the chaos
+   gate's ``view_refresh_crash`` case on that server (a batch and a
+   delete in one write cycle whose refresh dies of a ``views:refresh``
+   fatal fault: the prior snapshot stays live until the next cycle
+   applies both events, and the flight dump names the site; phase 17
+   reports it).  After every step both views' checksums
    equal their from-scratch ``recompute_checksums`` and a numpy oracle of
    the acked stream; every warm refresh builds, loads and lowers nothing;
    the base, every tier and both dimensions lie on ``cuda:0``; the phase's
@@ -265,7 +268,33 @@ Phases; any failure raises, exits non-zero and prints no result line:
    commands in subprocesses, started together: ``lint --json`` prints
    ``[]`` and exits 0, ``env`` prints ``docs/ENV_TORCH.md`` exactly,
    ``plan-cert --device cuda --json`` exits 0.
-17. A ``{"kernels": [...]}`` line, then the last line
+17. The chaos gate (``csvplus_tpu_torch.resilience.chaos``) on the state
+   phases 4, 9, 12 and 13 built (``run_chaos_path``): ``serve_retry`` over
+   (s1)'s 1M-row index, 20,000 probes (1 in 17 a miss) from 32
+   closed-loop clients under ``serve:bounds`` faults, and one (s2) plan
+   with phase 9's 50-product filter retried past an ``exec:device``
+   fault (the mask kernel on the retry path); ``serve_degrade`` on the
+   same index (breaker, host oracle, half-open recovery) and over the
+   mirror cap on (s2)'s 50M ``order_id`` index (typed failures, the
+   breaker closed); ``dispatcher_crash`` with 256 requests pending;
+   ``ingest_crash_recovery`` on phase 4's 10M-order file streamed in 8
+   MiB chunks, on the device-parse tier (the pack kernel on every re-run
+   chunk) and at K = 1, 2 and 4 without it, each placed table's
+   checksums equal to the fault-free run's and the numpy oracle's;
+   ``ingest_read_fault_typed`` on the same file at K = 1 and 4; the
+   three-way join of that file on 8 shards of ``cuda:0`` under crashing
+   ingest workers, with no assembly; ``storage_compact_crash`` on phase
+   12's durable index with two more delta tiers, served by a
+   ``LookupServer`` while the compactor dies; ``wal_crash_matrix``, eight
+   crash windows, each a child process on the card over a 100,000-row
+   base, reopened on the card; ``view_refresh_crash`` from phase 13;
+   ``disarmed_overhead`` on (s1)'s server.  Every recovery case's
+   allocated device bytes must end within 1 MiB of their reading after
+   the fault-free run, and every mask and pack launch inside a case is
+   replayed against the plain version, bitwise.  Prints a line per case
+   (outcome, seconds, both memory readings) and a summary; a failed case
+   fails the run.
+18. A ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phases 6, 7, 10 and 11 run under the default too (the device-parse tier
@@ -273,10 +302,10 @@ and the streamed tier's device chunk encoder); their pack kernel
 launches are counted (set to 0 before each path, read after) and listed
 per path.
 
-Phases 4-9, 11, 13 and 16 also hold the mask kernel's wrapper against its plain
+Phases 4-9, 11, 13, 16 and 17 also hold the mask kernel's wrapper against its plain
 version, bitwise, on the inputs of every call their filters made
 (recorded during the path's run and replayed after its launch count was
-read).  Phases 4, 6, 7, 10 and 11 hold what the pack kernel returned in
+read).  Phases 4, 6, 7, 10, 11 and 17 hold what the pack kernel returned in
 each of their launches (the path's own buffers, strided columns and
 streamed chunks, recorded during the run) against the plain version on
 the same inputs, bitwise, after the path's launch count was read.
@@ -291,13 +320,13 @@ the automatic K (phase 5), one served batch of 32 lookups (phase 9,
 
 Writes its CSVs under ``.chip_smoke_data/`` beside this file and removes
 them at the end.  Needs one card; imports nothing of JAX or csvplus_tpu.
-Phases 4-16 run on the CPU too, at a small size, as a rehearsal:
+Phases 4-17 run on the CPU too, at a small size, as a rehearsal:
 ``run_main_path`` (with phase 14 (a) in each leg), ``run_streamed_path``
 (with phases 8 and 9 at its end), ``run_lane_path``, ``run_host_dict_path``,
 ``run_plancache_path``, ``run_serving_path``, ``run_dedup_path``,
 ``run_config1_path``, ``run_storage_path``, ``run_views_path``,
-``run_plancert_path``, ``run_multidevice_path``, ``run_config5_path`` and
-``run_analysis_path`` with ``device="cpu"`` (set ``CSVPLUS_DEVICE_PARSE=1``
+``run_plancert_path``, ``run_multidevice_path``, ``run_config5_path``,
+``run_analysis_path`` and ``run_chaos_path`` with ``device="cpu"`` (set ``CSVPLUS_DEVICE_PARSE=1``
 to take the tier the card takes by default).
 """
 
@@ -312,6 +341,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -405,110 +435,39 @@ def _bound_ms(n: int, targets) -> "tuple[float, str]":
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# The recording and replay of the kernels' calls live in the package
+# (``csvplus_tpu_torch/obs/replay.py``), which the chaos gate shares;
+# these names keep the script's own log.
+
+
 def _mask_vs_plain(cols, targets, nrows: int, mode: str, what: str) -> int:
-    """The mask kernel's wrapper against its plain version on the same
-    inputs; raises unless they are bitwise equal, else returns the max
-    abs error (0)."""
-    import torch
+    from csvplus_tpu_torch.obs import replay
 
-    from csvplus_tpu_torch.ops import mask as M
-
-    got = M.fused_equality_mask(cols, targets, nrows, mode)
-    want = M.fused_equality_mask_plain(cols, targets, mode)
-    err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max()) if nrows else 0
-    if not torch.equal(got, want):
-        raise AssertionError(f"mask kernel != plain at {what}")
-    return err
+    return replay.mask_vs_plain(cols, targets, nrows, mode, what)
 
 
-@contextlib.contextmanager
-def recorded_mask_calls():
-    """Record the inputs of every call the filter makes to the mask
-    kernel's wrapper inside the block; the wrapper still runs (and counts
-    its launches) as usual."""
-    from csvplus_tpu_torch.ops import filter as F
+def recorded_mask_calls(calls=None):
+    from csvplus_tpu_torch.obs import replay
 
-    calls = []
-    wrapper = F.fused_equality_mask
-
-    def record(cols, targets, nrows, mode="all"):
-        calls.append((list(cols), targets, nrows, mode))
-        return wrapper(cols, targets, nrows, mode=mode)
-
-    F.fused_equality_mask = record
-    try:
-        yield calls
-    finally:
-        F.fused_equality_mask = wrapper
+    return replay.recorded_mask_calls(calls)
 
 
 def check_path_masks(calls, label: str) -> dict:
-    """Hold the wrapper against its plain version, bitwise, on the inputs
-    of each recorded call: the path's own columns, targets and mode.  Run
-    after the path's launch count was read, so these launches are not
-    the path's."""
-    worst = 0
-    shapes = set()
-    for cols, targets, nrows, mode in calls:
-        per_col = tuple(len(t) if isinstance(t, (list, tuple)) else 1 for t in targets)
-        shape = f"n={nrows} k={len(cols)} {mode} targets={list(per_col)}"
-        worst = max(worst, _mask_vs_plain(cols, targets, nrows, mode, f"{label} {shape}"))
-        shapes.add(shape)
-    log(f"{label}: mask kernel == plain version, bitwise, in the path's {len(calls)} "
-        f"calls ({'; '.join(sorted(shapes))})")
-    return {"cases": len(calls), "max_abs_err": worst}
+    from csvplus_tpu_torch.obs import replay
+
+    return replay.check_path_masks(calls, label, log=log)
 
 
-@contextlib.contextmanager
 def recorded_pack_calls(calls=None):
-    """Record the inputs and the output of every call the device encode
-    makes to the pack kernel's wrapper inside the block (appended to
-    *calls* when given); the wrapper still runs (and counts its launches)
-    as usual.  The records hold the path's buffers until they are checked."""
-    from csvplus_tpu_torch.ops import parse as P
+    from csvplus_tpu_torch.obs import replay
 
-    calls = [] if calls is None else calls
-    wrapper = P.pack_field_lanes
-
-    def record(data, starts, lens, lanes):
-        out = wrapper(data, starts, lens, lanes)
-        calls.append((data, starts, lens, lanes, out))
-        return out
-
-    P.pack_field_lanes = record
-    try:
-        yield calls
-    finally:
-        P.pack_field_lanes = wrapper
+    return replay.recorded_pack_calls(calls)
 
 
 def check_path_packs(calls, label: str, launches: int, device: str) -> dict:
-    """Hold what the pack kernel's wrapper returned in each recorded call
-    against the plain version on the same inputs (the path's own buffers,
-    strided columns and chunks), bitwise; on the card each call is one of
-    the path's *launches*.  No kernel is launched here.  Drops the
-    records as it goes."""
-    import torch
+    from csvplus_tpu_torch.obs import replay
 
-    from csvplus_tpu_torch.ops import parse as P
-
-    n_calls = len(calls)
-    if device == "cuda" and n_calls != launches:
-        raise AssertionError(f"{label}: {n_calls} recorded pack calls, {launches} launches")
-    worst = 0
-    shapes = set()
-    while calls:
-        data, starts, lens, lanes, out = calls.pop()
-        want = P.pack_field_lanes_plain(data, starts, lens, lanes)
-        if out.shape != want.shape or not torch.equal(out, want):
-            raise AssertionError(f"{label}: pack kernel != plain at m={starts.shape[0]} "
-                                 f"lanes={lanes}")
-        if out.numel():
-            worst = max(worst, int((out.to(torch.int64) - want.to(torch.int64)).abs().max()))
-        shapes.add(lanes)
-    log(f"{label}: pack kernel == plain version, bitwise, in the path's {n_calls} calls "
-        f"(lanes {sorted(shapes)})")
-    return {"cases": n_calls, "max_abs_err": worst}
+    return replay.check_path_packs(calls, label, launches, device, log=log)
 
 
 def _timed_cold(fn, sets, reps: int = 20, batches: int = 5) -> float:
@@ -1207,7 +1166,7 @@ MAIN_LEGS = {"device-parsed": None, "native-encoded": {"CSVPLUS_DEVICE_PARSE": "
 
 def run_main_path(
     n_orders: int, seed: int, device: str, workdir: Path, profile: bool = False,
-    stats: "dict | None" = None, card: str = "",
+    stats: "dict | None" = None, card: str = "", keep: "dict | None" = None,
 ) -> dict:
     """Phase 4: drive both pipelines through the public API on *device*
     and hold them against the oracle, in two legs: the default, where all
@@ -1218,10 +1177,13 @@ def run_main_path(
     launches and times; *profile* adds a ``torch.profiler`` breakdown of
     one more warm run of the native leg.  Each leg ends with phase 14 (a),
     the flagship on the leg's tables (:func:`run_flagship`), its calls
-    counted into *stats*."""
+    counted into *stats*.  *keep* (a dict) gets the generated data for
+    phase 17 under ``"orders"``."""
     stats = {} if stats is None else stats
     t0 = time.perf_counter()
     data = generate(workdir, n_orders, seed)
+    if keep is not None:
+        keep["orders"] = data
     log(f"generated {n_orders:,} orders in {time.perf_counter() - t0:.1f}s")
     out = {"rows": n_orders, "cpu_count": os.cpu_count(), "legs": {}}
     for leg, env in MAIN_LEGS.items():
@@ -2046,38 +2008,11 @@ def _closed_loop(srv, probes, clients: int, timeout: float) -> "tuple[float, lis
     """*clients* closed-loop clients, one request in flight each, the next
     submitted from the completion callback (on the dispatcher thread), as
     ``bench_serve.py``'s headline scenario; returns (seconds, every
-    request's rows in probe order)."""
-    import threading
+    request's rows in probe order).  The chaos gate's serving cases share
+    it (``resilience/chaos.closed_loop``)."""
+    from csvplus_tpu_torch.resilience import chaos
 
-    per = len(probes) // clients
-    results = [None] * (per * clients)
-    remaining = [per * clients]
-    errors = []
-    done = threading.Event()
-
-    def make_cb(slot: int, pos: int):
-        def cb(fut):
-            if fut.error is not None:
-                errors.append(fut.error)
-                done.set()
-                return
-            results[slot * per + pos] = fut.value
-            remaining[0] -= 1
-            if remaining[0] == 0:
-                done.set()
-            elif pos + 1 < per:
-                srv.submit(probes[slot * per + pos + 1], callback=make_cb(slot, pos + 1))
-        return cb
-
-    t0 = time.perf_counter()
-    for c in range(clients):
-        srv.submit(probes[c * per], callback=make_cb(c, 0))
-    if not done.wait(timeout):
-        raise AssertionError(f"closed loop: {remaining[0]} requests still open after {timeout}s")
-    secs = time.perf_counter() - t0
-    if errors:
-        raise AssertionError(f"closed loop: a request failed: {errors[0]!r}")
-    return secs, results
+    return chaos.closed_loop(srv, probes, clients, timeout)
 
 
 def _check_rows(got, want, what: str) -> None:
@@ -2130,7 +2065,8 @@ def _no_mirrors(idx, what: str) -> None:
 def run_serving_path(orders, data: dict, device: str, workdir: Path, seed: int,
                      n_rows: int = N_SERVE_ROWS, n_find: int = N_SERVE_FIND,
                      n_requests: int = N_SERVE_REQUESTS, n_plans: int = N_SERVE_PLANS,
-                     clients: int = N_SERVE_CLIENTS, cap: "int | None" = None) -> dict:
+                     clients: int = N_SERVE_CLIENTS, cap: "int | None" = None,
+                     keep: "dict | None" = None) -> dict:
     """Phase 9: point lookups and the serving tier.
 
     (s1) BASELINE config 2: a unique index on ``cust_id`` over *n_rows*
@@ -2146,7 +2082,10 @@ def run_serving_path(orders, data: dict, device: str, workdir: Path, seed: int,
     answer equals a numpy oracle; the recovery ladder must never engage;
     the mask kernel launches in the plans and replays bitwise.  *cap*
     patches ``DeviceIndex.POINT_MIRROR_MAX_KEYS`` for (s2) only (the CPU
-    rehearsal's small tables)."""
+    rehearsal's small tables).  *keep* (a dict) gets what phase 17 serves
+    from: (s1)'s index and ids under ``"s1"``, and under ``"s2"`` the
+    ``order_id`` index with 64 of its probes, the ``cust_id`` index's
+    first plan and *cap*."""
     import torch
 
     import csvplus_tpu_torch as T
@@ -2201,6 +2140,8 @@ def run_serving_path(orders, data: dict, device: str, workdir: Path, seed: int,
         s1["server"] = _served(srv, [f"c{ids[i]}" for i in sel], want_s1(sel), clients,
                                "(s1) server")
     out["s1"] = s1
+    if keep is not None:
+        keep["s1"] = (idx, ids)
     del src, idx, table, seq, many
     gc.collect()
 
@@ -2308,6 +2249,9 @@ def run_serving_path(orders, data: dict, device: str, workdir: Path, seed: int,
             f"kernel launches {launches}; == oracle; results on {device}; no host mirror; "
             f"peak device memory {peak} bytes over the inputs' {base}")
         out["s2"] = s2
+        if keep is not None:
+            keep["s2"] = {"order_idx": order_idx, "order_probes": probes[:64],
+                          "plan": plans[0], "cap": cap}
         del order_idx, cust_idx, plans
         gc.collect()
     finally:
@@ -2944,7 +2888,7 @@ def settle_f4(mi, wal_dir: Path, workdir: Path, probes, device: str,
 def run_storage_path(n_rows: int, seed: int, device: str, workdir: Path,
                      batch_rows: int = STORAGE_BATCH_ROWS,
                      n_lookups: int = STORAGE_LOOKUPS, reader_pause_s: float = 0.0,
-                     f4: bool = False) -> dict:
+                     f4: bool = False, keep: "dict | None" = None) -> dict:
     """Phase 12: a durable ``MutableIndex`` on *device* over BASELINE
     config 2's layout (``_serve_csv``, *n_rows* rows, ``index_on
     ("cust_id")``), its WAL in *workdir*, in ``bench_delta.py``'s shape:
@@ -2961,7 +2905,9 @@ def run_storage_path(n_rows: int, seed: int, device: str, workdir: Path,
     ``rebuild_reference`` and a numpy oracle of the logical stream agree;
     a tail of writes after the checkpoint is recovered by ``MutableIndex.open`` checksum-equal; then
     ``LookupServer.append`` / ``delete`` acks are read back.  No kernel is
-    built or loaded in the whole phase (``RecompileWatch``)."""
+    built or loaded in the whole phase (``RecompileWatch``).  *keep* (a
+    dict) gets the open durable index and probes of its keys under
+    ``"storage"`` for phase 17, which closes it."""
     import csvplus_tpu_torch as T
     from csvplus_tpu_torch.obs.recompile import RecompileWatch
     from csvplus_tpu_torch.serve import LookupServer
@@ -3146,8 +3092,12 @@ def run_storage_path(n_rows: int, seed: int, device: str, workdir: Path,
     recompiles = watch.delta()
     if recompiles:
         raise AssertionError(f"the storage phase built or loaded kernels: {recompiles}")
-    mi.close()
-    shutil.rmtree(wal_dir, ignore_errors=True)
+    if keep is not None:
+        keep["storage"] = {"mi": mi, "probes": [(k.decode(),) for k in (
+            base_keys[0], base_keys[3], base_keys[-1], keys[0], keys[7])] + [("n5",), ("zz",)]}
+    else:
+        mi.close()
+        shutil.rmtree(wal_dir, ignore_errors=True)
     out["server"] = {"acks": acks, "cell": {k: cell[k] for k in (
         "append_reqs", "delete_reqs", "rows_appended", "deltas_live", "wal_records",
         "wal_fsyncs")}}
@@ -3275,7 +3225,7 @@ def run_views_path(n_rows: int, seed: int, device: str, workdir: Path,
     from csvplus_tpu_torch.obs.recompile import RecompileWatch
     from csvplus_tpu_torch.obs.span import tracer
     from csvplus_tpu_torch.ops import mask as M
-    from csvplus_tpu_torch.resilience import faults
+    from csvplus_tpu_torch.resilience import chaos
     from csvplus_tpu_torch.serve import LookupServer, PlanCache
     from csvplus_tpu_torch.storage import MutableIndex
 
@@ -3409,26 +3359,26 @@ def run_views_path(n_rows: int, seed: int, device: str, workdir: Path,
                         raise AssertionError(f"phase 13 server write {s}: {name} not fresh "
                                              f"by the next cycle")
                 parity(f"server write {s}")
-            # one views:refresh fault: the prior snapshot stays live, the
-            # next cycle applies the queued event
-            view = views["orders_enriched"]
-            snap0, before = view.snapshot(), view.checksums()
+            # one views:refresh fault, through the chaos gate's case (phase
+            # 17 reports it): a write cycle appends a batch and deletes a
+            # live key, its refresh crashes, the prior snapshot stays live
+            # until the next cycle applies both events; its flight dump
+            # names the site.  The phase records the case's mask calls.
+            gone = o[1]  # a key of the last server batch, still live
             rows, o, c, p = _view_batch(n_batches + 1 + server_batches, batch_rows)
-            with faults.active(faults.FaultPlan([
-                    {"site": "views:refresh", "at": [0], "error": "crash"}])):
-                if srv.submit_append(rows, index="orders").result(timeout=120) != batch_rows:
-                    raise AssertionError("phase 13: the faulted cycle's write was not acked")
-                oracle.append(o, c, p)
-                t1 = time.perf_counter()
-                while srv.snapshot()["by_view"]["orders_enriched"]["failures"] < 1:
-                    if time.perf_counter() - t1 > 60:
-                        raise AssertionError("phase 13: the injected refresh fault never fired")
-                    time.sleep(0.0002)
-                if view.snapshot() is not snap0 or view.checksums() != before or \
-                        view.pending != 1:
-                    raise AssertionError("phase 13: a failed refresh changed the live snapshot")
-                srv.submit(o[0].decode(), index="orders").result(timeout=120)
-            if view.pending or not view.read(o[0].decode()):
+            out["chaos_view"] = chaos.with_timeout(
+                "view_refresh_crash", lambda: chaos.case_view_refresh_crash(
+                    device=device, audit=False, target={
+                        "server": srv, "view": "orders_enriched", "index": "orders",
+                        "append": rows, "delete": gone.decode(), "lookup": o[0].decode()}),
+                log=log)
+            if not out["chaos_view"]["ok"]:
+                raise AssertionError(f"phase 13: the refresh crash case failed: "
+                                     f"{out['chaos_view']}")
+            oracle.append(o, c, p)
+            oracle.delete(gone)
+            if views["orders_enriched"].pending or not views["orders_enriched"].read(
+                    o[0].decode()):
                 raise AssertionError("phase 13: the next cycle did not apply the queued event")
             parity("after the refresh fault")
             snap = srv.snapshot()
@@ -4683,6 +4633,139 @@ def run_analysis_path(device: str, root: Path, card: str) -> dict:
     return out
 
 
+# -- phase 17: the chaos gate on the state the earlier phases built ----------
+
+CHAOS_PATH = "phase 17 chaos gate"
+CHAOS_SERVE_PROBES = 20_000  # through (s1)'s server, 1 in 17 a miss
+CHAOS_PENDING = 256  # requests pending at the dispatcher crash
+CHAOS_CHUNK_BYTES = 8 << 20  # ~30 chunks of phase 4's 236 MB file
+CHAOS_WORKERS = (1, 2, 4)
+CHAOS_READ_WORKERS = (1, 4)
+CHAOS_WAL_BASE_ROWS = 100_000
+
+
+def run_chaos_path(state: dict, device: str, card: str, *,
+                   serve_probes: int = CHAOS_SERVE_PROBES,
+                   clients: int = N_SERVE_CLIENTS, pending: int = CHAOS_PENDING,
+                   chunk_bytes: int = CHAOS_CHUNK_BYTES, shards: int = C5_SHARDS,
+                   wal_base_rows: int = CHAOS_WAL_BASE_ROWS,
+                   workdir: "Path | None" = None) -> dict:
+    """Phase 17: the chaos gate (``csvplus_tpu_torch.resilience.chaos``),
+    its ten cases on what phases 4, 9, 12 and 13 left in *state*.
+    (s1)'s 1M-row index serves ``serve_retry`` (*serve_probes* probes
+    from *clients* closed-loop clients, and one (s2) plan with phase 9's
+    filter retried past an ``exec:device`` fault), ``serve_degrade`` (and
+    its leg over the mirror cap on (s2)'s 50M ``order_id`` index),
+    ``dispatcher_crash`` (*pending* requests) and ``disarmed_overhead``;
+    phase 4's 10M-order file is streamed in *chunk_bytes* chunks by the
+    ingest cases (placed tables: the device-parse tier, then K in
+    ``CHAOS_WORKERS``; checksums also against phase 4's numpy oracle) and
+    joined to its customers and products on *shards* shards of *device*
+    by the mesh case; phase 12's durable index crashes its compactor
+    under a server; the eight WAL crash children, started together,
+    build *wal_base_rows*-row bases on *device*; ``view_refresh_crash`` ran
+    inside phase 13.  Each case's record carries its seconds, its device
+    memory readings and its kernel replay.  Prints a line per case and a
+    summary line; any failed case raises."""
+    from csvplus_tpu_torch.ops import mask as M
+    from csvplus_tpu_torch.ops import parse as P
+    from csvplus_tpu_torch.ops.join import DeviceIndex
+    from csvplus_tpu_torch.resilience import chaos as G
+
+    t_phase = time.perf_counter()
+    data = state["orders"]
+    paths = {k: str(v) for k, v in data["paths"].items()}
+    s1_idx, s1_ids = state["s1"]
+    s2 = state["s2"]
+    storage = state["storage"]
+    want_sums = ingest_oracle(data)
+    root = Path(tempfile.mkdtemp(prefix="chaos-", dir=workdir))
+    runs = {
+        "serve_retry": lambda: G.case_serve_retry(
+            s1_idx, s1_ids, device=device, n_probes=serve_probes, clients=clients,
+            plan=s2["plan"], audit=True),
+        "serve_degrade": lambda: G.case_serve_degrade(
+            s1_idx, s1_ids, device=device, above_cap=(s2["order_idx"], s2["order_probes"]),
+            audit=True),
+        "dispatcher_crash": lambda: G.case_dispatcher_crash(
+            s1_idx, s1_ids, device=device, n_requests=pending),
+        "ingest_crash_recovery": lambda: G.case_ingest_crash_recovery(
+            str(root), device=device, path=paths["orders"], chunk_bytes=chunk_bytes,
+            workers=CHAOS_WORKERS, placed=True, want_sums=want_sums, audit=True),
+        "ingest_read_fault_typed": lambda: G.case_ingest_read_fault_typed(
+            str(root), device=device, path=paths["orders"], chunk_bytes=chunk_bytes,
+            workers=CHAOS_READ_WORKERS, placed=True, audit=True),
+        "mesh_join_under_ingest_faults": lambda: G.case_mesh_join_under_ingest_faults(
+            str(root), device=device, shards=shards, orders=paths["orders"],
+            customers=paths["cust"], products=paths["prod"], chunk_bytes=chunk_bytes,
+            audit=True),
+        "storage_compact_crash": lambda: G.case_storage_compact_crash(
+            device=device, mi=storage["mi"], key="cust_id", probes=storage["probes"],
+            serve=True, audit=True),
+        "wal_crash_matrix": lambda: G.case_wal_crash_matrix(
+            str(root), device=device, base_rows=wal_base_rows, audit=True),
+        "disarmed_overhead": lambda: G.case_disarmed_overhead(s1_idx, s1_ids, device=device),
+    }
+    old_cap = DeviceIndex.POINT_MIRROR_MAX_KEYS
+    if s2["cap"] is not None:
+        DeviceIndex.POINT_MIRROR_MAX_KEYS = s2["cap"]  # the CPU rehearsal's small tables
+    cases = {}
+    M.launches = P.launches = 0  # the gate's run starts here
+    try:
+        for name in G.CASES:
+            cases[name] = state["view"] if name == "view_refresh_crash" else \
+                G.with_timeout(name, runs[name], log=log)
+        total = {"mask": M.launches, "pack": P.launches}  # ... and ends here
+    finally:
+        DeviceIndex.POINT_MIRROR_MAX_KEYS = old_cap
+        storage["mi"].close()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {"mask": 0, "pack": 0}
+    replayed = {"mask": 0, "pack": 0}
+    worst = 0
+    for name, rec in cases.items():
+        checks = rec.get("device_checks", {})
+        mem = checks.get("memory")
+        kr = checks.get("kernel_replay")
+        if kr is not None and name != "view_refresh_crash":  # phase 13 counted its own
+            for k in launches:
+                launches[k] += kr["launches"][k]
+                replayed[k] += kr["replayed"][k]
+            worst = max(worst, kr["max_abs_err"])
+        log(f"phase 17 {name}: {'ok' if rec.get('ok') else 'FAIL ' + str(rec.get('error'))} "
+            f"in {rec.get('seconds')}s; device memory allocated after the fault-free run "
+            f"{None if mem is None else mem['allocated_after_oracle']}, after the faulted run "
+            f"{None if mem is None else mem['allocated_after_faulted']}; kernel launches "
+            f"{None if kr is None else kr['launches']}, replayed "
+            f"{None if kr is None else kr['replayed']} | {card}")
+    summary = G.summary(cases, device)
+    out = {"summary": summary, "cases": cases, "launches": launches["mask"],
+           "pack_launches": launches["pack"],
+           "mask_check": {"cases": replayed["mask"], "max_abs_err": worst},
+           "pack_check": {"cases": replayed["pack"], "max_abs_err": worst},
+           "seconds": time.perf_counter() - t_phase}
+    over = cases["disarmed_overhead"]
+    log(f"phase 17 summary {json.dumps(summary)}; disarmed inject() {over.get('per_call_ns')} ns "
+        f"a call, {over.get('per_request_us')} us a coalesced request (mean batch "
+        f"{over.get('mean_batch')}), {over.get('isolated_rt_us')} us an isolated round trip: "
+        f"{over.get('overhead_pct_coalesced')} % / {over.get('overhead_pct_isolated')} %; "
+        f"kernel launches {launches} (all replayed bitwise: {replayed}); "
+        f"{out['seconds']:.1f}s | {card}")
+    if summary["failed"]:
+        raise AssertionError(f"phase 17: chaos cases failed: {summary['failed']}")
+    if device == "cuda":
+        if launches["mask"] < 1 or launches["pack"] < 1:
+            raise AssertionError(f"phase 17: the gate launched {launches}, not both kernels")
+        if replayed["mask"] < launches["mask"] or replayed["pack"] != launches["pack"]:
+            raise AssertionError(f"phase 17: {replayed} replayed for {launches} launches")
+        # every launch in the phase is a case's (recorded) or a replay's
+        if total["mask"] != launches["mask"] + replayed["mask"] or \
+                total["pack"] != launches["pack"]:
+            raise AssertionError(f"phase 17: {total} launches in all, {launches} by the "
+                                 f"cases and {replayed} replays")
+    return out
+
+
 def kernels_line(mask: dict, pack: dict, paths: dict, streamed: dict, plancache: dict,
                  multidevice: dict) -> list:
     """The ``{"kernels": [...]}`` entries: each kernel's launches on this
@@ -4728,7 +4811,8 @@ def kernels_line(mask: dict, pack: dict, paths: dict, streamed: dict, plancache:
                for leg, v in streamed["ingest"].items()},
             **{name: paths[name]["pack_launches"] for name in (
                 "14M lane dictionary", "13M host dictionary", "50M config 4 dedup",
-                "10M config 1", C5_PACK_PATH, "phase 15 (c) 10M native-encoded, 7 shards")},
+                "10M config 1", C5_PACK_PATH, "phase 15 (c) 10M native-encoded, 7 shards",
+                CHAOS_PATH)},
             "phase 14 multi-device": multidevice["launches"]["pack"]},
         "max_abs_err": max([pack["max_abs_err"]] + [p["pack_check"]["max_abs_err"]
                                                      for p in paths.values() if "pack_check" in p]),
@@ -4787,6 +4871,18 @@ def build_kernels(here: Path) -> None:
         + ptxas_summary(cubuild.ptxas_report(mask_lib)))
 
 
+def _prune(workdir: Path, keep) -> None:
+    """Remove everything in *workdir* but the paths in *keep*."""
+    keep = {Path(p).resolve() for p in keep}
+    for entry in workdir.iterdir():
+        if entry.resolve() in keep:
+            continue
+        if entry.is_dir():
+            shutil.rmtree(entry, ignore_errors=True)
+        else:
+            entry.unlink()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=20160914)
@@ -4822,32 +4918,41 @@ def main(argv=None) -> int:
     workdir = here / ".chip_smoke_data"
     workdir.mkdir(exist_ok=True)
     xla = {}  # phase 14's calls of the ported jitted functions
+    state = {}  # what phase 17 runs on: phases 4, 9, 12 and 13 leave it here
     try:
         main_path = run_main_path(N_ORDERS, args.seed, "cuda", workdir, args.profile,
-                                  stats=xla, card=smi)
-        streamed = run_streamed_path(N_ORDERS_STREAMED, args.seed, "cuda", workdir)
+                                  stats=xla, card=smi, keep=state)
+        streamed = run_streamed_path(N_ORDERS_STREAMED, args.seed, "cuda", workdir,
+                                     serve={"keep": state})
         lane = run_lane_path(N_LANE_ROWS, N_PROBE_REFS, args.seed, "cuda", workdir)
         host_dict = run_host_dict_path(N_HOST_DICT_ROWS, args.seed, "cuda", workdir)
         dedup = run_dedup_path(N_DEDUP_ROWS, N_DEDUP_DISTINCT, args.seed, "cuda", workdir)
         config1 = run_config1_path(N_PEOPLE, args.seed, "cuda", workdir)
-        storage = run_storage_path(N_SERVE_ROWS, args.seed, "cuda", workdir, f4=args.f4)
+        storage = run_storage_path(N_SERVE_ROWS, args.seed, "cuda", workdir, f4=args.f4,
+                                   keep=state)
         views = run_views_path(VIEW_ROWS, args.seed, "cuda", workdir)
+        state["view"] = views["chaos_view"]
         log(f"phase 13's numbers above: {kind} | nvidia-smi: {smi}")
         plancert = run_plancert_path(3, "cuda")
         stage_diff = check_stage_diff(main_path)
+        # phase 17 needs phase 4's files and phase 12's index directory
+        _prune(workdir, keep=[*state["orders"]["paths"].values(), workdir / "mutable"])
+        multidevice = run_multidevice_path(args.seed, "cuda", xla, smi)
+        log(f"phase 15 (d): dryrun_multichip ran paths "
+            f"{[p.split()[0] for p in multidevice['d_dryrun']['paths']]} (every path) | {smi}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        c5_dir = workdir / "config5"
+        c5_dir.mkdir()
+        try:
+            config5 = run_config5_path(args.seed, "cuda", c5_dir, smi)
+        finally:
+            shutil.rmtree(c5_dir, ignore_errors=True)
+        analysis = run_analysis_path("cuda", here, smi)
+        chaos_path = run_chaos_path(state, "cuda", smi, workdir=workdir)
+        del state
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    multidevice = run_multidevice_path(args.seed, "cuda", xla, smi)
-    log(f"phase 15 (d): dryrun_multichip ran paths "
-        f"{[p.split()[0] for p in multidevice['d_dryrun']['paths']]} (every path) | {smi}")
-    gc.collect()
-    torch.cuda.empty_cache()
-    workdir.mkdir(exist_ok=True)
-    try:
-        config5 = run_config5_path(args.seed, "cuda", workdir, smi)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    analysis = run_analysis_path("cuda", here, smi)
     xla_table = xla_rows(xla)
     for row in xla_table:
         log(f"phase 14 torch port of {row['replaces']}: {row['name']} x{row['launches']}, "
@@ -4862,7 +4967,7 @@ def main(argv=None) -> int:
              "50M plan cache": plancache, "serving": serving,
              "14M lane dictionary": lane, "13M host dictionary": host_dict,
              "50M config 4 dedup": dedup, "10M config 1": config1, "1M views": views,
-             "plancert": plancert, "phase 16 analysis": analysis}
+             "plancert": plancert, "phase 16 analysis": analysis, CHAOS_PATH: chaos_path}
     path_cases = sum(p["mask_check"]["cases"] for p in paths.values())
     log(f"mask kernel == plain version, bitwise, in {mask['cases']} matrix cases and "
         f"{path_cases} calls at the paths' own shapes")
@@ -4891,6 +4996,7 @@ def main(argv=None) -> int:
     log("phase 14 ported jitted functions " + json.dumps(xla_table))
     log("phase 15 config 5 path " + json.dumps(config5))
     log("phase 16 analysis path " + json.dumps(analysis))
+    log("phase 17 chaos path " + json.dumps(chaos_path, default=str))
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,9 +13,10 @@ ENV001-R lint (``analysis/astlint.py``) checks both directions, and
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional
+from typing import Dict, Iterator, Mapping, Optional
 
 
 @dataclass(frozen=True)
@@ -165,6 +166,42 @@ def env_float(name: str, default: float) -> float:
         return float(os.environ.get(name, default))
     except (TypeError, ValueError):
         return default
+
+
+def environ_with(values: Mapping[str, Optional[str]]) -> Dict[str, str]:
+    """A copy of this process's environment with the registered knobs in
+    *values* set (``None`` unsets one): the environment of a subprocess."""
+    env = dict(os.environ)
+    for name, value in values.items():
+        _require(name)
+        if value is None:
+            env.pop(name, None)
+        else:
+            env[name] = str(value)
+    return env
+
+
+@contextlib.contextmanager
+def env_override(values: Mapping[str, Optional[str]]) -> Iterator[None]:
+    """Set the registered knobs in *values* for the block (``None``
+    unsets one) and restore each one's previous state after it.  The
+    environment is the process's: every thread sees the change."""
+    prev = {}
+    for name, value in values.items():
+        _require(name)
+        prev[name] = os.environ.get(name)
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = str(value)
+    try:
+        yield
+    finally:
+        for name, value in prev.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
 
 
 def render_env_md() -> str:

@@ -65,6 +65,7 @@ PHASES = {
     "14-multidevice": (False, lambda C, d: _multidevice(C)),
     "15-config5": (True, lambda C, d: _config5(C, d)),
     "16-analysis": (False, lambda C, d: _analysis(C)),
+    "17-chaos": (False, lambda C, d: _chaos(C, d)),
 }
 
 NO_FILTER = {"10-dedup", "12-storage", "14-multidevice"}  # no filter: checked in their helper
@@ -228,6 +229,72 @@ def _serving(C, workdir):
     return out
 
 
+def _chaos_state(C, workdir):
+    """What phases 4, 9, 12 and 13 leave for phase 17, at a small size:
+    phase 4's 20,000 orders, (s1)'s index over 20,000 rows, (s2)'s
+    indexes over the orders with the mirror cap patched between them and
+    (s1)'s, phase 12's durable index, and the view case's record."""
+    import csvplus_tpu_torch as T
+    from csvplus_tpu_torch.resilience import chaos as G
+    from csvplus_tpu_torch.storage import MutableIndex
+
+    data = C.generate(workdir, 20_000, 1)
+    path, ids = C._serve_csv(workdir, 20_000)
+    s1 = T.from_file(str(path)).on_device("cpu").unique_index_on("cust_id").sync()
+    orders = T.from_file(str(data["paths"]["orders"])).on_device("cpu")
+    pred = T.Any(*[T.Like({"prod_id": f"p{i}"}) for i in range(1, C.N_PLAN_PRODUCTS + 1)])
+    plan = orders.index_on("cust_id").find(f"c{data['cust'][0]}").filter(pred).plan
+    base = T.from_file(str(path)).on_device("cpu").index_on("cust_id").sync()
+    mi = MutableIndex(base, mode="append", directory=str(workdir / "mutable"))
+    mi.append_rows([{"cust_id": "d1", "v": "dv1"}])
+    view = G.with_timeout("view_refresh_crash", lambda: G.case_view_refresh_crash(device="cpu"))
+    return {"orders": data, "s1": (s1, ids),
+            "s2": {"order_idx": orders.unique_index_on("order_id").sync(),
+                   "order_probes": [f"o{i}" for i in range(0, 20_000, 331)] + ["o99999"],
+                   "plan": plan, "cap": 50_000},
+            "storage": {"mi": mi, "probes": [("c0",), ("c21",), ("d1",), ("n5",), ("zz",)]},
+            "view": view}
+
+
+def _chaos(C, workdir):
+    """Phase 17 on the CPU: the ten cases on the small state, each
+    ``ok``; the plan's mask calls and the device-parse leg's pack calls
+    are recorded and replayed; the gate's scratch goes."""
+    out = C.run_chaos_path(_chaos_state(C, workdir), "cpu", "cpu", serve_probes=2_000,
+                           clients=8, pending=64, chunk_bytes=64 << 10, wal_base_rows=400,
+                           workdir=workdir)
+    cases = out["cases"]
+    assert out["summary"]["value"] == 10 and out["summary"]["failed"] == []
+    assert cases["serve_retry"]["plan"]["bitwise_equal"] and cases["serve_retry"]["requests"] == 2_000
+    assert cases["serve_degrade"]["above_cap"]["ok"]
+    assert cases["dispatcher_crash"]["pending_futures"] == 64
+    legs = cases["ingest_crash_recovery"]["per_workers"]
+    assert set(legs) == {"device-parse", "K=1", "K=2", "K=4"}
+    assert legs["device-parse"]["workers"] == 1 and legs["K=4"]["workers"] == 4
+    assert cases["ingest_crash_recovery"]["oracle_equal"]
+    assert cases["mesh_join_under_ingest_faults"]["rows"] == 20_000
+    assert cases["storage_compact_crash"]["served"]
+    assert cases["wal_crash_matrix"]["windows_total"] == 8
+    assert out["launches"] == out["pack_launches"] == 0  # the plain versions launch nothing
+    assert out["mask_check"]["cases"] > 0 and out["pack_check"]["cases"] > 0
+    assert not [p for p in workdir.iterdir() if p.name.startswith("chaos-")]
+    return out
+
+
+def test_chaos_phase_fails_when_a_case_fails(tmp_path, monkeypatch):
+    """A failed case, or one that raises, fails phase 17: nothing
+    catches it and carries on."""
+    from csvplus_tpu_torch.resilience import chaos as G
+
+    C = _chip_smoke()
+    state = _chaos_state(C, tmp_path)
+    monkeypatch.setattr(G, "case_disarmed_overhead", lambda *a, **k: {"ok": False})
+    monkeypatch.setattr(G, "case_wal_crash_matrix", lambda *a, **k: 1 / 0)
+    with pytest.raises(AssertionError, match="disarmed_overhead.*wal_crash_matrix"):
+        C.run_chaos_path(state, "cpu", "cpu", serve_probes=500, clients=4, pending=16,
+                         chunk_bytes=64 << 10, workdir=tmp_path)
+
+
 def _analysis(C):
     """Phase 16 (a) and (c) on the CPU: the payload against the committed
     snapshot, and the three CLI commands with ``--device cpu``."""
@@ -319,7 +386,7 @@ def test_kernels_line_lists_every_path():
     names = ["10M device-parsed", "10M native-encoded", "50M streamed", "50M plan cache",
              "serving", "14M lane dictionary", "13M host dictionary", "50M config 4 dedup",
              "10M config 1", "1M views", "plancert", C.C5_MAIN_PATH, C.C5_PACK_PATH,
-             "phase 15 (c) 10M native-encoded, 7 shards"]
+             "phase 15 (c) 10M native-encoded, 7 shards", C.CHAOS_PATH]
     paths = {n: {"launches": i, "pack_launches": 0, "mask_check": {"max_abs_err": 0}}
              for i, n in enumerate(names)}
     streamed = {"ingest": {"default": {"pack_launches": 0}, "auto": {"pack_launches": 0}}}
@@ -335,6 +402,8 @@ def test_kernels_line_lists_every_path():
     assert by_path[C.C5_MAIN_PATH] == kernels[0]["launches"] == names.index(C.C5_MAIN_PATH)
     assert by_path["1M views"] == names.index("1M views")
     assert by_path["plancert"] == names.index("plancert")
+    assert by_path[C.CHAOS_PATH] == names.index(C.CHAOS_PATH)
+    assert C.CHAOS_PATH in kernels[1]["launches_by_path"]
     assert set(names) <= set(by_path)
     assert by_path["phase 14 multi-device"] == 0
     assert kernels[1]["launches_by_path"]["phase 14 multi-device"] == 0
