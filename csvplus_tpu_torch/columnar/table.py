@@ -546,22 +546,32 @@ class StringColumn:
         lanes = lanes_for_width(MAX_LANE_BYTES)
         return tuple(torch.from_numpy(x).to(dev) for x in pack_host(sub, lanes)), pos
 
-    def renumbered_to_col(self, other) -> torch.Tensor:
+    def renumbered_to_col(self, other, tally: "dict | None" = None) -> torch.Tensor:
         """This column's codes in *other*'s code space (the probe side of
         a join): the device lane translation when either side keeps its
         dictionary on the device (no host dictionary is built), the host
         translation table otherwise.  An ``IntColumn`` *other* is demoted
-        to its dictionary."""
+        to its dictionary.
+
+        *tally* (a stage's dict) gains ``host_entries``, the dictionary
+        entries searched on the host, and ``h2d_bytes``, the bytes the
+        translation sent up from the host: the translation table, or the
+        lanes and slot maps of a host dictionary."""
         if other.kind == "int":
             other = other._demote()
         if self.dev_dictionary is None and other.dev_dictionary is None:
-            return self.renumbered_to(other.dictionary)
+            return self.renumbered_to(other.dictionary, tally)
         from ..ops.lanes import translate_lanes
 
         if self.dict_size == 0:
+            if tally is not None:
+                tally_counts(tally, host_entries=0, h2d_bytes=0)
             return self.storage
         q_lanes, q_pos = self._lanes_narrow()
         b_lanes, b_pos = other._lanes_narrow()
+        if tally is not None:
+            sent = _lanes_uploaded(self, q_lanes, q_pos) + _lanes_uploaded(other, b_lanes, b_pos)
+            tally_counts(tally, host_entries=0, h2d_bytes=sent)
         codes = self.storage
         if b_lanes[0].shape[0] == 0 or q_lanes[0].shape[0] == 0:
             return per_shard(lambda c: torch.where(c >= 0, ABSENT, c), codes)
@@ -580,12 +590,16 @@ class StringColumn:
             trans = full
         return apply_code_translation(codes, trans.to(storage_device(codes)))
 
-    def renumbered_to(self, other_dictionary: np.ndarray) -> torch.Tensor:
+    def renumbered_to(
+        self, other_dictionary: np.ndarray, tally: "dict | None" = None
+    ) -> torch.Tensor:
         """This column's codes in another dictionary's code space (host
         translation table + device gather); unmatched -> -1, negative
         codes pass through.  This is how a probe-side join key enters the
-        index's key space."""
+        index's key space.  *tally* as :meth:`renumbered_to_col` says."""
         if self.dictionary.size == 0:
+            if tally is not None:
+                tally_counts(tally, host_entries=0, h2d_bytes=0)
             return self.storage
         pos = np.searchsorted(other_dictionary, self.dictionary)
         pos = np.clip(pos, 0, max(other_dictionary.size - 1, 0))
@@ -595,8 +609,26 @@ class StringColumn:
             else np.zeros(self.dictionary.size, dtype=bool)
         )
         trans = np.where(ok, pos, -1).astype(np.int32)
+        if tally is not None:
+            tally_counts(tally, host_entries=int(self.dictionary.size), h2d_bytes=trans.nbytes)
         codes = self.storage
         return apply_code_translation(codes, torch.from_numpy(trans).to(storage_device(codes)))
+
+
+def tally_counts(tally: dict, **counts: int) -> None:
+    """Add *counts* into a stage's dict.  Callers pass a tally only when
+    the stage is recorded (``telemetry.live()``), so an unrecorded stage
+    computes no count."""
+    for k, v in counts.items():
+        tally[k] = tally.get(k, 0) + v
+
+
+def _lanes_uploaded(col: StringColumn, lanes: tuple, pos) -> int:
+    """Bytes ``_lanes_narrow`` sent up from *col*'s host dictionary: its
+    packed lanes and slot map (0 for a dictionary kept on the device)."""
+    if col.dev_dictionary is not None:
+        return 0
+    return sum(x.numel() * x.element_size() for x in lanes) + (0 if pos is None else pos.nbytes)
 
 
 def merge_with_fallback(primary: StringColumn, fallback: StringColumn) -> StringColumn:

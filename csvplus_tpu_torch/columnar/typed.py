@@ -41,7 +41,9 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import ShardedRows, assemble
-from .table import gather_storage, host_array, per_shard, split_like, storage_device
+from .table import (
+    gather_storage, host_array, per_shard, split_like, storage_device, tally_counts,
+)
 
 PAD_VALUE = np.int32(np.iinfo(np.int32).min)
 
@@ -294,24 +296,34 @@ class IntColumn:
             self._build_translation(vals, cand, storage_device(self._values))
         )
 
-    def renumbered_to_col(self, other) -> torch.Tensor:
+    def renumbered_to_col(self, other, tally: "dict | None" = None) -> torch.Tensor:
         """Rows translated into *other*'s code space (the probe side of a
         join).  A StringColumn *other* has its dictionary parsed
         numerically, so self stays value lanes; an IntColumn *other* is
         demoted first (build sides are index tables whose key columns
         hold code semantics).  The parsed table is cached on *other* per
-        prefix, so repeated probes of one build side parse it once."""
+        prefix, so repeated probes of one build side parse it once.
+
+        *tally* (a stage's dict) gains ``host_entries``, the build
+        dictionary's entries parsed on the host, and ``h2d_bytes``, the
+        translation state sent up: both 0 when the cache serves."""
         if isinstance(other, IntColumn):
             other = other._demote()
         cache = getattr(other, "_affix_trans_cache", None)
         if cache is None:
             cache = other._affix_trans_cache = {}
         hit = cache.get(self.prefix)
-        if hit is None:
+        missed = hit is None
+        if missed:
             cand, vals = parse_affix_dictionary(other.dictionary, self.prefix)
             hit = cache[self.prefix] = self._build_translation(
                 vals, cand, storage_device(self._values)
             )
+        if tally is not None:
+            entries = int(other.dictionary.size) if missed else 0
+            sent = sum(x.numel() * x.element_size() for x in hit[1:]
+                       if isinstance(x, torch.Tensor)) if missed else 0
+            tally_counts(tally, host_entries=entries, h2d_bytes=sent)
         return self._translate_by_values(hit)
 
 

@@ -377,22 +377,42 @@ class Index:
         impl.dev = None
 
     def _device_policy_dedup(self, policy: str) -> None:
-        from .ops.join import DeviceIndex
+        """The policy's run-boundary dedup, in three stages: the run
+        starts compared on the device and their flags copied down
+        (``dedup:run-starts``, ``d2h_bytes``), the kept rows' positions
+        picked on the host and copied up (``dedup:select``,
+        ``h2d_bytes``), and the kept rows gathered (``dedup:gather``)
+        before the index is packed again."""
+        from .ops.join import DeviceIndex, _flat
         from .ops.sort import run_starts
+        from .utils.observe import telemetry
 
         impl = self._impl
         table = impl.dev.table
-        starts = run_starts(table, impl.columns)
-        if policy == "first":
-            keep = starts
-        else:  # "last": a row is kept when the NEXT row starts a new run
-            keep = np.roll(starts, -1)
-            if keep.size:
-                keep[-1] = True
-        if keep.all():
-            return
-        sel = torch.from_numpy(np.flatnonzero(keep)).to(table.device)
-        impl.dev = DeviceIndex.build(table.gather(sel), impl.columns)
+        n = table.nrows
+        with telemetry.stage("dedup:run-starts", n) as stage:
+            starts = run_starts(table, impl.columns)  # a host copy: no barrier
+            stage["d2h_bytes"] = starts.nbytes
+        with telemetry.stage("dedup:select", n) as stage:
+            if policy == "first":
+                keep = starts
+            else:  # "last": a row is kept when the NEXT row starts a new run
+                keep = np.roll(starts, -1)
+                if keep.size:
+                    keep[-1] = True
+            if keep.all():
+                stage["h2d_bytes"] = 0
+                return
+            pos = np.flatnonzero(keep)
+            sel = torch.from_numpy(pos).to(table.device)
+            stage["rows_out"] = int(pos.size)
+            stage["h2d_bytes"] = pos.nbytes
+            telemetry.barrier(sel)
+        with telemetry.stage("dedup:gather", n) as stage:
+            kept = table.gather(sel)
+            stage["rows_out"] = kept.nrows
+            telemetry.barrier(_flat([c.storage for c in kept.columns.values()]))
+        impl.dev = DeviceIndex.build(kept, impl.columns)
         impl.rows = None
         self.device_table = impl.dev
 

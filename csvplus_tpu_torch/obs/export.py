@@ -8,7 +8,8 @@ Port of ``csvplus_tpu/obs/export.py``.  Two consumers, two formats:
   directly.  :func:`export_chrome_trace` takes the same ``log_dir`` as
   :func:`csvplus_tpu_torch.utils.observe.profile_to`, so the host-side
   span trace and the ``torch.profiler`` trace of one run land side by
-  side and open in the same Perfetto session.
+  side and open in the same Perfetto session, on one time axis: a span's
+  ``ts`` is where the profiler's Chrome trace puts its range.
 * :func:`spans_to_json` / :func:`write_spans_jsonl` emit one flat JSON
   object per span, the shape bench artifacts embed and the ``obs diff``
   tooling consumes.
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Union
 
@@ -31,23 +33,67 @@ from .span import Span, Trace, tracer
 #: "X" events but NOT for "M" metadata (per the Trace Event spec).
 _REQUIRED_EVENT_KEYS = ("name", "ph", "pid", "tid")
 
+#: The profiler's Chrome trace writes an event's Unix-epoch time as
+#: microseconds since its ``baseTimeNanoseconds``, which keeps the numbers
+#: small enough for a double.  libkineto takes that base as the start of
+#: the current interval of this many seconds since the epoch
+#: (``ChromeTraceBaseTime``): the base assumed when no profiler trace is
+#: at hand to read it from.
+_TRACE_BASE_INTERVAL_S = 7_889_238
+
+_BASE_KEY = re.compile(rb'"baseTimeNanoseconds"\s*:\s*(\d+)')
+
+
+def profiler_axis_us(base_ns: Optional[int] = None) -> float:
+    """What to add to a ``perf_counter`` time, in microseconds, to place
+    it on the time axis of a profiler Chrome trace whose
+    ``baseTimeNanoseconds`` is *base_ns*: the clocks' offset now, taken
+    once per export.  With no *base_ns*, libkineto's current base."""
+    epoch_ns = time.time_ns()
+    offset_ns = epoch_ns - time.perf_counter_ns()
+    if base_ns is None:
+        interval_ns = _TRACE_BASE_INTERVAL_S * 1_000_000_000
+        base_ns = epoch_ns // interval_ns * interval_ns
+    return (offset_ns - base_ns) / 1e3
+
+
+def profiler_base_ns(log_dir: str) -> Optional[int]:
+    """``baseTimeNanoseconds`` of the newest profiler Chrome trace in
+    *log_dir* (kineto writes it in the file's header), or ``None`` when
+    the directory holds none."""
+    try:
+        names = [n for n in os.listdir(log_dir)
+                 if n.endswith(".json") and not n.startswith("csvplus_host_trace.")]
+    except FileNotFoundError:
+        return None
+    for name in sorted(names, key=lambda n: os.path.getmtime(os.path.join(log_dir, n)),
+                       reverse=True):
+        with open(os.path.join(log_dir, name), "rb") as f:
+            m = _BASE_KEY.search(f.read(1 << 16))
+        if m:
+            return int(m.group(1))
+    return None
+
 
 def _iter_spans(traces: Iterable[Trace]) -> Iterable[Span]:
     for t in traces:
         yield from t.snapshot()
 
 
-def chrome_trace_events(traces: Sequence[Trace]) -> List[Dict[str, Any]]:
+def chrome_trace_events(
+    traces: Sequence[Trace], base_ns: Optional[int] = None
+) -> List[Dict[str, Any]]:
     """Chrome Trace Event list for *traces*: one ``"X"`` (complete)
     event per span plus ``"M"`` metadata naming the process and each
     lane.  ``tid`` is a dense integer per distinct lane; timestamps are
-    microseconds relative to the earliest span so the viewer opens at
-    t=0."""
+    microseconds on the axis of the profiler trace whose base is
+    *base_ns* (:func:`profiler_axis_us`), so a span lines up with the
+    device work it launched."""
     pid = os.getpid()
     spans = list(_iter_spans(traces))
     if not spans:
         return []
-    t0 = min(s.t_start for s in spans)
+    axis_us = profiler_axis_us(base_ns)
     lanes: Dict[str, int] = {}
     events: List[Dict[str, Any]] = [
         {
@@ -84,7 +130,7 @@ def chrome_trace_events(traces: Sequence[Trace]) -> List[Dict[str, Any]]:
                 "name": s.name,
                 "cat": "csvplus",
                 "ph": "X",
-                "ts": round((s.t_start - t0) * 1e6, 3),
+                "ts": round(s.t_start * 1e6 + axis_us, 3),
                 "dur": round(s.seconds * 1e6, 3),
                 "pid": pid,
                 "tid": tid,
@@ -95,14 +141,15 @@ def chrome_trace_events(traces: Sequence[Trace]) -> List[Dict[str, Any]]:
 
 
 def write_chrome_trace(
-    path: str, traces: Optional[Sequence[Trace]] = None
+    path: str, traces: Optional[Sequence[Trace]] = None, base_ns: Optional[int] = None
 ) -> str:
     """Write *traces* (default: every finished trace in the global
-    tracer) as one Chrome-trace JSON file; returns the path."""
+    tracer) as one Chrome-trace JSON file, on the axis *base_ns* gives
+    (:func:`chrome_trace_events`); returns the path."""
     if traces is None:
         traces = tracer.finished()
     payload = {
-        "traceEvents": chrome_trace_events(traces),
+        "traceEvents": chrome_trace_events(traces, base_ns),
         "displayTimeUnit": "ms",
         "metadata": {"producer": "csvplus_tpu_torch.obs"},
     }
@@ -117,10 +164,12 @@ def export_chrome_trace(
 ) -> str:
     """Write the host span trace under *log_dir* (the same directory
     ``profile_to(log_dir)`` fills with the ``torch.profiler`` trace) as
-    ``csvplus_host_trace.<pid>.json``; returns the file path."""
+    ``csvplus_host_trace.<pid>.json``, on the time axis of the newest
+    profiler trace there (:func:`profiler_base_ns`); returns the file
+    path."""
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, f"csvplus_host_trace.{os.getpid()}.json")
-    return write_chrome_trace(path, traces)
+    return write_chrome_trace(path, traces, profiler_base_ns(log_dir))
 
 
 def validate_chrome_trace(obj: Union[dict, list]) -> List[str]:

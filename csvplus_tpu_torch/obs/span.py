@@ -19,8 +19,13 @@ needs a tree per query:
 * finished traces land in a bounded list (:meth:`Tracer.finished`).
 
 ``telemetry.stage()`` also opens a span whenever a trace is active in the
-calling context (see ``utils/observe.py``).  With no active trace,
-:meth:`Tracer.span` is one ``ContextVar.get`` and one generator frame.
+calling context (see ``utils/observe.py``).  Every live span (a trace's
+root, an opened span) is also a ``torch.profiler`` range named
+``csvplus:<name>``, so a profiler capture shows it on the profiler's own
+clock beside the device work it launched; a pre-measured span
+(:meth:`Tracer.add_span`, :meth:`Tracer.record_span`) has no range.  With
+no active trace, :meth:`Tracer.span` is one ``ContextVar.get`` and one
+generator frame.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+from torch.profiler import record_function
 
 #: Finished traces kept for export before the oldest are dropped.
 MAX_FINISHED_TRACES = 512
@@ -51,7 +58,7 @@ class Span:
     span_id: int
     parent_id: Optional[int]
     name: str
-    t_start: float  # perf_counter seconds (trace-relative on export)
+    t_start: float  # perf_counter seconds (the profiler's clock on export)
     t_end: float
     lane: str  # thread name or explicit worker lane
     attrs: Dict[str, Any] = field(default_factory=dict)
@@ -82,13 +89,12 @@ class Trace:
     flat telemetry list this module replaces).
     """
 
-    __slots__ = ("trace_id", "name", "spans", "t_anchor", "_lock")
+    __slots__ = ("trace_id", "name", "spans", "_lock")
 
     def __init__(self, trace_id: int, name: str):
         self.trace_id = trace_id
         self.name = name
         self.spans: List[Span] = []
-        self.t_anchor = time.perf_counter()
         self._lock = threading.Lock()
 
     def add(self, span: Span) -> None:
@@ -121,15 +127,29 @@ class Trace:
         }
 
 
+def enter_range(name: str) -> record_function:
+    """Open the profiler range ``csvplus:<name>`` on this thread; close it
+    with :func:`exit_range`.  Outside a ``torch.profiler`` capture it
+    records nothing."""
+    rng = record_function(f"csvplus:{name}")
+    rng.__enter__()
+    return rng
+
+
+def exit_range(rng: record_function) -> None:
+    rng.__exit__(None, None, None)
+
+
 class _OpenSpan:
     """Handle for a span opened via the low-level open/close API."""
 
-    __slots__ = ("trace", "span", "token")
+    __slots__ = ("trace", "span", "token", "range")
 
-    def __init__(self, trace: Trace, span: Span, token):
+    def __init__(self, trace: Trace, span: Span, token, rng: record_function):
         self.trace = trace
         self.span = span
         self.token = token
+        self.range = rng
 
 
 class Tracer:
@@ -183,12 +203,14 @@ class Tracer:
             lane=threading.current_thread().name,
             attrs=dict(attrs),
         )
+        rng = enter_range(name)
         token = _CURRENT.set((t, root.span_id))
         try:
             yield t
         finally:
             _CURRENT.reset(token)
             root.t_end = time.perf_counter()
+            exit_range(rng)
             t.add(root)
             with self._lock:
                 self._finished.append(t)
@@ -197,8 +219,9 @@ class Tracer:
                     self._dropped += 1
 
     def open_span(self, name: str, **attrs) -> Optional[_OpenSpan]:
-        """Low-level span open: returns ``None`` (and records nothing)
-        when no trace is active — the disabled fast path."""
+        """Low-level span open, with its profiler range: returns ``None``
+        (and records nothing) when no trace is active — the disabled fast
+        path."""
         ctx = _CURRENT.get()
         if ctx is None:
             return None
@@ -214,13 +237,14 @@ class Tracer:
             attrs=dict(attrs) if attrs else {},
         )
         token = _CURRENT.set((t, span.span_id))
-        return _OpenSpan(t, span, token)
+        return _OpenSpan(t, span, token, enter_range(name))
 
     def close_span(self, handle: Optional[_OpenSpan], **attrs) -> None:
         if handle is None:
             return
         _CURRENT.reset(handle.token)
         handle.span.t_end = time.perf_counter()
+        exit_range(handle.range)
         if attrs:
             handle.span.attrs.update(attrs)
         handle.trace.add(handle.span)

@@ -280,7 +280,17 @@ class DeviceIndex:
 
     @classmethod
     def build(cls, table: DeviceTable, key_columns: Sequence[str]) -> "DeviceIndex":
-        key_columns = list(key_columns)
+        """The index over *table*, sorted by *key_columns*: the key codes
+        packed into sorted lanes (the stage ``index:pack``)."""
+        from ..utils.observe import telemetry
+
+        with telemetry.stage("index:pack", table.nrows):
+            index = cls._build(table, list(key_columns))
+            telemetry.barrier(_flat([index.packed_i32, index.packed_hi, index.packed_lo]))
+        return index
+
+    @classmethod
+    def _build(cls, table: DeviceTable, key_columns: List[str]) -> "DeviceIndex":
         cols = [table.columns[c] for c in key_columns]
         for c in cols:
             # packed keys need code order == value order and one code per
@@ -541,11 +551,12 @@ class DeviceIndex:
 
         self.offer_build_sample()
         k = len(probe_cols)
-        with telemetry.stage("join:translate", nrows):
+        with telemetry.stage("join:translate", nrows) as stage:
+            tally = stage if telemetry.live() else None
             # a typed probe column translates its value lanes against the
             # parsed build dictionary: the probe side is never demoted
             codes = [
-                pc.renumbered_to_col(self.table.columns[name])
+                pc.renumbered_to_col(self.table.columns[name], tally)
                 for pc, name in zip(probe_cols, self.key_columns[:k])
             ]
             telemetry.barrier(_flat(codes))

@@ -126,29 +126,41 @@ def sort_table(table: DeviceTable, key_columns: Sequence[str]) -> DeviceTable:
     ``StringColumn``, as in the reference, and a deferred (unsorted) lane
     dictionary is sorted on the device; every other column, typed, lane
     or not, rides along as its storage array.  A sharded table sorts as
-    the module docstring says."""
-    for c in key_columns:
-        table.columns[c]._ensure_sorted_lanes()
-    if table.mesh is not None and table.stored_len != table.nrows:
-        table = DeviceTable({n: c.with_storage(host_or_storage(c.storage, table.nrows))
-                             for n, c in table.columns.items()}, table.nrows, table.device)
-    key_cols = [table.columns[c] for c in key_columns]
-    if table.nrows >= DSORT_MIN_ROWS:
-        mesh = _sharded_mesh(key_cols)
-        # packed lanes need a real code in every key cell: the index
-        # build checked that; other callers take the replicated sort
-        if mesh is not None and not any(c.has_absent for c in key_cols):
-            lanes = _packed_sort_lanes(key_cols)
-            if lanes is not None:
-                return _dsort_table(table, key_columns, mesh, lanes)
-    keys = {c: table.columns[c].codes for c in key_columns}
-    perm = sort_permutation(list(keys.values()))
-    out = {}
-    for name, col in table.columns.items():
-        if name in keys:
-            out[name] = col.with_codes(torch.index_select(keys[name], 0, perm))
-        else:
-            out[name] = col.gather(perm)
+    the module docstring says.
+
+    The replicated sort and its gathers are the stage ``index:sort``; a
+    deferred dictionary's sort (``lane-dict:deferred-sort``) nests in
+    it.  The sharded path records its ``dsort`` stage alone: its
+    ``index:sort`` record is discarded, while the span and range stay
+    around the nested ``dsort``, as every discarded stage's do."""
+    from ..utils.observe import telemetry
+    from .join import _flat
+
+    with telemetry.stage("index:sort", table.nrows) as stage:
+        for c in key_columns:
+            table.columns[c]._ensure_sorted_lanes()
+        if table.mesh is not None and table.stored_len != table.nrows:
+            table = DeviceTable({n: c.with_storage(host_or_storage(c.storage, table.nrows))
+                                 for n, c in table.columns.items()}, table.nrows, table.device)
+        key_cols = [table.columns[c] for c in key_columns]
+        if table.nrows >= DSORT_MIN_ROWS:
+            mesh = _sharded_mesh(key_cols)
+            # packed lanes need a real code in every key cell: the index
+            # build checked that; other callers take the replicated sort
+            if mesh is not None and not any(c.has_absent for c in key_cols):
+                lanes = _packed_sort_lanes(key_cols)
+                if lanes is not None:
+                    stage["discard"] = True
+                    return _dsort_table(table, key_columns, mesh, lanes)
+        keys = {c: table.columns[c].codes for c in key_columns}
+        perm = sort_permutation(list(keys.values()))
+        out = {}
+        for name, col in table.columns.items():
+            if name in keys:
+                out[name] = col.with_codes(torch.index_select(keys[name], 0, perm))
+            else:
+                out[name] = col.gather(perm)
+        telemetry.barrier(_flat([c.storage for c in out.values()]))
     return DeviceTable(out, table.nrows, table.device)
 
 

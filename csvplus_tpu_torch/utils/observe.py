@@ -20,8 +20,12 @@ trace:
   strict no-op otherwise;
 * :func:`profile_to` — a ``torch.profiler`` capture of the enclosed
   run, written into a directory as a Chrome trace;
-* ``torch.profiler.record_function`` pass-through, so stages show up as
-  named ranges inside profiler traces.
+* one ``torch.profiler`` range a stage, ``csvplus:<name>``: the span's
+  own range when a trace is active, else the stage's when collecting.
+
+A stage body may set counts of the host memory its work passes through
+(``d2h_bytes``, ``h2d_bytes``, ``host_entries``): they land on the
+record and on the span, never in :attr:`Telemetry.counters`.
 """
 
 from __future__ import annotations
@@ -32,15 +36,17 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List
 
-from ..obs.span import tracer
+from ..obs.span import enter_range, exit_range, tracer
 
 # count-shaped stage extras that SUM when records of one stage name
-# merge (next to the ``_s``-suffix per-worker second tallies); the skew
-# trio lets a multi-join pipeline's ``join:skew`` rows report total
-# routed rows, not the last join's
+# merge (next to the ``_s``-suffix per-worker second tallies and the
+# ``_bytes`` / ``_entries`` host-memory counts); the skew trio lets a
+# multi-join pipeline's ``join:skew`` rows report total routed rows, not
+# the last join's
 _SUMMED_EXTRAS = frozenset(
     {"chunks", "hot_keys", "rows_broadcast", "rows_repartitioned"}
 )
+_SUMMED_SUFFIXES = ("_s", "_bytes", "_entries")
 
 
 @dataclass
@@ -111,6 +117,11 @@ class Telemetry:
         finally:
             self.enabled = prev
 
+    def live(self) -> bool:
+        """True when a stage opened here is recorded: collection is on or
+        a trace is active.  A stage body computes a count only then."""
+        return self.enabled or tracer.active()
+
     @contextlib.contextmanager
     def stage(self, name: str, rows_in: int) -> Iterator[dict]:
         """Record one stage; the body may set ``out['rows_out']``, or set
@@ -122,22 +133,25 @@ class Telemetry:
         child span there — the hierarchical view needs no new call
         sites.  The span keeps even discarded/failed stages (annotated),
         because a trace records what HAPPENED, while the table records
-        what counted."""
+        what counted.  The span is the stage's profiler range; a stage
+        collected with no trace active opens the range itself."""
         handle = tracer.open_span(name, rows_in=int(rows_in))
         if not self.enabled and handle is None:
             yield {}
             return
         out: dict = {}
         t0 = time.perf_counter()
+        rng = enter_range(name) if handle is None else None
         try:
-            with _trace_annotation(f"csvplus:{name}"):
-                yield out
+            yield out
         except BaseException:
             if handle is not None:
                 tracer.close_span(handle, error=True, **out)
                 handle = None
             raise
         finally:
+            if rng is not None:
+                exit_range(rng)
             if handle is not None:
                 tracer.close_span(handle, **out)
         if out.get("discard") or not self.enabled:
@@ -202,9 +216,10 @@ class Telemetry:
         """Records merged by stage name (first-seen order): seconds and
         row counts summed; ACCUMULABLE extras (keys ending in ``_s`` —
         per-worker second tallies like the staged ingest's ``scan_s`` /
-        ``encode_s`` — plus the count-shaped ``chunks`` and the skew
-        router's ``hot_keys`` / ``rows_broadcast`` /
-        ``rows_repartitioned``) sum too, all other extras taken
+        ``encode_s`` —, in ``_bytes`` or ``_entries`` — host-memory
+        counts like the dedup's ``d2h_bytes`` —, plus the count-shaped
+        ``chunks`` and the skew router's ``hot_keys`` / ``rows_broadcast``
+        / ``rows_repartitioned``) sum too, all other extras taken
         from the last record of the name (configuration-shaped values
         like ``workers`` or ``max_shard_rows`` must not add across
         records): one line per stage kind."""
@@ -226,7 +241,7 @@ class Telemetry:
                 for k, v in r.extra.items():
                     old = got.extra.get(k)
                     if (
-                        (k.endswith("_s") or k in _SUMMED_EXTRAS)
+                        (k.endswith(_SUMMED_SUFFIXES) or k in _SUMMED_EXTRAS)
                         and isinstance(v, (int, float))
                         and isinstance(old, (int, float))
                     ):
@@ -275,22 +290,6 @@ class Telemetry:
 
 
 telemetry = Telemetry()
-
-
-@contextlib.contextmanager
-def _trace_annotation(name: str):
-    # best-effort: only the annotation SETUP may be swallowed — exceptions
-    # from the body must propagate unchanged (a yield inside the except
-    # would turn them into "generator didn't stop after throw()")
-    try:
-        import torch.profiler
-
-        cm = torch.profiler.record_function(name)
-    except Exception:
-        cm = contextlib.nullcontext()
-    with cm:
-        yield
-
 
 
 @contextlib.contextmanager

@@ -84,6 +84,51 @@ def test_chrome_trace_export_validates_with_the_references_schema(tmp_path):
     assert all(e["ts"] >= 0 and e["dur"] >= 0 for e in x)
 
 
+def test_exported_span_lines_up_with_the_profilers_range(tmp_path):
+    """A span and its ``record_function`` range, opened around the same
+    region, start within a millisecond of each other: the span exported
+    by ``export_chrome_trace``, the range by ``profile_to``'s Chrome
+    trace of the same run, so both open on one time axis."""
+    import time
+
+    from csvplus_tpu_torch.utils.observe import profile_to
+
+    d = tmp_path / "prof"
+    with profile_to(str(d), device="cpu"):
+        for _ in range(2):  # the first round's range opens cold
+            TP.tracer.reset()
+            with TP.tracer.trace("region"):
+                time.sleep(0.005)
+    (prof_file,) = os.listdir(d)
+    with open(d / prof_file) as f:
+        ranges = [e for e in json.load(f)["traceEvents"] if e.get("name") == "csvplus:region"]
+    with open(TP.export.export_chrome_trace(str(d))) as f:
+        (span,) = [e for e in json.load(f)["traceEvents"] if e.get("name") == "region"]
+    assert len(ranges) == 2
+    assert abs(span["ts"] - ranges[-1]["ts"]) < 1000.0  # microseconds
+    assert abs(span["dur"] - ranges[-1]["dur"]) < 1000.0
+
+
+def test_the_assumed_trace_base_is_the_profilers(tmp_path):
+    """With no profiler trace to read, the exporter assumes libkineto's
+    base (the start of the current 7,889,238 s interval); a capture's
+    own ``baseTimeNanoseconds`` is that base, and it is what the
+    exporter reads from a directory that holds the capture."""
+    from csvplus_tpu_torch.utils.observe import profile_to
+
+    d = tmp_path / "prof"
+    assert TP.export.profiler_base_ns(str(d)) is None
+    with profile_to(str(d), device="cpu"):
+        pass
+    (prof_file,) = os.listdir(d)
+    with open(d / prof_file) as f:
+        base = json.load(f)["baseTimeNanoseconds"]
+    assert TP.export.profiler_base_ns(str(d)) == base
+    assumed = TP.export.profiler_axis_us()
+    read = TP.export.profiler_axis_us(base)
+    assert abs(assumed - read) < 1000.0  # the same axis, bar the clock read
+
+
 def test_validator_findings_equal_the_references():
     cases = [
         {"nope": 1},

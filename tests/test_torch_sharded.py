@@ -44,6 +44,7 @@ from csvplus_tpu_torch.obs.joinskew import joinskew as t_skew
 from csvplus_tpu_torch.parallel import mesh as TM
 from csvplus_tpu_torch.utils.checksum import checksum_device_table as t_checksum
 from csvplus_tpu_torch.utils.observe import telemetry as t_tel
+from test_torch_telemetry import port_only_stages, reference_view
 
 CPU8 = ["cpu"] * 8
 PKGS = {"ref": J, "port": T}
@@ -69,7 +70,17 @@ def _dicts(rows):
 
 
 def _records(tel):
-    return [(r.stage, r.rows_in, r.rows_out, dict(r.extra)) for r in tel.records]
+    """*tel*'s records as the reference records them (the port-only items
+    left out; :func:`port_only_stages` checks them)."""
+    return [(r.stage, r.rows_in, r.rows_out, dict(r.extra)) for r in reference_view(tel.records)]
+
+
+def _port_only_translations() -> int:
+    """The port-only items of the port's last collection checked: no
+    port-only stage, and host counts on every translation; returns the
+    number of translations."""
+    assert port_only_stages(t_tel.records) == []
+    return sum(r.stage == "join:translate" for r in t_tel.records)
 
 
 def _port_extra_syncs(records, shards: int) -> int:
@@ -332,6 +343,7 @@ def test_three_way_join_stages_syncs_and_no_assembly(tmp_path, monkeypatch, shar
     assert ("join:probe" in stages) == (min_keys > 1)
     assert syncs == want_syncs + _port_extra_syncs(recs, shards)
     assert TM.assemblies["count"] == 0
+    assert _port_only_translations() == 2
 
 
 def test_executor_partitioned_path_and_unsharded_stays_broadcast(people_csv, orders_csv,
@@ -450,6 +462,7 @@ def test_partitioned_join_sync_telemetry(people_csv, orders_csv, monkeypatch):
     assert rows == want_rows and recs == want_recs
     assert 0 < want_syncs <= 4096 + 16
     assert syncs == want_syncs + _port_extra_syncs(recs, 8)
+    assert _port_only_translations() == 1
 
 
 # -- skew: the executor and the multiway join ----------------------------------------
@@ -524,6 +537,7 @@ def test_skew_tier_through_the_executor(monkeypatch, case, skew):
     assert out["port"][:3] == out["ref"][:3]
     assert out["port"][0] == out["port"][3]  # sharded == unsharded
     assert out["port"][4] == out["ref"][4]  # the csvplus_join_* counters
+    assert _port_only_translations() == 1
     stages = {r[0] for r in out["port"][2]}
     if skew == "0" or case in ("uniform", "heavy-key-absent"):
         assert "join:skew" not in stages
@@ -566,6 +580,7 @@ def test_multiway_join_sharded_one_part_info(monkeypatch, dist, shards):
                      (j_skew if side == "ref" else t_skew).counters_snapshot())
     assert out["port"] == out["ref"]
     assert out["port"][0] == out["port"][3]
+    assert _port_only_translations() == 2
 
 
 def test_fused_plan_on_a_sharded_stream_through_the_plan_cache(tmp_path, monkeypatch):
@@ -594,6 +609,7 @@ def test_fused_plan_on_a_sharded_stream_through_the_plan_cache(tmp_path, monkeyp
                      cache.stats()["fused_chains"])
     assert out["port"] == out["ref"]
     assert out["port"][3] == 1
+    assert _port_only_translations() == 2
 
 
 # -- the flagship, the sort route, typed pads, config 5 ------------------------------
