@@ -382,8 +382,11 @@ EAGER001_ALLOWED: Dict[str, str] = {
     ),
     "lanes.py:_translate_kernel": (
         "ports the reference's jitted `ops/lanes.py:202 _translate_kernel` "
-        "(one gather and compare a lane, 1-8 lanes); ROADMAP.md §1 perf "
-        "queue: fold into the k-lane search kernel"
+        "(one gather and compare a lane past the first); a two-lane "
+        "dictionary folds into one int64 key (`fold_lanes`) and never "
+        "enters the loop, which runs only after the k-lane search of "
+        "dictionaries wider than 8 bytes, which no benchmark cell sends; "
+        "ROADMAP.md §2 item 5: fold into the k-lane search kernel"
     ),
     # -- ops/parse.py ---------------------------------------------------
     "parse.py:_sort_lanes": (

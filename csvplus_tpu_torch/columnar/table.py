@@ -239,6 +239,27 @@ class _LaneState:
         self.lock = threading.Lock()
 
 
+class _HostLanes:
+    """Device search forms of one host dictionary, shared by every
+    ``with_codes``/``gather``/``shard`` copy of a column, as
+    :class:`_LaneState` is: a join's probe column is a fresh gather of a
+    resident column at every query, with the same dictionary and this
+    same state, so the dictionary is packed and uploaded once, not once
+    a query.
+
+    ``forms`` maps (device, lane count) to (search keys, slot map | None)
+    (:meth:`StringColumn._search_form`).  The state holds the dictionary
+    itself, which is never mutated, so a form never goes stale.  The
+    lock serializes the packing: probes run on worker threads too."""
+
+    __slots__ = ("dictionary", "forms", "lock")
+
+    def __init__(self, dictionary: np.ndarray):
+        self.dictionary = dictionary
+        self.forms: dict = {}
+        self.lock = threading.Lock()
+
+
 class StringColumn:
     """One dictionary-encoded string column.
 
@@ -265,6 +286,7 @@ class StringColumn:
         dev_dictionary: "tuple | None" = None,
         dev_dict_sorted: bool = True,
         _lane_state: "_LaneState | None" = None,
+        _host_lanes: "_HostLanes | None" = None,
     ):
         assert dictionary is not None or dev_dictionary is not None or _lane_state is not None
         self._dictionary = dictionary
@@ -277,6 +299,12 @@ class StringColumn:
             self._lane_state = _LaneState(tuple(dev_dictionary), dev_dict_sorted)
         else:
             self._lane_state = None
+        # a lane column's host dictionary, if it is ever downloaded, is not
+        # searched: its lanes are
+        if self._lane_state is not None:
+            self._host_lanes = None
+        else:
+            self._host_lanes = _host_lanes if _host_lanes is not None else _HostLanes(dictionary)
         # (codes, codes index the settled lane order) publish as one tuple:
         # a copy made while a sibling settles on another thread must never
         # pair remapped codes with a stale flag
@@ -472,6 +500,7 @@ class StringColumn:
             codes,
             dev_dict_sorted=self._dev_dict_sorted if dev_dict_sorted is None else dev_dict_sorted,
             _lane_state=self._lane_state,
+            _host_lanes=self._host_lanes,
         )
         out._str_dict = self._str_dict
         if self._has_absent is False:
@@ -523,83 +552,111 @@ class StringColumn:
         self._ensure_sorted_lanes()  # before the codes are read
         return self.decode_codes(host_array(self.storage))
 
-    def _lanes_narrow(self) -> tuple:
-        """``(lane tuple, original slots | None)``: this dictionary as
-        device lanes, restricted to entries narrow enough to pack.  A host
-        dictionary joined against a lane column may hold values wider than
-        ``MAX_LANE_BYTES``; they can equal no lane entry, so they are left
-        out (their slots returned so the caller can map back)."""
-        if self.dev_dictionary is not None:
-            self._ensure_sorted_lanes()  # translation needs sorted lanes
-            return self.dev_dictionary, None
-        from ..ops.lanes import MAX_LANE_BYTES, lanes_for_width, pack_host
+    def _lane_count(self) -> int:
+        """Lanes this dictionary packs into: a lane dictionary's own, or
+        enough for a host dictionary's width (past ``MAX_LANE_BYTES`` too:
+        two host dictionaries search at any width)."""
+        from ..ops.lanes import lanes_for_width
 
-        d = self._dictionary
-        dev = storage_device(self.storage)
-        width = d.dtype.itemsize if d.size else 1
-        lanes = lanes_for_width(width)
-        if lanes is not None:
-            return tuple(torch.from_numpy(x).to(dev) for x in pack_host(d, lanes)), None
-        keep = np.char.str_len(d) <= MAX_LANE_BYTES
-        pos = np.flatnonzero(keep).astype(np.int32)
-        sub = d[keep].astype(f"S{MAX_LANE_BYTES}")
-        lanes = lanes_for_width(MAX_LANE_BYTES)
-        return tuple(torch.from_numpy(x).to(dev) for x in pack_host(sub, lanes)), pos
+        if self._host_lanes is None:
+            return len(self.dev_dictionary)
+        width = self._dictionary.dtype.itemsize if self._dictionary.size else 1
+        return lanes_for_width(width) or -(-width // 4)
+
+    def _search_form(self, n_lanes: int, dev: torch.device) -> tuple:
+        """``(search keys, slot map | None, bytes uploaded)``: this
+        dictionary packed into *n_lanes* lanes on *dev*, in the form
+        ``ops.lanes.fold_lanes`` gives for the search.  A lane dictionary
+        is widened and folded as it is (nothing goes up).  A host
+        dictionary is packed and uploaded once per (device, lane count)
+        and kept in the state every copy shares, so only its first call
+        uploads.  Entries wider than *n_lanes* lanes (a host dictionary
+        against a lane one, capped at ``MAX_LANE_BYTES``) can equal no
+        lane entry: they are left out, and the slot map gives the packed
+        entries' slots in the whole dictionary."""
+        from ..ops.lanes import fold_lanes, pack_host, widen_lanes_device
+
+        if self._host_lanes is None:
+            self._ensure_sorted_lanes()  # translation needs sorted lanes
+            lanes = tuple(x.to(dev) for x in self.dev_dictionary)
+            return fold_lanes(widen_lanes_device(lanes, n_lanes)), None, 0
+        st = self._host_lanes
+        key = (dev, n_lanes)
+        got = st.forms.get(key)
+        if got is not None:
+            return got + (0,)
+        with st.lock:
+            got = st.forms.get(key)
+            if got is not None:
+                return got + (0,)
+            d, pos = st.dictionary, None
+            if d.size and d.dtype.itemsize > 4 * n_lanes:
+                keep = np.char.str_len(d) <= 4 * n_lanes
+                pos = torch.from_numpy(np.flatnonzero(keep).astype(np.int32)).to(dev)
+                d = d[keep]
+            lanes = [torch.from_numpy(x).to(dev) for x in pack_host(d, n_lanes)]
+            sent = sum(x.numel() * x.element_size() for x in lanes)
+            sent += 0 if pos is None else pos.numel() * pos.element_size()
+            got = st.forms[key] = (fold_lanes(lanes), pos)
+        return got + (sent,)
 
     def renumbered_to_col(self, other, tally: "dict | None" = None) -> torch.Tensor:
         """This column's codes in *other*'s code space (the probe side of
-        a join): the device lane translation when either side keeps its
-        dictionary on the device (no host dictionary is built), the host
-        translation table otherwise.  An ``IntColumn`` *other* is demoted
+        a join), translated on the device: both dictionaries in their
+        search form (:meth:`_search_form`), one search of the probe's
+        entries in the build's, a gather of the codes.  A host
+        dictionary's form is built once and kept, so a probe uploads
+        nothing after the first; the search runs every call.  Two lane
+        dictionaries, or a lane dictionary and a host one, search at the
+        wider's lane count, at most ``MAX_LANE_BYTES``; two host
+        dictionaries at any width.  An ``IntColumn`` *other* is demoted
         to its dictionary.
 
         *tally* (a stage's dict) gains ``host_entries``, the dictionary
-        entries searched on the host, and ``h2d_bytes``, the bytes the
-        translation sent up from the host: the translation table, or the
-        lanes and slot maps of a host dictionary."""
+        entries searched on the host (0: none is), ``device_entries``,
+        the probe dictionary's entries searched on the device, and
+        ``h2d_bytes``, the lanes and slot maps this call uploaded."""
+        from ..ops.lanes import MAX_LANE_BYTES, _translate_kernel
+
         if other.kind == "int":
             other = other._demote()
-        if self.dev_dictionary is None and other.dev_dictionary is None:
-            return self.renumbered_to(other.dictionary, tally)
-        from ..ops.lanes import translate_lanes
-
+        self._ensure_sorted_lanes()  # a deferred lane dictionary remaps the codes first
+        codes = self.storage
         if self.dict_size == 0:
             if tally is not None:
-                tally_counts(tally, host_entries=0, h2d_bytes=0)
-            return self.storage
-        q_lanes, q_pos = self._lanes_narrow()
-        b_lanes, b_pos = other._lanes_narrow()
+                tally_counts(tally, host_entries=0, device_entries=0, h2d_bytes=0)
+            return codes
+        dev = storage_device(codes)
+        n_lanes = max(self._lane_count(), other._lane_count())
+        if self._host_lanes is None or other._host_lanes is None:
+            n_lanes = min(n_lanes, MAX_LANE_BYTES // 4)
+        q_keys, q_pos, q_sent = self._search_form(n_lanes, dev)
+        b_keys, b_pos, b_sent = other._search_form(n_lanes, dev)
         if tally is not None:
-            sent = _lanes_uploaded(self, q_lanes, q_pos) + _lanes_uploaded(other, b_lanes, b_pos)
-            tally_counts(tally, host_entries=0, h2d_bytes=sent)
-        codes = self.storage
-        if b_lanes[0].shape[0] == 0 or q_lanes[0].shape[0] == 0:
+            tally_counts(tally, host_entries=0, device_entries=int(q_keys[0].shape[0]),
+                         h2d_bytes=q_sent + b_sent)
+        if b_keys[0].shape[0] == 0:  # nothing to match: present codes become absent
             return per_shard(lambda c: torch.where(c >= 0, ABSENT, c), codes)
-        trans = translate_lanes(b_lanes, q_lanes)
-        dev = trans.device
+        trans = _translate_kernel(b_keys, q_keys)
         if b_pos is not None:
             # subset slots of other -> other's full code space
-            b_full = torch.from_numpy(b_pos).to(dev)
-            got = torch.index_select(b_full, 0, trans.clamp(min=0).to(torch.int64))
+            got = torch.index_select(b_pos, 0, trans.clamp(min=0))
             trans = torch.where(trans >= 0, got, -1)
         if q_pos is not None:
             # subset results back over self's full dictionary; wide
             # entries stay -1
             full = torch.full((self.dict_size,), -1, dtype=torch.int32, device=dev)
-            full[torch.from_numpy(q_pos).to(dev).to(torch.int64)] = trans
+            full[q_pos.to(torch.int64)] = trans
             trans = full
-        return apply_code_translation(codes, trans.to(storage_device(codes)))
+        return apply_code_translation(codes, trans)
 
-    def renumbered_to(
-        self, other_dictionary: np.ndarray, tally: "dict | None" = None
-    ) -> torch.Tensor:
+    def renumbered_to(self, other_dictionary: np.ndarray) -> torch.Tensor:
         """This column's codes in another dictionary's code space (host
         translation table + device gather); unmatched -> -1, negative
-        codes pass through.  This is how a probe-side join key enters the
-        index's key space.  *tally* as :meth:`renumbered_to_col` says."""
+        codes pass through.  A row merge recodes both sides into their
+        union this way; a join's probe translates on the device
+        (:meth:`renumbered_to_col`), to the same codes."""
         if self.dictionary.size == 0:
-            if tally is not None:
-                tally_counts(tally, host_entries=0, h2d_bytes=0)
             return self.storage
         pos = np.searchsorted(other_dictionary, self.dictionary)
         pos = np.clip(pos, 0, max(other_dictionary.size - 1, 0))
@@ -609,8 +666,6 @@ class StringColumn:
             else np.zeros(self.dictionary.size, dtype=bool)
         )
         trans = np.where(ok, pos, -1).astype(np.int32)
-        if tally is not None:
-            tally_counts(tally, host_entries=int(self.dictionary.size), h2d_bytes=trans.nbytes)
         codes = self.storage
         return apply_code_translation(codes, torch.from_numpy(trans).to(storage_device(codes)))
 
@@ -621,14 +676,6 @@ def tally_counts(tally: dict, **counts: int) -> None:
     computes no count."""
     for k, v in counts.items():
         tally[k] = tally.get(k, 0) + v
-
-
-def _lanes_uploaded(col: StringColumn, lanes: tuple, pos) -> int:
-    """Bytes ``_lanes_narrow`` sent up from *col*'s host dictionary: its
-    packed lanes and slot map (0 for a dictionary kept on the device)."""
-    if col.dev_dictionary is not None:
-        return 0
-    return sum(x.numel() * x.element_size() for x in lanes) + (0 if pos is None else pos.nbytes)
 
 
 def merge_with_fallback(primary: StringColumn, fallback: StringColumn) -> StringColumn:

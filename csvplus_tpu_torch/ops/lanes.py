@@ -11,7 +11,9 @@ On that representation this module provides
 
 * host <-> lane packing and unpacking (the lazy host dictionary at the
   sink, and single probe values),
-* a k-lane vectorized binary search,
+* a k-lane vectorized binary search, and one ``torch.searchsorted`` of
+  a folded int64 key for two-lane dictionaries (fields of up to 8
+  bytes),
 * a device union of sorted (or unsorted) chunk dictionaries: one stable
   multi-key sort and a run-rank pass give the sorted union and each
   chunk's translation table, without the union touching the host.
@@ -189,26 +191,47 @@ def union_device(chunk_lanes: "List[Tuple[torch.Tensor, ...]]"):
     return union, tables
 
 
-def _translate_kernel(build_lanes: Tuple, query_lanes: Tuple) -> torch.Tensor:
-    """query dictionary slot -> build dictionary slot (or -1): a k-lane
-    searchsorted and an equality check, on the device."""
-    pos = searchsorted_lanes(build_lanes, query_lanes, side="left")
-    n = int(build_lanes[0].shape[0])
+def fold_lanes(lanes: Tuple) -> Tuple:
+    """The search form of a sorted lane dictionary: two lanes fold into
+    one order-preserving int64 key, ``(lane0 << 32) + (lane1 + 2**31)``,
+    which one ``torch.searchsorted`` searches; wider tuples stay lanes
+    for the k-lane search.  Both sides of a search fold alike, so their
+    dtypes match."""
+    if len(lanes) != 2:
+        return tuple(lanes)
+    hi, lo = lanes
+    return (torch.add(lo.to(torch.int64), hi.to(torch.int64), alpha=1 << 32).add_(1 << 31),)
+
+
+def _translate_kernel(build_keys: Tuple, query_keys: Tuple) -> torch.Tensor:
+    """query dictionary slot -> build dictionary slot (or -1) on the
+    search forms (:func:`fold_lanes`) of two dictionaries, the build's
+    sorted: one ``torch.searchsorted`` of a folded key or the k-lane
+    search, then a gather and an equality check a key, on the device.
+    The launches are fixed by the key count and, for the k-lane search,
+    the build's size."""
+    n = int(build_keys[0].shape[0])
     if n == 0:
-        return torch.full(query_lanes[0].shape, -1, dtype=torch.int32,
-                          device=query_lanes[0].device)
-    safe = pos.to(torch.int64).clamp(0, n - 1)
-    ok = torch.ones(query_lanes[0].shape, dtype=torch.bool, device=query_lanes[0].device)
-    for b, q in zip(build_lanes, query_lanes):
+        return torch.full(query_keys[0].shape, -1, dtype=torch.int32,
+                          device=query_keys[0].device)
+    (b0, *b_rest), (q0, *q_rest) = build_keys, query_keys
+    if b_rest:
+        pos = searchsorted_lanes(build_keys, query_keys, side="left")
+    else:
+        pos = torch.searchsorted(b0, q0, out_int32=True)
+    safe = pos.clamp(max=n - 1)
+    ok = torch.index_select(b0, 0, safe) == q0
+    for b, q in zip(b_rest, q_rest):
         ok = ok & (torch.index_select(b, 0, safe) == q)
-    return torch.where(ok, safe, -1).to(torch.int32)
+    return torch.where(ok, safe, -1)
 
 
 def translate_lanes(build_lanes: Tuple, query_lanes: Tuple) -> torch.Tensor:
     """Translation table between two sorted lane dictionaries, on the
-    device; lane counts are reconciled by widening the narrower."""
+    device; lane counts are reconciled by widening the narrower, and two
+    lanes fold into one int64 key (:func:`fold_lanes`)."""
     n_lanes = max(len(build_lanes), len(query_lanes))
     return _translate_kernel(
-        widen_lanes_device(build_lanes, n_lanes),
-        widen_lanes_device(query_lanes, n_lanes),
+        fold_lanes(widen_lanes_device(build_lanes, n_lanes)),
+        fold_lanes(widen_lanes_device(query_lanes, n_lanes)),
     )

@@ -24,7 +24,8 @@ trace:
   own range when a trace is active, else the stage's when collecting.
 
 A stage body may set counts of the host memory its work passes through
-(``d2h_bytes``, ``h2d_bytes``, ``host_entries``): they land on the
+(``d2h_bytes``, ``h2d_bytes``, ``host_entries``), and of the entries a
+translation searched on the card (``device_entries``): they land on the
 record and on the span, never in :attr:`Telemetry.counters`.
 """
 

@@ -72,7 +72,7 @@ def _collect(fn):
 PORT_ONLY_STAGES = frozenset(
     {"index:sort", "index:pack", "dedup:run-starts", "dedup:select", "dedup:gather"}
 )
-PORT_ONLY_EXTRAS = frozenset({"host_entries", "h2d_bytes", "d2h_bytes"})
+PORT_ONLY_EXTRAS = frozenset({"host_entries", "device_entries", "h2d_bytes", "d2h_bytes"})
 
 
 def reference_view(records):
@@ -88,7 +88,8 @@ def port_only_stages(records) -> list:
     stages' names in order: each index stage passes its rows through;
     the run-starts copy down one byte a row, the selection eight a kept
     row, the gather keeps what the selection kept; every translation
-    counts its host entries and uploaded bytes, and only it."""
+    counts its host entries and uploaded bytes, a string probe its
+    device entries too, and only it."""
     kept = None
     for r in records:
         extras = set(r.extra) & PORT_ONLY_EXTRAS
@@ -102,8 +103,8 @@ def port_only_stages(records) -> list:
         elif r.stage == "dedup:gather":
             assert not r.extra and r.rows_out == kept, r
         elif r.stage == "join:translate":
-            assert extras == {"host_entries", "h2d_bytes"}, r
-            assert r.extra["host_entries"] >= 0 and r.extra["h2d_bytes"] >= 0, r
+            assert extras - {"device_entries"} == {"host_entries", "h2d_bytes"}, r
+            assert all(r.extra[k] >= 0 for k in extras), r
         else:
             assert not extras, r
     return [r.stage for r in records if r.stage in PORT_ONLY_STAGES]
@@ -354,15 +355,21 @@ def test_policy_dedup_records_its_stages_and_host_bytes(policy):
 
 
 def test_join_counts_the_host_entries_of_its_probe_dictionaries():
+    """Host-dictionary probes search on the device: no host entries, the
+    probe dictionary's entries as device entries, and the two
+    dictionaries' lanes (two int32 lanes an entry) sent up once."""
     with t_tel.collect():
         rows, probe = _small_join()
         recs = [r for r in t_tel.records if r.stage == "join:translate"]
         merged = {r.stage: r for r in t_tel.merged_stages()}["join:translate"]
     sizes = [probe["cust_id"].dictionary.size, probe["prod_id"].dictionary.size]
     assert len(rows) > 0 and sizes == [13, 5]
-    assert [r.extra for r in recs] == [{"host_entries": n, "h2d_bytes": 4 * n} for n in sizes]
+    builds = [10, 4]
+    assert [r.extra for r in recs] == [
+        {"host_entries": 0, "device_entries": n, "h2d_bytes": 8 * (n + b)}
+        for n, b in zip(sizes, builds)]
     # the merged stage sums the counts, as it sums seconds
-    assert merged.extra == {"host_entries": 18, "h2d_bytes": 72}
+    assert merged.extra == {"host_entries": 0, "device_entries": 18, "h2d_bytes": 8 * 32}
 
 
 def test_a_traced_join_counts_on_its_spans_with_collection_off():
@@ -375,8 +382,8 @@ def test_a_traced_join_counts_on_its_spans_with_collection_off():
     (trace,) = tracer.finished()
     spans = [s for s in trace.snapshot() if s.name == "join:translate"]
     sizes = [probe["cust_id"].dictionary.size, probe["prod_id"].dictionary.size]
-    assert [(s.attrs["host_entries"], s.attrs["h2d_bytes"]) for s in spans] \
-        == [(n, 4 * n) for n in sizes]
+    assert [(s.attrs["host_entries"], s.attrs["device_entries"], s.attrs["h2d_bytes"])
+            for s in spans] == [(0, n, 8 * (n + b)) for n, b in zip(sizes, [10, 4])]
     assert t_tel.records == []
 
 
@@ -443,7 +450,6 @@ def test_dedup_and_join_with_telemetry_off_record_nothing_and_open_no_range(monk
     tallied = []
     for mod in (table_mod, typed_mod):
         monkeypatch.setattr(mod, "tally_counts", lambda *a, **k: tallied.append(k))
-    monkeypatch.setattr(table_mod, "_lanes_uploaded", lambda *a: tallied.append(a))
     t_tel.reset()
     tracer.reset()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
