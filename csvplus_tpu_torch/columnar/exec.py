@@ -51,7 +51,7 @@ import torch
 
 from .. import plan as P
 from ..errors import CsvPlusError, DataSourceError
-from ..parallel.mesh import ShardedRows, smap
+from ..parallel.mesh import ShardedRows, smap, to_device
 from ..resilience import faults
 from ..row import MissingColumnError, Row
 from .table import DeviceTable, StringColumn, host_or_storage, merge_with_fallback
@@ -180,7 +180,7 @@ def _first_true(mask) -> int:
             return -1
         return int(torch.where(mask.any(), torch.argmax(mask.to(torch.uint8)), -1).item())
     dev0 = mask.mesh.devices[0]
-    parts = [torch.where(m.any(), torch.argmax(m.to(torch.uint8)), -1).to(dev0)
+    parts = [to_device(torch.where(m.any(), torch.argmax(m.to(torch.uint8)), -1), dev0)
              if m.shape[0] else torch.tensor(-1, device=dev0) for m in mask.shards]
     firsts = torch.stack(parts).tolist()
     off = 0

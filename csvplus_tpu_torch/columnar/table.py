@@ -36,7 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..parallel.mesh import Mesh, ShardedRows, assemble, relayout, replicate, smap
+from ..parallel.mesh import Mesh, ShardedRows, assemble, relayout, replicate, smap, to_device
 from ..row import Row
 from ..utils.env import env_int
 
@@ -169,7 +169,7 @@ def host_array(x, n: "int | None" = None) -> np.ndarray:
 def sharded_any(parts: ShardedRows) -> bool:
     """True when any shard's 0-d bool holds: one transfer."""
     dev0 = parts.mesh.devices[0]
-    return bool(torch.stack([p.to(dev0) for p in parts.shards]).any().item())
+    return bool(torch.stack([to_device(p, dev0) for p in parts.shards]).any().item())
 
 
 class GlobalRows(ShardedRows):
@@ -200,8 +200,8 @@ def gather_storage(x, sel):
     out = torch.empty(sel.shape, dtype=x.dtype, device=sel.device)
     for off, blk in zip(x.offsets(), x.shards):
         hit = (sel >= off) & (sel < off + int(blk.shape[0]))
-        local = (sel[hit] - off).to(blk.device)
-        out[hit] = torch.index_select(blk, 0, local).to(sel.device)
+        local = to_device(sel[hit] - off, blk.device)
+        out[hit] = to_device(torch.index_select(blk, 0, local), sel.device)
     return out
 
 
@@ -835,10 +835,13 @@ class DeviceTable:
         into ``ceil(n / k)``-row blocks, block i on shard i's device, the
         tail padded with ``PAD_CODE`` (codes) or ``typed.PAD_VALUE``
         (typed value lanes), which no selection ever reaches.  Blocks are
-        made device to device; a block already on its shard's device is a
-        view of the column, so a table on one card is not copied except
-        for the padded tail block.  A deferred lane dictionary is settled
-        first, so every shard's codes index the sorted lanes."""
+        made device to device; blocks already on their shard's device stay
+        views of the column where together they view more than half of it
+        (a table split over one card), else each is copied into storage of
+        its own, so that block 0 of a table re-laid from one card over
+        several does not hold the whole column on that card once the
+        source is dropped.  A deferred lane dictionary is settled first,
+        so every shard's codes index the sorted lanes."""
         from .typed import PAD_VALUE
 
         n = self.nrows
@@ -852,8 +855,8 @@ class DeviceTable:
                 cols[name] = col
                 continue
             fill = int(PAD_VALUE) if col.kind == "int" else PAD_CODE
-            blocks = ShardedRows(mesh, relayout(mesh, host_or_storage(st, n), [b] * k, fill))
-            cols[name] = col.with_storage(blocks)
+            blocks = _own_blocks(relayout(mesh, host_or_storage(st, n), [b] * k, fill))
+            cols[name] = col.with_storage(ShardedRows(mesh, blocks))
             if col.kind != "int":
                 cols[name]._has_absent = col._has_absent
         out = DeviceTable(cols, n, mesh.devices[0], self.row_base)
@@ -1000,6 +1003,21 @@ class DeviceTable:
         from ..plan import Scan
 
         return Scan(self)
+
+
+def _own_blocks(blocks: List[torch.Tensor]) -> List[torch.Tensor]:
+    """*blocks* with the views of each storage kept only where together
+    they view more than half of it; otherwise every block that views it
+    is copied into storage of its own (see
+    :meth:`DeviceTable.with_sharding`)."""
+    def key(b):
+        return b.device, b.untyped_storage().data_ptr()
+
+    viewed: Dict[tuple, int] = {}
+    for b in blocks:
+        viewed[key(b)] = viewed.get(key(b), 0) + b.numel() * b.element_size()
+    return [b if 2 * viewed[key(b)] > b.untyped_storage().nbytes() else b.clone()
+            for b in blocks]
 
 
 def host_or_storage(st, n: int):

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from ..columnar.table import DeviceTable, StringColumn, gather_storage, merge_with_fallback
-from ..parallel.mesh import Mesh, Replicated, ShardedRows, assemble, relayout, smap
+from ..parallel.mesh import Mesh, Replicated, ShardedRows, assemble, relayout, smap, to_device
 from ..utils.env import env_int
 
 _MASK31 = (1 << 31) - 1
@@ -64,6 +64,13 @@ _MASK31 = (1 << 31) - 1
 #: single-pass operators) — counted where the path is chosen, nowhere
 #: else.  ``chip_smoke.py`` and the tests read it.
 expand_paths: Counter = Counter()
+
+#: Probes this process ran, counted by tier where :meth:`DeviceIndex.probe`
+#: chooses it: "direct", "i32" or "wide" (two lanes) for a stream on one
+#: device; for a sharded stream "partitioned" / "partitioned-wide" (the
+#: all-to-all tier) or "replicated-direct" / "replicated-i32" /
+#: "replicated-wide" (the build keys copied to every device of the mesh).
+probe_tiers: Counter = Counter()
 
 
 def _bits_for(n: int) -> int:
@@ -580,6 +587,7 @@ class DeviceIndex:
             ):
                 from ..parallel.pjoin import partitioned_probe_device
 
+                probe_tiers["partitioned"] += 1
                 lo, ct = partitioned_probe_device(
                     mesh, qk, self._partitioned_for(mesh),
                     capacity=(part_info or {}).get("capacity"),
@@ -587,6 +595,8 @@ class DeviceIndex:
                 )
                 return _in_layout(lo, qk), _in_layout(ct, qk)
             cum = self.direct_cum
+            probe_tiers[("replicated-" if mesh is not None else "")
+                        + ("direct" if cum is not None else "i32")] += 1
             with telemetry.stage("join:probe", nrows) as out:
                 if cum is not None:
                     out["tier"] = "direct"
@@ -618,6 +628,7 @@ class DeviceIndex:
             return q_hi, q_lo, ok
 
         if mesh is None:
+            probe_tiers["wide"] += 1
             q_hi, q_lo, ok = lanes(*codes)
             return _probe_i32pair(self.packed_hi, self.packed_lo, q_hi, q_lo, range_size, ok)
         q_hi, q_lo, ok = smap(mesh, lanes, *codes)
@@ -627,6 +638,7 @@ class DeviceIndex:
         ):
             from ..parallel.pjoin import partitioned_probe_device_wide
 
+            probe_tiers["partitioned-wide"] += 1
             # invalid probes carry (-1, -1) lanes
             q_hi_m = smap(mesh, lambda h, o: torch.where(o, h, -1), q_hi, ok)
             q_lo_m = smap(mesh, lambda v, o: torch.where(o, v, -1), q_lo, ok)
@@ -636,6 +648,7 @@ class DeviceIndex:
                 label=",".join(self.key_columns), info=part_info,
             )
             return _in_layout(lo, q_hi), _in_layout(ct, q_hi)
+        probe_tiers["replicated-wide"] += 1
         return smap(
             mesh, lambda kh, kl, h, v, o: _probe_i32pair(kh, kl, h, v, range_size, o),
             self._replicated(mesh, "packed_hi", self.packed_hi),
@@ -816,7 +829,7 @@ def _shard_stats(mesh: Mesh, parts) -> Tuple[List[int], int, int]:
     from ..utils.observe import telemetry
 
     dev0 = mesh.devices[0]
-    st = torch.stack([torch.stack(p).to(dev0) for p in parts])
+    st = torch.stack([to_device(torch.stack(p), dev0) for p in parts])
     row = torch.cat([st[:, 0], st[:, 1].max().reshape(1), st[:, 2:].sum(0)]).tolist()
     telemetry.count_sync(len(row))
     k = mesh.size

@@ -44,6 +44,37 @@ AXIS = "shards"
 #: ``chip_smoke.py`` and the tests read it.
 assemblies: Counter = Counter()
 
+#: Copies between two distinct cards in this process: ``count`` copies
+#: and their ``bytes`` -- added where :func:`to_device` and the exchange
+#: copy from one card to another, nowhere else.  While a stage is live
+#: the bytes also land on its record as ``peer_bytes``
+#: (``telemetry.tally``).  Shards that share a device copy nothing.
+peer_copies: Counter = Counter()
+
+
+def is_peer(a: torch.device, b: torch.device) -> bool:
+    """True when a copy from *a* to *b* crosses between two distinct
+    cards (a host-device copy is not a peer copy)."""
+    return a != b and a.type == "cuda" and b.type == "cuda"
+
+
+def note_peer(nbytes: int) -> None:
+    """Count one copy of *nbytes* between two distinct cards."""
+    from ..utils.observe import telemetry
+
+    peer_copies["count"] += 1
+    peer_copies["bytes"] += int(nbytes)
+    telemetry.tally("peer_bytes", int(nbytes))
+
+
+def to_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t.to(dev)``; a copy from one card to another is counted
+    (:data:`peer_copies`)."""
+    out = t.to(dev)
+    if is_peer(t.device, dev):
+        note_peer(out.numel() * out.element_size())
+    return out
+
 
 def _resolve_device(device):
     from ..columnar.table import resolve_device as _resolve
@@ -156,7 +187,7 @@ class ShardedRows:
         """The logical array as one tensor on *device* (default: the
         first shard's)."""
         dev = self.mesh.devices[0] if device is None else _resolve_device(device)
-        return torch.cat([s.to(dev) for s in self.shards])
+        return torch.cat([to_device(s, dev) for s in self.shards])
 
     @property
     def lens(self) -> List[int]:
@@ -187,7 +218,7 @@ def split_even(mesh: Mesh, x: torch.Tensor) -> List[torch.Tensor]:
     """Blocks ``x[i*q:(i+1)*q]`` on shard i's device; a block already on
     its device is a view, not a copy."""
     q = int(x.shape[0]) // mesh.size
-    return [x[i * q:(i + 1) * q].to(dev) for i, dev in enumerate(mesh.devices)]
+    return [to_device(x[i * q:(i + 1) * q], dev) for i, dev in enumerate(mesh.devices)]
 
 
 def shard_rows(mesh: Mesh, x) -> ShardedRows:
@@ -227,7 +258,7 @@ def relayout(mesh: Mesh, x, lens: Sequence[int], fill: int = 0) -> List[torch.Te
             ge = gs + int(arr.shape[0])
             lo, hi = max(gs, t0), min(ge, t1)
             if lo < hi:
-                parts.append(arr[lo - gs:hi - gs].to(dev))
+                parts.append(to_device(arr[lo - gs:hi - gs], dev))
         got = sum(int(p.shape[0]) for p in parts)
         if got < n:
             parts.append(torch.full((int(n) - got,), fill, dtype=dtype, device=dev))
@@ -294,7 +325,7 @@ def assemble(x, device=None) -> torch.Tensor:
     collects, as the ``shard.assemble`` / ``shard.assemble_bytes``
     counters.  A plain tensor passes through."""
     if not isinstance(x, ShardedRows):
-        return x if device is None else x.to(_resolve_device(device))
+        return x if device is None else to_device(x, _resolve_device(device))
     from ..utils.observe import telemetry
 
     out = x.gather(device)
@@ -315,7 +346,7 @@ def replicate(mesh: Mesh, x) -> Tuple[torch.Tensor, ...]:
         per_device = {dev: assemble(x, dev) for dev in mesh.distinct_devices}
     else:
         t = _as_tensor(x)
-        per_device = {dev: t.to(dev) for dev in mesh.distinct_devices}
+        per_device = {dev: to_device(t, dev) for dev in mesh.distinct_devices}
     return Replicated(per_device[dev] for dev in mesh.devices)
 
 
@@ -348,6 +379,8 @@ def _all_to_all_pairs(mesh: Mesh, blocks: Sequence[torch.Tensor]) -> List[torch.
         out = torch.empty((n,) + tail, dtype=blocks[0].dtype, device=devs[d])
         for s in range(n):
             out[s].copy_(blocks[s][d])
+            if is_peer(devs[s], devs[d]):
+                note_peer(out[s].numel() * out.element_size())
         recv.append(out)
     return recv
 
@@ -357,7 +390,7 @@ def all_gather(mesh: Mesh, parts: Sequence[torch.Tensor]) -> Tuple[torch.Tensor,
     concatenation in flat shard order, on every shard's device (one copy
     per distinct device)."""
     dev0 = mesh.devices[0]
-    pool = torch.cat([p.to(dev0) for p in parts])
+    pool = torch.cat([to_device(p, dev0) for p in parts])
     return replicate(mesh, pool)
 
 
@@ -373,8 +406,8 @@ def psum(mesh: Mesh, parts: Sequence[torch.Tensor], axis: str) -> List[torch.Ten
     for members in groups.values():
         for i in members:
             dev = mesh.devices[i]
-            total = parts[members[0]].to(dev)
+            total = to_device(parts[members[0]], dev)
             for j in members[1:]:
-                total = total + parts[j].to(dev)
+                total = total + to_device(parts[j], dev)
             out[i] = total
     return out

@@ -46,7 +46,9 @@ import numpy as np
 import torch
 
 from ..utils.env import env_int, env_str
-from .mesh import Mesh, ShardedRows, all_to_all, even_blocks, replicate, shard_rows, unpad
+from .mesh import (
+    Mesh, ShardedRows, all_to_all, even_blocks, replicate, shard_rows, to_device, unpad,
+)
 
 _SENTINEL = np.int32(np.iinfo(np.int32).max)
 # 62-bit sentinel for wide (int64) keys: packed keys keep headroom below
@@ -401,11 +403,11 @@ def _probe_dev(mesh, n_hot, q_lanes_in, kernel, hot_lanes, hot_lo, hot_ct):
                 ct[i] = torch.where(hit, h_ct, ct[i])
     lo, ct = unpad(lo, m), unpad(ct, m)
     dev0 = mesh.devices[0]
-    overflow = torch.stack([(c < 0).any().to(dev0) for c in ct]).any()
+    overflow = torch.stack([to_device((c < 0).any(), dev0) for c in ct]).any()
     res = (ShardedRows(mesh, lo), ShardedRows(mesh, ct), overflow)
     if hits is None:
         return res
-    n_hit = torch.stack([hit.sum().to(dev0) for hit, _ in hits]).sum()
+    n_hit = torch.stack([to_device(hit.sum(), dev0) for hit, _ in hits]).sum()
     return res + (n_hit,)
 
 

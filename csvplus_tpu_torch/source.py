@@ -23,7 +23,7 @@ host streaming path.
 Ported so far: ``transform``, ``filter``, ``map``, ``validate``,
 ``top``, ``drop``, ``take_while``, ``drop_while``, ``drop_columns``,
 ``select_columns``, ``index_on``, ``unique_index_on``, ``join``,
-``except_``, ``on_device``, ``explain`` and the sinks ``to_csv``,
+``except_``, ``on_device``, ``reshard``, ``explain`` and the sinks ``to_csv``,
 ``to_csv_file``, ``to_json``, ``to_json_file``, ``to_rows`` and
 ``to_device_table``.
 """
@@ -354,14 +354,49 @@ class DataSource:
         """Columnarize this source onto *device* (``"cuda"`` unless the
         caller asks for ``"cpu"``) and return a plan-capable source over
         it; ``shards=`` / *mesh* row-shard it as ``Reader.on_device``
-        does.  Error row numbers downstream count streamed rows from 0;
+        does.  A source that is a device table as it stands (what
+        ``on_device`` returns, before any combinator) is row-sharded
+        device to device by :meth:`reshard`, not streamed through the
+        host.  Error row numbers downstream count streamed rows from 0;
         ``from_file(...).on_device()`` keeps the reader's numbering."""
         from .columnar.ingest import _maybe_shard, resolve_mesh, source_from_table
         from .columnar.table import DeviceTable
+        from .plan import Scan
 
         mesh = resolve_mesh(device, shards, mesh)
+        if mesh is not None and isinstance(self.plan, Scan):
+            return self.reshard(mesh=mesh)
         table = DeviceTable.from_rows(self.to_rows(), mesh.devices[0] if mesh else device)
         return source_from_table(_maybe_shard(table, mesh))
+
+    def reshard(self, device: str = "cuda", shards: "int | None" = None,
+                mesh=None) -> "DataSource":
+        """This source's device table row-sharded over a mesh (``shards=``
+        over *device*, or *mesh*, as :meth:`on_device` takes them): each
+        column cut into ``ceil(n / k)``-row blocks copied device to
+        device (``DeviceTable.with_sharding``), so no row passes through
+        the host, and the source's table may be dropped afterwards.  The
+        source must be a device table as it stands (what ``on_device``
+        returns, before any combinator).  The result equals
+        ``on_device``'s row for row, its error row numbers counting from
+        0; the stage ``shard:relayout`` records the re-lay and the bytes
+        it copied between cards (``peer_bytes``)."""
+        from .columnar.ingest import resolve_mesh, source_from_table
+        from .plan import Scan
+        from .utils.observe import telemetry
+
+        mesh = resolve_mesh(device, shards, mesh)
+        if mesh is None:
+            raise ValueError("reshard() needs shards= or mesh=")
+        if not isinstance(self.plan, Scan):
+            raise ValueError("reshard() needs a device table as it stands; "
+                             "on_device() columnarizes a chain")
+        table = self.plan.table
+        with telemetry.stage("shard:relayout", table.nrows):
+            out = table.with_sharding(mesh)
+            out.row_base = 0
+            telemetry.barrier(tuple(s for c in out.columns.values() for s in c.storage.shards))
+        return source_from_table(out)
 
     OnDevice = on_device
 

@@ -26,7 +26,10 @@ trace:
 A stage body may set counts of the host memory its work passes through
 (``d2h_bytes``, ``h2d_bytes``, ``host_entries``), and of the entries a
 translation searched on the card (``device_entries``): they land on the
-record and on the span, never in :attr:`Telemetry.counters`.
+record and on the span, never in :attr:`Telemetry.counters`.  Code that
+runs under a stage without holding its dict adds to the innermost live
+stage of its thread through :meth:`Telemetry.tally` (the mesh's copies
+between cards, ``peer_bytes``).
 """
 
 from __future__ import annotations
@@ -89,6 +92,10 @@ class Telemetry:
     _lock: threading.Lock = field(
         default_factory=threading.Lock, repr=False, compare=False
     )
+    # per thread: the dicts of the live stages open there, innermost last
+    _open: threading.local = field(
+        default_factory=threading.local, repr=False, compare=False
+    )
 
     def reset(self) -> None:
         with self._lock:
@@ -118,6 +125,19 @@ class Telemetry:
         finally:
             self.enabled = prev
 
+    def _open_stages(self) -> list:
+        stack = getattr(self._open, "stack", None)
+        if stack is None:
+            stack = self._open.stack = []
+        return stack
+
+    def tally(self, key: str, n: int) -> None:
+        """Add *n* to *key* on the innermost live stage open on this
+        thread (its record and its span); nothing when none is open."""
+        stack = getattr(self._open, "stack", None)
+        if stack:
+            stack[-1][key] = stack[-1].get(key, 0) + int(n)
+
     def live(self) -> bool:
         """True when a stage opened here is recorded: collection is on or
         a trace is active.  A stage body computes a count only then."""
@@ -143,6 +163,8 @@ class Telemetry:
         out: dict = {}
         t0 = time.perf_counter()
         rng = enter_range(name) if handle is None else None
+        stack = self._open_stages()
+        stack.append(out)
         try:
             yield out
         except BaseException:
@@ -151,6 +173,7 @@ class Telemetry:
                 handle = None
             raise
         finally:
+            stack.pop()
             if rng is not None:
                 exit_range(rng)
             if handle is not None:
