@@ -377,36 +377,31 @@ class Index:
         impl.dev = None
 
     def _device_policy_dedup(self, policy: str) -> None:
-        """The policy's run-boundary dedup, in three stages: the run
-        starts compared on the device and their flags copied down
-        (``dedup:run-starts``, ``d2h_bytes``), the kept rows' positions
-        picked on the host and copied up (``dedup:select``,
-        ``h2d_bytes``), and the kept rows gathered (``dedup:gather``)
-        before the index is packed again."""
+        """The policy's run-boundary dedup, on the device, in three
+        stages: the kept rows' flags compared (``dedup:run-starts``), the
+        flags compacted into positions (``dedup:select``: ``device_rows``
+        flags, one 8-byte count read back to size the result), and the
+        kept rows gathered (``dedup:gather``) before the index is packed
+        again."""
         from .ops.join import DeviceIndex, _flat
-        from .ops.sort import run_starts
+        from .ops.sort import flag_positions, run_flags
         from .utils.observe import telemetry
 
         impl = self._impl
         table = impl.dev.table
         n = table.nrows
         with telemetry.stage("dedup:run-starts", n) as stage:
-            starts = run_starts(table, impl.columns)  # a host copy: no barrier
-            stage["d2h_bytes"] = starts.nbytes
+            keep = run_flags(table, impl.columns, policy)
+            stage["d2h_bytes"] = 0
+            telemetry.barrier(keep)
         with telemetry.stage("dedup:select", n) as stage:
-            if policy == "first":
-                keep = starts
-            else:  # "last": a row is kept when the NEXT row starts a new run
-                keep = np.roll(starts, -1)
-                if keep.size:
-                    keep[-1] = True
-            if keep.all():
-                stage["h2d_bytes"] = 0
-                return
-            pos = np.flatnonzero(keep)
-            sel = torch.from_numpy(pos).to(table.device)
-            stage["rows_out"] = int(pos.size)
-            stage["h2d_bytes"] = pos.nbytes
+            sel = flag_positions(keep)
+            stage["d2h_bytes"] = 8
+            stage["h2d_bytes"] = 0
+            stage["device_rows"] = n
+            if sel.numel() == n:
+                return  # no duplicates; nothing to do
+            stage["rows_out"] = int(sel.numel())
             telemetry.barrier(sel)
         with telemetry.stage("dedup:gather", n) as stage:
             kept = table.gather(sel)

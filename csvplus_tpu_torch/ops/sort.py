@@ -189,12 +189,28 @@ def find_adjacent_duplicate(
     return None if i < 0 else i
 
 
+def run_flags(
+    table: DeviceTable, key_columns: Sequence[str], policy: str = "first"
+) -> torch.Tensor:
+    """Device bool[n] marking the row each equal-key run keeps: its first
+    (``"first"``) or its last (``"last"``, the shifted compare: row i is
+    kept when row i+1 starts a new run).  Nothing is copied to the host."""
+    if table.nrows < 2:
+        return torch.ones(table.nrows, dtype=torch.bool, device=table.device)
+    neq = ~_adjacent_equal(table, key_columns)
+    edge = torch.ones(1, dtype=torch.bool, device=neq.device)
+    return torch.cat([edge, neq] if policy == "first" else [neq, edge])
+
+
+def flag_positions(flags: torch.Tensor) -> torch.Tensor:
+    """int64 positions of *flags*' set entries, compacted on the device;
+    the one host read is the output size (counted)."""
+    from ..utils.observe import telemetry
+
+    telemetry.count_sync(1)
+    return torch.nonzero(flags).squeeze(1)
+
+
 def run_starts(table: DeviceTable, key_columns: Sequence[str]) -> np.ndarray:
     """Host bool array marking the first row of each equal-key run."""
-    if table.nrows == 0:
-        return np.zeros(0, dtype=bool)
-    if table.nrows == 1:
-        return np.ones(1, dtype=bool)
-    neq = ~_adjacent_equal(table, key_columns)
-    head = torch.ones(1, dtype=torch.bool, device=neq.device)
-    return torch.cat([head, neq]).cpu().numpy()
+    return run_flags(table, key_columns).to("cpu").numpy()

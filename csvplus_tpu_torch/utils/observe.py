@@ -46,9 +46,10 @@ from ..obs.span import enter_range, exit_range, tracer
 # merge (next to the ``_s``-suffix per-worker second tallies and the
 # ``_bytes`` / ``_entries`` host-memory counts); the skew trio lets a
 # multi-join pipeline's ``join:skew`` rows report total routed rows, not
-# the last join's
+# the last join's; ``device_rows`` counts the dedup's flags compacted on
+# the device
 _SUMMED_EXTRAS = frozenset(
-    {"chunks", "hot_keys", "rows_broadcast", "rows_repartitioned"}
+    {"chunks", "hot_keys", "rows_broadcast", "rows_repartitioned", "device_rows"}
 )
 _SUMMED_SUFFIXES = ("_s", "_bytes", "_entries")
 
@@ -242,11 +243,12 @@ class Telemetry:
         per-worker second tallies like the staged ingest's ``scan_s`` /
         ``encode_s`` —, in ``_bytes`` or ``_entries`` — host-memory
         counts like the dedup's ``d2h_bytes`` —, plus the count-shaped
-        ``chunks`` and the skew router's ``hot_keys`` / ``rows_broadcast``
-        / ``rows_repartitioned``) sum too, all other extras taken
-        from the last record of the name (configuration-shaped values
-        like ``workers`` or ``max_shard_rows`` must not add across
-        records): one line per stage kind."""
+        ``chunks``, the skew router's ``hot_keys`` / ``rows_broadcast``
+        / ``rows_repartitioned`` and the dedup's ``device_rows``) sum
+        too, all other extras taken from the last record of the name
+        (configuration-shaped values like ``workers`` or
+        ``max_shard_rows`` must not add across records): one line per
+        stage kind."""
         with self._lock:
             records = list(self.records)
         order: List[str] = []

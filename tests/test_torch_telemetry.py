@@ -72,7 +72,8 @@ def _collect(fn):
 PORT_ONLY_STAGES = frozenset(
     {"index:sort", "index:pack", "dedup:run-starts", "dedup:select", "dedup:gather"}
 )
-PORT_ONLY_EXTRAS = frozenset({"host_entries", "device_entries", "h2d_bytes", "d2h_bytes"})
+PORT_ONLY_EXTRAS = frozenset({"host_entries", "device_entries", "h2d_bytes", "d2h_bytes",
+                              "device_rows"})
 
 
 def reference_view(records):
@@ -86,8 +87,9 @@ def reference_view(records):
 def port_only_stages(records) -> list:
     """Checks every port-only item of *records* and returns the port-only
     stages' names in order: each index stage passes its rows through;
-    the run-starts copy down one byte a row, the selection eight a kept
-    row, the gather keeps what the selection kept; every translation
+    the run-starts copy nothing down, the selection compacts every row's
+    flag on the device and reads back one 8-byte count, the gather keeps
+    what the selection kept; every translation
     counts its host entries and uploaded bytes, a string probe its
     device entries too, and only it."""
     kept = None
@@ -96,10 +98,10 @@ def port_only_stages(records) -> list:
         if r.stage in ("index:sort", "index:pack"):
             assert r.rows_out == r.rows_in and not r.extra, r
         elif r.stage == "dedup:run-starts":
-            assert r.extra == {"d2h_bytes": r.rows_in}, r
+            assert r.extra == {"d2h_bytes": 0}, r
         elif r.stage == "dedup:select":
             kept = r.rows_out
-            assert r.extra == {"h2d_bytes": 8 * kept if kept < r.rows_in else 0}, r
+            assert r.extra == {"d2h_bytes": 8, "h2d_bytes": 0, "device_rows": r.rows_in}, r
         elif r.stage == "dedup:gather":
             assert not r.extra and r.rows_out == kept, r
         elif r.stage == "join:translate":
@@ -348,8 +350,8 @@ def test_policy_dedup_records_its_stages_and_host_bytes(policy):
                                       "dedup:select", "dedup:gather", "index:pack"]
     by = {r.stage: r for r in recs}
     assert len(idx) == by["dedup:gather"].rows_out == 11
-    assert by["dedup:run-starts"].extra == {"d2h_bytes": 60}
-    assert by["dedup:select"].extra == {"h2d_bytes": 8 * 11}
+    assert by["dedup:run-starts"].extra == {"d2h_bytes": 0}
+    assert by["dedup:select"].extra == {"d2h_bytes": 8, "h2d_bytes": 0, "device_rows": 60}
     merged = {r.stage: r for r in t_tel.merged_stages()}
     assert merged["index:pack"].rows_in == 60 + 11
 
