@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``csvplus_tpu_torch``) on one NVIDIA GPU.
 
-Usage: python3 chip_smoke.py [--seed S] [--f4] [--profile]
+Usage: python3 chip_smoke.py [--seed S] [--f4]
 
 Phases; any failure raises, exits non-zero and prints no result line:
 
@@ -347,6 +347,16 @@ from pathlib import Path
 
 import numpy as np
 
+from portbench.reference import dedup4, orders3
+from portbench.reference.fnv import digits as _digits
+from portbench.reference.fnv import fnv32 as _fnv32
+from portbench.reference.fnv import fnv32_mat as _fnv32_mat
+from portbench.reference.fnv import fnv_affix as _fnv_affix
+from portbench.reference.fnv import lines as _lines
+from portbench.reference.fnv import lit as _lit
+from portbench.reference.fnv import write_rows as _write_rows
+from portbench.reference.orders3 import _orders_lines, _price, _sbytes
+
 N_ORDERS = 10_000_000  # BASELINE.json config 3
 N_ORDERS_STREAMED = 50_000_000  # BASELINE.json config 4's row count
 N_LANE_ROWS = 14_000_000  # over CSVPLUS_DICT_DEVICE_MIN_DISTINCT's 4M
@@ -374,8 +384,6 @@ WIDE_IN_LIST = 60_000
 COLD_BYTES = 150_000_000
 I32_MAX = 2**31 - 1
 ORDERS_COLS = ("order_id", "cust_id", "prod_id", "qty")
-_FNV_OFFSET = np.uint32(2166136261)
-_FNV_PRIME = np.uint32(16777619)
 
 
 def log(msg: str) -> None:
@@ -817,71 +825,14 @@ def check_pack_kernel(seed: int) -> dict:
 # -- phase 4: the main path --------------------------------------------------
 
 
-def _fnv32(values: np.ndarray) -> np.ndarray:
-    """32-bit FNV-1a of each entry of an 'S' array (the oracle's own)."""
-    n = values.size
-    width = values.dtype.itemsize
-    mat = np.frombuffer(values.tobytes(), dtype=np.uint8).reshape(n, width)
-    lens = np.char.str_len(values)
-    h = np.full(n, _FNV_OFFSET, dtype=np.uint32)
-    with np.errstate(over="ignore"):
-        for i in range(width):
-            h = np.where(i < lens, (h ^ mat[:, i]) * _FNV_PRIME, h)
-    return h
-
-
-def _fnv32_mat(mat: np.ndarray) -> np.ndarray:
-    """:func:`_fnv32` of the rows of a NUL-padded (n, width) byte matrix."""
-    h = np.full(mat.shape[0], _FNV_OFFSET, dtype=np.uint32)
-    with np.errstate(over="ignore"):
-        for i in range(mat.shape[1]):
-            col = mat[:, i]
-            h = np.where(col != 0, (h ^ col) * _FNV_PRIME, h)
-    return h
-
-
 def _positional_sum(hashes: np.ndarray) -> int:
     w = 2 * np.arange(hashes.size, dtype=np.uint32) + np.uint32(1)
     with np.errstate(over="ignore"):
         return int(np.add.reduce(hashes.astype(np.uint32) * w, dtype=np.uint32))
 
 
-def _sbytes(prefix: bytes, ints: np.ndarray) -> np.ndarray:
-    return np.char.add(prefix, ints.astype("S"))
-
-
 # -- CSV and JSON bytes from numpy: NUL-padded byte matrices, one row per
 # line, whose NULs are dropped (no CSV byte written here is NUL) ----------
-
-
-def _digits(v: np.ndarray, width: int = 0) -> np.ndarray:
-    """(n, w) uint8 decimal digits of the nonnegative ints *v*, left
-    aligned and NUL padded; ``width`` > 0 gives exactly that many digits,
-    zero filled (``%0*d``).  Rows of each digit count are filled
-    together, least significant digit first (one divmod a digit)."""
-    v = np.asarray(v, dtype=np.int64)
-    w = width or max(len(str(int(v.max()))) if v.size else 1, 1)
-    if v.size and int(v.max()) >= 10**w:
-        raise ValueError("value too wide")
-
-    def fixed(x: np.ndarray, d: int) -> np.ndarray:
-        out = np.empty((x.size, d), np.uint8)
-        for k in range(d - 1, -1, -1):
-            x, r = np.divmod(x, 10)
-            out[:, k] = r + 48
-        return out
-
-    if width:
-        return fixed(v, w)
-    out = np.zeros((v.size, w), np.uint8)
-    nd = np.ones(v.shape, np.int64)
-    for k in range(1, w):
-        nd += v >= 10**k
-    for d in range(1, w + 1):
-        rows = np.flatnonzero(nd == d)
-        if rows.size:
-            out[rows, :d] = fixed(v[rows], d)
-    return out
 
 
 def _smat(values: np.ndarray) -> np.ndarray:
@@ -889,77 +840,27 @@ def _smat(values: np.ndarray) -> np.ndarray:
     return np.frombuffer(values.tobytes(), np.uint8).reshape(values.size, values.dtype.itemsize)
 
 
-def _lit(n: int, b: bytes) -> np.ndarray:
-    return np.broadcast_to(np.frombuffer(b, np.uint8), (n, len(b)))
-
-
-def _lines(pieces) -> bytes:
-    mat = np.hstack(pieces)
-    flat = mat.ravel()
-    return flat[flat != 0].tobytes()
-
-
-def _write_rows(f, n: int, lines, chunk: int = 2_000_000) -> None:
-    """Write ``lines(lo, hi)`` (the bytes of rows [lo, hi)) for every
-    *chunk* rows of *n*, in order: the chunks are built on a few threads
-    (numpy releases the interpreter lock in its loops), at most a window
-    of them held at once."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    starts = list(range(0, n, chunk))
-    workers = max(1, min(8, os.cpu_count() or 1))
-    with ThreadPoolExecutor(workers) as pool:
-        for w in range(0, len(starts), 2 * workers):
-            window = starts[w:w + 2 * workers]
-            for data in pool.map(lambda lo: lines(lo, min(lo + chunk, n)), window):
-                f.write(data)
-
-
-def _fnv_affix(prefix: bytes, v: np.ndarray) -> np.ndarray:
-    """FNV-1a of ``prefix + decimal(v)`` per row, for nonnegative ints."""
-    n = v.size
-    return _fnv32_mat(np.hstack([_lit(n, prefix), _digits(v)]) if prefix else _digits(v))
-
-
-def _orders_lines(lo: int, hi: int, cust, prod, qty) -> bytes:
-    """Orders rows [lo, hi) in phase 4's layout: ``o<row>,c<cust>,p<prod>,<qty>``."""
-    m = hi - lo
-    return _lines([_lit(m, b"o"), _digits(np.arange(lo, hi)), _lit(m, b",c"),
-                   _digits(cust[lo:hi]), _lit(m, b",p"), _digits(prod[lo:hi]), _lit(m, b","),
-                   _digits(qty[lo:hi]), _lit(m, b"\n")])
-
-
 def generate(root: Path, n_orders: int, seed: int, name: str = "orders.csv") -> dict:
-    """Write the three CSVs and return the arrays they were made from."""
-    rng = np.random.default_rng(seed)
-    cust = rng.integers(0, N_CUST, n_orders)
-    prod = rng.integers(0, N_PROD, n_orders)
-    qty = rng.integers(1, 101, n_orders)
+    """Write the three CSVs (``portbench.reference.orders3``'s files, the
+    orders file named *name*) and return the arrays they were made from."""
+    tables = {"orders": {"rows": n_orders}, "customers": {"rows": N_CUST},
+              "products": {"rows": N_PROD}}
+    paths = {"orders": root / name, "cust": root / "customers.csv",
+             "prod": root / "products.csv"}
+    # written apart and moved: an orders.csv already in *root* stays
+    with tempfile.TemporaryDirectory(dir=root) as tmp:
+        made = orders3.generate(Path(tmp), tables, seed)
+        for key, table in (("orders", "orders"), ("cust", "customers"), ("prod", "products")):
+            os.replace(made["paths"][table], paths[key])
     ci = np.arange(N_CUST)
     pi = np.arange(N_PROD)
-    price = np.array([f"{(i % 9900) / 100 + 0.99:.2f}".encode() for i in pi])
     cols = {
         "cust": {"id": _sbytes(b"c", ci), "name": _sbytes(b"name", ci % 9973)},
         "prod": {"prod_id": _sbytes(b"p", pi), "product": _sbytes(b"prod", pi),
-                 "price": price},
+                 "price": _price(pi)},
     }
-    paths = {"orders": root / name, "cust": root / "customers.csv",
-             "prod": root / "products.csv"}
-    with open(paths["cust"], "wb") as f:
-        f.write(b"id,name\n")
-        f.write(b"\n".join(np.char.add(np.char.add(cols["cust"]["id"], b","),
-                                       cols["cust"]["name"]).tolist()) + b"\n")
-    with open(paths["prod"], "wb") as f:
-        f.write(b"prod_id,product,price\n")
-        p = cols["prod"]
-        f.write(b"\n".join(np.char.add(np.char.add(np.char.add(p["prod_id"], b","),
-                                                   np.char.add(p["product"], b",")),
-                                       p["price"]).tolist()) + b"\n")
-    with open(paths["orders"], "wb") as f:
-        f.write(b"order_id,cust_id,prod_id,qty\n")
-        _write_rows(f, n_orders, lambda lo, hi: _orders_lines(lo, hi, cust, prod, qty))
-    return {"paths": paths, "cust": cust, "prod": prod, "qty": qty, "cols": cols,
-            "n": n_orders, "seed": seed}
+    return {"paths": paths, "cust": made["cust"], "prod": made["prod"], "qty": made["qty"],
+            "cols": cols, "n": n_orders, "seed": seed}
 
 
 def oracle(data: dict, keep: np.ndarray, columns) -> "tuple[int, dict, list]":
@@ -1018,31 +919,6 @@ def ingest_oracle(data: dict) -> dict:
         "prod_id": _positional_sum(_fnv32(data["cols"]["prod"]["prod_id"])[data["prod"]]),
         "qty": _positional_sum(_fnv32(qty_s)[data["qty"]]),
     }
-
-
-def profile_pipelines(srcs) -> None:
-    """One warm run of each pipeline under ``torch.profiler``: the device
-    time by kernel and the device's busy share of the window."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for name, src in srcs.items():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            src.to_device_table()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        # device-side events only (kernels, copies): the host ops that
-        # launched them report the same time again
-        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        busy_us = sum(e.device_time_total for e in events)
-        log(f"profile pipeline {name}: window {wall_us:.0f} us, {len(events)} device "
-            f"event kinds, device busy {busy_us:.0f} us "
-            f"({100 * busy_us / wall_us:.1f} % of the window)")
-        top = sorted(events, key=lambda e: -e.device_time_total)
-        for e in top[:12] + [e for e in top[12:] if "fused_mask" in e.key]:
-            log(f"  {e.device_time_total:10.1f} us  x{e.count:<4d} {e.key[:90]}")
 
 
 def _sync(device: str) -> None:
@@ -1165,7 +1041,7 @@ MAIN_LEGS = {"device-parsed": None, "native-encoded": {"CSVPLUS_DEVICE_PARSE": "
 
 
 def run_main_path(
-    n_orders: int, seed: int, device: str, workdir: Path, profile: bool = False,
+    n_orders: int, seed: int, device: str, workdir: Path,
     stats: "dict | None" = None, card: str = "", keep: "dict | None" = None,
 ) -> dict:
     """Phase 4: drive both pipelines through the public API on *device*
@@ -1174,8 +1050,7 @@ def run_main_path(
     dictionary column, the pack kernel launched once per column), and
     ``CSVPLUS_DEVICE_PARSE=0``, where they take ``native-encoded`` with the
     orders columns as typed lanes and no demotion.  Returns each leg's
-    launches and times; *profile* adds a ``torch.profiler`` breakdown of
-    one more warm run of the native leg.  Each leg ends with phase 14 (a),
+    launches and times.  Each leg ends with phase 14 (a),
     the flagship on the leg's tables (:func:`run_flagship`), its calls
     counted into *stats*.  *keep* (a dict) gets the generated data for
     phase 17 under ``"orders"``."""
@@ -1188,12 +1063,12 @@ def run_main_path(
     out = {"rows": n_orders, "cpu_count": os.cpu_count(), "legs": {}}
     for leg, env in MAIN_LEGS.items():
         with _env_set(_default_parse_env(device) if env is None else env):
-            out["legs"][leg] = _main_leg(data, device, leg, profile, stats, card)
+            out["legs"][leg] = _main_leg(data, device, leg, stats, card)
         gc.collect()  # the leg's tables; a source and its run function form a cycle
     return out
 
 
-def _main_leg(data: dict, device: str, leg: str, profile: bool, stats: dict, card: str) -> dict:
+def _main_leg(data: dict, device: str, leg: str, stats: dict, card: str) -> dict:
     import csvplus_tpu_torch as T
     from csvplus_tpu_torch.columnar import typed
     from csvplus_tpu_torch.ops import parse as P
@@ -1263,8 +1138,6 @@ def _main_leg(data: dict, device: str, leg: str, profile: bool, stats: dict, car
     if leg == "native-encoded":  # the costs earlier slices measured, on their tier
         out["verifier"] = verifier_cost(src_a, device)
         out["telemetry_cost"] = telemetry_cost(src_a, device)
-        if profile:
-            profile_pipelines(run["srcs"])
     out["flagship"] = run_flagship(orders, cust, prod, data, device, leg,
                                    data["paths"]["orders"].parent, stats, card)
     plain_src = orders.join(cust, "cust_id").join(prod)
@@ -2351,20 +2224,13 @@ def _dedup_data(workdir: Path, n: int, n_distinct: int, seed: int) -> dict:
     row order; ``order_id = o%08d`` (zero-padded: a string column, whose
     byte order is the numeric order), ``cust_id = c<i>`` over 100,000
     customers, ``qty`` 1-100, ``ts`` the row number."""
-    rng = np.random.default_rng(seed + 10)
-    ids = rng.permutation(np.concatenate([
-        np.arange(n_distinct), rng.integers(0, n_distinct, n - n_distinct)]))
-    cust = rng.integers(0, N_CUST, n)
-    qty = rng.integers(1, 101, n)
+    tables = {"orders": {"rows": n, "distinct_order_ids": n_distinct, "customers": N_CUST}}
     path = workdir / "dedup.csv"
-    with open(path, "wb") as f:
-        f.write(b"order_id,cust_id,qty,ts\n")
-        _write_rows(f, n, lambda lo, hi: _lines([
-            _lit(hi - lo, b"o"), _digits(ids[lo:hi], 8), _lit(hi - lo, b",c"),
-            _digits(cust[lo:hi]), _lit(hi - lo, b","), _digits(qty[lo:hi]), _lit(hi - lo, b","),
-            _digits(np.arange(lo, hi)), _lit(hi - lo, b"\n")]))
-    return {"path": path, "ids": ids, "cust": cust, "qty": qty, "n": n,
-            "n_distinct": n_distinct}
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        made = dedup4.generate(Path(tmp), tables, seed)
+        os.replace(made["paths"]["orders"], path)
+    return {"path": path, "ids": made["ids"], "cust": made["cust"], "qty": made["qty"],
+            "n": n, "n_distinct": n_distinct}
 
 
 def _dedup_oracle(d: dict) -> dict:
@@ -4188,10 +4054,9 @@ def zipf_data(root: Path, n_orders: int, n_cust: int, seed: int) -> dict:
     qty = rng.integers(1, 101, n_orders)
     ci = np.arange(n_cust)
     pi = np.arange(N_PROD)
-    price = np.array([f"{(i % 9900) / 100 + 0.99:.2f}".encode() for i in pi])
     cols = {"cust": {"id": _sbytes(b"c", ci), "name": _sbytes(b"name", ci % 9973)},
             "prod": {"prod_id": _sbytes(b"p", pi), "product": _sbytes(b"prod", pi),
-                     "price": price}}
+                     "price": _price(pi)}}
     paths = {"orders": root / "orders_zipf.csv", "cust": root / "customers_zipf.csv",
              "prod": root / "products_zipf.csv"}
     with open(paths["cust"], "wb") as f:
@@ -4888,8 +4753,6 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=20160914)
     ap.add_argument("--f4", action="store_true",
                     help="add phase 12's probe of why readers slow the merge (~70 s)")
-    ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler breakdown of the warm pipelines")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -4920,8 +4783,8 @@ def main(argv=None) -> int:
     xla = {}  # phase 14's calls of the ported jitted functions
     state = {}  # what phase 17 runs on: phases 4, 9, 12 and 13 leave it here
     try:
-        main_path = run_main_path(N_ORDERS, args.seed, "cuda", workdir, args.profile,
-                                  stats=xla, card=smi, keep=state)
+        main_path = run_main_path(N_ORDERS, args.seed, "cuda", workdir, stats=xla, card=smi,
+                                  keep=state)
         streamed = run_streamed_path(N_ORDERS_STREAMED, args.seed, "cuda", workdir,
                                      serve={"keep": state})
         lane = run_lane_path(N_LANE_ROWS, N_PROBE_REFS, args.seed, "cuda", workdir)

@@ -62,7 +62,8 @@ _MASK31 = (1 << 31) - 1
 #: Joins this process ran, counted by expansion path ("unique-identity",
 #: "unique-partial", "fan-out", prefixed "multiway-" or "fused-" for the
 #: single-pass operators) — counted where the path is chosen, nowhere
-#: else.  ``chip_smoke.py`` and the tests read it.
+#: else.  Every probe tier answers on the device: no path expands on the
+#: host.  ``chip_smoke.py`` and the tests read it.
 expand_paths: Counter = Counter()
 
 #: Probes this process ran, counted by tier where :meth:`DeviceIndex.probe`
@@ -678,47 +679,6 @@ def _in_layout(x: ShardedRows, like: ShardedRows) -> ShardedRows:
     return ShardedRows(like.mesh, relayout(like.mesh, x, like.lens))
 
 
-def expand_matches(lower: np.ndarray, counts: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """Fan-out expansion on the host, for probe answers that come back as
-    numpy arrays: (probe row ids, build row ids) per match."""
-    total = int(counts.sum())
-    probe_ids = np.repeat(np.arange(counts.shape[0], dtype=np.int64), counts)
-    starts = np.repeat(lower.astype(np.int64), counts)
-    # within-group offset: the position among this probe row's matches
-    ends = np.cumsum(counts)
-    group_base = np.repeat(ends - counts, counts)
-    return probe_ids, starts + (np.arange(total, dtype=np.int64) - group_base)
-
-
-def _multiway_expand_host(lowers, counts):
-    """The cross-product fan-out on the host (numpy probe answers), in
-    :func:`_multiway_expand`'s mixed radix.  Returns (probe ids, build
-    ids per build side, total, intermediate rows avoided)."""
-    cs = [np.asarray(c).astype(np.int64) for c in counts]
-    prod = cs[0].copy()
-    inter = 0
-    for c in cs[1:]:
-        inter += int(prod.sum())
-        prod *= c
-    total = int(prod.sum())
-    probe_ids = np.repeat(np.arange(prod.shape[0], dtype=np.int64), prod)
-    ends = np.cumsum(prod)
-    r = np.arange(total, dtype=np.int64) - np.repeat(ends - prod, prod)
-    suffix = np.ones_like(prod)
-    sufs = []
-    for c in reversed(cs):
-        sufs.append(suffix)
-        suffix = suffix * c
-    sufs.reverse()
-    build_ids = []
-    for d, (lo, c, su) in enumerate(zip(lowers, cs, sufs)):
-        o = r // np.maximum(su, 1)[probe_ids]
-        if d > 0:
-            o = o % np.maximum(c, 1)[probe_ids]
-        build_ids.append(np.asarray(lo).astype(np.int64)[probe_ids] + o)
-    return probe_ids, tuple(build_ids), total, inter
-
-
 def _expand_kernel(lower: torch.Tensor, counts: torch.Tensor, total: int):
     """Fan-out expansion to exactly *total* output slots: an exclusive
     int32 prefix sum locates each probe row's segment, a scatter of
@@ -940,27 +900,19 @@ def join_tables(
         return _join_sharded(stream, dev_index, lower, counts)
     with telemetry.stage("join:expand", stream.nrows) as _exp:
         probe_ids = None
-        if isinstance(counts, np.ndarray):
-            # a tier answering on the host: expand in numpy, as the
-            # reference does for numpy answers
-            probe_ids, build_ids = (torch.from_numpy(x).to(stream.device)
-                                    for x in expand_matches(lower, counts))
-            total = int(probe_ids.shape[0])
-            path = "host-expand"
+        total, maxc = _probe_stats(counts)
+        if maxc <= 1 and total == stream.nrows:
+            # every stream row matched once: stream columns pass through
+            # ungathered, build rows are addressed by the lower bounds
+            build_ids = lower.to(torch.int64)
+            path = "unique-identity"
+        elif maxc <= 1:
+            probe_ids = _compact_nonzero(counts > 0)
+            build_ids = torch.index_select(lower, 0, probe_ids).to(torch.int64)
+            path = "unique-partial"
         else:
-            total, maxc = _probe_stats(counts)
-            if maxc <= 1 and total == stream.nrows:
-                # every stream row matched once: stream columns pass through
-                # ungathered, build rows are addressed by the lower bounds
-                build_ids = lower.to(torch.int64)
-                path = "unique-identity"
-            elif maxc <= 1:
-                probe_ids = _compact_nonzero(counts > 0)
-                build_ids = torch.index_select(lower, 0, probe_ids).to(torch.int64)
-                path = "unique-partial"
-            else:
-                probe_ids, build_ids = expand_matches_device(lower, counts, total)
-                path = "fan-out"
+            probe_ids, build_ids = expand_matches_device(lower, counts, total)
+            path = "fan-out"
         expand_paths[path] += 1
         _exp["path"] = path
         _exp["rows_out"] = total
@@ -1099,7 +1051,7 @@ def _multiway_expand(
     return probe_ids, tuple(build_ids)
 
 
-def _multiway_ids(lowers, counts, nrows: int, label: str, stage: dict, device=None):
+def _multiway_ids(lowers, counts, nrows: int, label: str, stage: dict):
     """(probe ids or None, per-build-side build ids, total, intermediate
     rows avoided) for the multiway fan-out, choosing the path as the
     reference does: every row matched once in every build side (stream
@@ -1109,15 +1061,6 @@ def _multiway_ids(lowers, counts, nrows: int, label: str, stage: dict, device=No
     count in *stage*."""
     if isinstance(counts[0], ShardedRows):
         return _sharded_ids(lowers, counts, nrows, label, stage)
-    if isinstance(counts[0], np.ndarray):  # a tier answering on the host
-        probe_ids, build, total, inter = _multiway_expand_host(lowers, counts)
-        probe_ids = torch.from_numpy(probe_ids).to(device)
-        build = tuple(torch.from_numpy(b).to(device) for b in build)
-        path = f"{label}-host-expand"
-        expand_paths[path] += 1
-        stage["path"] = path
-        stage["rows_out"] = total
-        return probe_ids, build, total, inter
     total, maxp, inter = _multiway_stats(counts)
     if maxp <= 1 and total == nrows:
         path = f"{label}-unique-identity"
@@ -1196,7 +1139,7 @@ def multiway_join(
         _exp["dims"] = len(specs)
         probe_ids, build_ids, total, inter = _multiway_ids(
             [lo for lo, _ in answers], [ct for _, ct in answers], stream.nrows,
-            "multiway", _exp, stream.device,
+            "multiway", _exp,
         )
         # every build side's answers live at once here (the cascade holds
         # one side's at a time): free them before the gathers
@@ -1268,7 +1211,7 @@ def multiway_join_selected(
     with telemetry.stage("join:expand", n_sel) as _exp:
         _exp["dims"] = len(specs)
         probe_ids, build_ids, total, inter = _multiway_ids(
-            [lo for lo, _ in answers], [ct for _, ct in answers], n_sel, "fused", _exp, device
+            [lo for lo, _ in answers], [ct for _, ct in answers], n_sel, "fused", _exp
         )
         del answers  # as in multiway_join: free the answers before the gathers
         telemetry.barrier(_flat((probe_ids,) + build_ids))

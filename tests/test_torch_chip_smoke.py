@@ -34,6 +34,7 @@ what they time (phase 4's two feed the stage diff), and warm (a) must
 synchronize nowhere with telemetry off; the ``kernels`` line names every
 path."""
 
+import hashlib
 import importlib.util
 from pathlib import Path
 
@@ -409,3 +410,31 @@ def test_kernels_line_lists_every_path():
     assert set(names) <= set(by_path)
     assert by_path["phase 14 multi-device"] == 0
     assert kernels[1]["launches_by_path"]["phase 14 multi-device"] == 0
+
+
+#: SHA-256 of the files ``generate(d, 20_000, 1)`` and
+#: ``_dedup_data(d, 20_000, 18_000, 1)`` wrote while the script carried its
+#: own copy of the generators: the adapters over ``portbench.reference``
+#: write the same bytes, so the on-card check and the benchmark read the
+#: same files.
+GENERATED_SHA256 = {
+    "orders.csv": "60c178b6fa2f5dfc262ed683e5456193a59eda1b8d2b33273f8c54236cbd7757",
+    "customers.csv": "d483054079a3869e7a541cf76cc657e924f64619307380b810e50a359cd84fbb",
+    "products.csv": "70af8ae8132f06806371fe85da18b095210b1144d342dcfb2d4c589331fcc286",
+    "dedup.csv": "33f6506e3a97e9b295c6799066cb5d9148c145c7088358168c2a508623247089",
+}
+
+
+@pytest.fixture(scope="module")
+def generated(tmp_path_factory):
+    C = _chip_smoke()
+    d = tmp_path_factory.mktemp("generated")
+    paths = list(C.generate(d, 20_000, 1)["paths"].values())
+    paths.append(C._dedup_data(d, 20_000, 18_000, 1)["path"])
+    return {p.name: p for p in paths}
+
+
+@pytest.mark.parametrize("name", sorted(GENERATED_SHA256))
+def test_generated_files_keep_their_bytes(generated, name):
+    assert sorted(generated) == sorted(GENERATED_SHA256)
+    assert hashlib.sha256(generated[name].read_bytes()).hexdigest() == GENERATED_SHA256[name]

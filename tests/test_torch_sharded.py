@@ -12,8 +12,9 @@ through the executor and the multiway join (one ``part_info``); the
 flagship's padded branch; the dsort route (narrow and wide); checksums,
 sinks and row-numbered errors across shards; the typed pads; config 5's
 ``sharded_join``; ``shard_row_counts`` on a repeated-device mesh; the
-``shards=`` resolution rules; ``placement_of_column``; and the assembly
-counter (zero on the sharded three-way join)."""
+``shards=`` resolution rules; ``placement_of_column``; every probe tier
+answering on the device; and the assembly counter (zero on the sharded
+three-way join)."""
 
 import io
 
@@ -766,52 +767,77 @@ def test_config5_sharded_join(people_csv, orders_csv):
     assert _dicts(dev.to_rows()) == got["port"][0]
 
 
-# -- the host-answer expansions ------------------------------------------------------
+# -- every probe tier answers on the device ------------------------------------------
+
+#: tier: (key columns, sharded stream, DIRECT_MAX_BITS, PARTITION_MIN_KEYS).
+#: Three key columns of 1,100 values pack into 33 bits: the two-lane tier.
+PROBE_TIERS = {
+    "direct": (1, False, 23, None),
+    "i32": (1, False, 0, None),
+    "wide": (3, False, 23, None),
+    "replicated-direct": (1, True, 23, 10**9),
+    "replicated-i32": (1, True, 0, 10**9),
+    "replicated-wide": (3, True, 23, 10**9),
+    "partitioned": (1, True, 23, 1),
+    "partitioned-wide": (3, True, 23, 1),
+}
 
 
-@pytest.mark.parametrize("seed", range(3))
-def test_host_answer_expansions_equal_reference(seed):
-    rng = np.random.default_rng(seed)
-    m = 200
-    lowers = [rng.integers(0, 50, m).astype(np.int32) for _ in range(3)]
-    counts = [rng.integers(0, 4, m).astype(np.int32) for _ in range(3)]
-    for got, want in zip(TJ.expand_matches(lowers[0], counts[0]),
-                         JJ.expand_matches(lowers[0], counts[0])):
-        assert np.array_equal(got, want)
-    g = TJ._multiway_expand_host(lowers, counts)
-    w = JJ._multiway_expand_host(lowers, counts)
-    assert np.array_equal(g[0], w[0]) and g[2:] == w[2:]
-    assert all(np.array_equal(a, b) for a, b in zip(g[1], w[1]))
+@pytest.mark.parametrize("tier", sorted(PROBE_TIERS))
+def test_every_probe_tier_answers_on_the_device(monkeypatch, tier):
+    """The join layer expands only device answers: each tier of
+    ``DeviceIndex.probe`` returns tensors on the probe's device, or
+    ShardedRows with every shard on its mesh device, never numpy; the
+    join's rows equal the reference's (whose partitioned tier answers in
+    numpy)."""
+    n_keys, sharded, direct_max, min_keys = PROBE_TIERS[tier]
+    for Idx in (TJ.DeviceIndex, JJ.DeviceIndex):
+        monkeypatch.setattr(Idx, "DIRECT_MAX_BITS", direct_max)
+        if min_keys is not None:
+            monkeypatch.setattr(Idx, "PARTITION_MIN_KEYS", min_keys)
+    keys = ["a", "b", "c"][:n_keys]
+    n = 1_100
+    # the first 40 build rows twice: those keys fan out
+    rows = list(range(n)) + list(range(40))
+    build = {k: [f"{k}{i:05d}" for i in rows] for k in keys}
+    build["v"] = [str(r) for r in range(len(rows))]
+    rng = np.random.default_rng(5)
+    pick = rng.integers(0, n + 100, 600)  # about 1 in 12 misses every key
+    probes = {k: [f"{k}{i:05d}" for i in pick.tolist()] for k in keys}
+    probes["s"] = [str(r) for r in range(600)]
+    answers = []
+    orig = TJ.DeviceIndex.probe
 
+    def recording(self, *a, **k):
+        answers.append(orig(self, *a, **k))
+        return answers[-1]
 
-def test_a_host_answering_probe_expands_on_the_host(monkeypatch):
-    """A probe that answers in numpy (the reference's host tier) takes the
-    host expansion in the binary and the multiway join, with the
-    reference's rows and path."""
-    rows = [{"k": f"k{i % 7}", "s": str(i)} for i in range(40)]
-    out = {}
-    for side, pkg in PKGS.items():
-        Jn = JJ if side == "ref" else TJ
-        tel = j_tel if side == "ref" else t_tel
+    monkeypatch.setattr(TJ.DeviceIndex, "probe", recording)
+
+    def run(pkg, side):
         Table = JTable if side == "ref" else TTable
-        orig = Jn.DeviceIndex.probe
+        src_of = j_source if side == "ref" else t_source
+        idx = src_of(Table.from_pylists(build, "cpu")).index_on(*keys)
+        table = Table.from_pylists(probes, "cpu")
+        if sharded:
+            table = table.with_sharding(_mesh(side))
+        return _dicts(src_of(table).join(idx, *keys).to_rows())
 
-        def host_probe(self, *a, _orig=orig, **k):
-            lo, ct = _orig(self, *a, **k)
-            return np.asarray(lo), np.asarray(ct)
-
-        monkeypatch.setattr(Jn.DeviceIndex, "probe", host_probe)
-        idx = _dim(side, "k", "k", "v", 7).device_table
-        idx2 = _dim(side, "k", "k", "w", 5).device_table
-        t = Table.from_rows([pkg.Row(r) for r in rows], "cpu")
-        with tel.collect():
-            one = Jn.join_tables(t, idx, ["k"])
-            two = Jn.multiway_join(t, [(idx, ("k",)), (idx2, ("k",))])
-            paths = [r.extra.get("path") for r in tel.records if r.stage == "join:expand"]
-        out[side] = (_dicts(one.to_rows()), _dicts(two.to_rows()), paths)
-        monkeypatch.setattr(Jn.DeviceIndex, "probe", orig)
-    assert out["port"] == out["ref"]
-    assert out["port"][2] == ["host-expand", "multiway-host-expand"]
+    before = dict(TJ.probe_tiers)
+    got = _both(run)
+    assert got["port"] == got["ref"]
+    hits = [r["s"] for r in got["port"]]
+    assert len(hits) > len(set(hits)) and 0 < len(set(hits)) < 600  # fan-outs and misses
+    assert {t: c - before.get(t, 0) for t, c in TJ.probe_tiers.items()
+            if c != before.get(t, 0)} == {tier: 1}
+    assert len(answers) == 1
+    for x in answers[0]:
+        if sharded:
+            assert isinstance(x, TM.ShardedRows) and x.mesh.size == 8
+            assert all(isinstance(s, torch.Tensor) and s.device == torch.device(d)
+                       for s, d in zip(x.shards, x.mesh.devices))
+        else:
+            assert isinstance(x, torch.Tensor) and x.device == torch.device("cpu")
 
 
 # -- the two thresholds are read from the environment at import ----------------------
